@@ -4,7 +4,8 @@ The port of :mod:`heracles_tpu` to PyTorch with hand-written Hopper
 kernels.  It imports torch and numpy, never jax or heracles_tpu (whose
 shipped tables it reads from disk).  A tensor's device picks the path:
 CPU tensors run plain PyTorch, CUDA tensors run the kernels.  Ported so
-far: catalogue -> HEALPix maps -> alms -> angular power spectra.
+far: catalogue -> HEALPix maps -> alms -> angular power spectra -> mixing
+matrices, their pseudo-inverses and their application to spectra.
 """
 
 __version__ = "0.1.0"
@@ -36,12 +37,23 @@ from .fields import (
     Shears,
     Spin2Field,
     Visibility,
+    Weights,
+    get_masks,
 )
 from .mappers import HealpixMapper
 from .mapping import map_catalogs, transform
 from .progress import NoProgress, Progress
 from .result import Result, binned
-from .twopoint import alm2cl, angular_power_spectra, debias_cls
+from .twopoint import (
+    alm2cl,
+    angular_power_spectra,
+    apply_mixing_matrix,
+    debias_cls,
+    invert_mixing_matrix,
+    mixing_matrices,
+    mixmat,
+    mixmat_eb,
+)
 
 __all__ = [
     "__version__",
@@ -65,13 +77,20 @@ __all__ = [
     "Spin2Field",
     "TocDict",
     "Visibility",
+    "Weights",
     "alm2cl",
     "angular_power_spectra",
+    "apply_mixing_matrix",
     "binned",
     "debias_cls",
     "external_dependency_explainer",
     "fsky_from_visibility",
+    "get_masks",
+    "invert_mixing_matrix",
     "map_catalogs",
+    "mixing_matrices",
+    "mixmat",
+    "mixmat_eb",
     "to_numpy",
     "to_torch",
     "toc_filter",

@@ -9,28 +9,37 @@ normalises the map and attaches the noise-bias ingredients as metadata:
   bias ingredients ``musq=1``, ``dens=(nbar/area)^2 / (ngal/4 pi fsky) / <w^2>``;
 * :class:`ComplexField` (spin 0) and :class:`Spin2Field` (= ``Shears`` =
   ``Ellipticities``) — two-component values;
-* :class:`Visibility` — copy the catalogue's visibility map.
+* :class:`Visibility` — copy the catalogue's visibility map;
+* :class:`Weights` — map of the weights themselves (the mask of a
+  weighted field);
+* :func:`get_masks` — mask names or n-combinations of a set of fields,
+  with ``_E``/``_B`` key filtering; mixing-matrix users build their mask
+  spectra with these.
 """
 
 from __future__ import annotations
 
 import warnings
 from abc import ABCMeta, abstractmethod
+from functools import partial
+from itertools import combinations_with_replacement, product
 
 import numpy as np
 import torch
 
 from . import _scheduler as coroutines
-from .core import update_metadata
+from .core import toc_match, update_metadata
 
 __all__ = [
     "Field",
     "Positions",
     "ComplexField",
     "Visibility",
+    "Weights",
     "Spin2Field",
     "Shears",
     "Ellipticities",
+    "get_masks",
 ]
 
 
@@ -328,9 +337,53 @@ class Visibility(Field, spin=0):
         return out
 
 
+class Weights(_PagedField, spin=0):
+    """Map of the weights themselves."""
+
+    uses = "longitude", "latitude", "[weight]"
+
+    def _finalise(self, wht, mom, catalog, mapper):
+        return self._mean_weight_normalise(wht, mom, catalog, mapper, musq=1.0)
+
+
 class Spin2Field(ComplexField, spin=2):
     """Spin-2 complex field (cosmic shear, ellipticities)."""
 
 
 Shears = Spin2Field
 Ellipticities = Spin2Field
+
+
+def get_masks(fields, *, comb=None, include=None, exclude=None, append_eb=False):
+    """Mask names (or n-combinations) for a set of fields.
+
+    ``include``/``exclude`` filter by *field* keys; with ``append_eb``,
+    spin-weighted field keys are expanded to their ``_E``/``_B`` variants
+    before filtering.
+    """
+    matches = partial(toc_match, include=include, exclude=exclude)
+
+    def eb_keys(key):
+        if append_eb and fields[key].spin != 0:
+            return (f"{key}_E", f"{key}_B")
+        return (key,)
+
+    if comb is None:
+        out = []
+        for key, field in fields.items():
+            if field.mask is None:
+                continue
+            if not any(map(matches, eb_keys(key))):
+                continue
+            out.append(field.mask)
+        return out
+
+    out = []
+    for keys in combinations_with_replacement(fields, comb):
+        masks = tuple(fields[key].mask for key in keys)
+        if any(mask is None for mask in masks):
+            continue
+        if not any(map(matches, product(*map(eb_keys, keys)))):
+            continue
+        out.append(masks)
+    return out

@@ -1,1 +1,2 @@
-"""Spherical harmonic transform operations of the port."""
+"""Kernel-backed operations of the port: the SHT, the Gram contraction
+of the mixing matrices and the FMA-peak probe."""

@@ -1,8 +1,9 @@
 """Build and load the Hopper kernels of :mod:`heracles_tpu_torch.ops`.
 
 The CUDA sources in ``heracles_tpu_torch/csrc/`` are compiled at first
-use with ``nvcc`` for ``sm_90a`` into a shared library with a plain C
-interface, which is loaded with :mod:`ctypes`.  The library lands in
+use with ``nvcc`` for ``sm_90a``, one ``nvcc`` per source, all started
+together, and linked into one shared library with a plain C interface,
+which is loaded with :mod:`ctypes`.  The library lands in
 ``build/heracles_tpu_torch/`` beside the package (named after a hash of
 the sources, so an edited source is rebuilt).  Nothing here runs when the
 module is imported.
@@ -10,6 +11,7 @@ module is imported.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import dataclasses
 import functools
@@ -23,11 +25,12 @@ from pathlib import Path
 __all__ = ["KernelLibrary", "build", "find_nvcc", "load_library"]
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = (_PKG / "csrc" / "sht_analysis.cu",)
+SOURCES = tuple(_PKG / "csrc" / name
+                for name in ("sht_analysis.cu", "gram.cu", "fma_peak.cu"))
 BUILD_DIR = _PKG.parent / "build" / "heracles_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -39,6 +42,9 @@ _SIGNATURES = {
     "heracles_analysis_spin0_f64": [_P] * 7 + [_I] * 4 + [_P],
     "heracles_analysis_pair_f32": [_P] * 10 + [_I] * 5 + [_P],
     "heracles_analysis_pair_f64": [_P] * 10 + [_I] * 5 + [_P],
+    "heracles_gram_f64": [_P] * 4 + [_I] * 3 + [_P],
+    "heracles_fma_peak_f32": [_P] * 3 + [_I] * 4 + [_P],
+    "heracles_fma_peak_f64": [_P] * 3 + [_I] * 4 + [_P],
 }
 
 
@@ -83,11 +89,29 @@ def _source_hash():
     return h.hexdigest()[:16]
 
 
+def _library_path():
+    return BUILD_DIR / f"libheracles_{_source_hash()}.so"
+
+
+def _run(cmd):
+    """Run one compiler command to its end; raises with its output."""
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed with exit code {proc.returncode}:\n"
+            f"{' '.join(cmd)}\n{log}"
+        )
+    return log
+
+
 def build(nvcc=None):
     """Compile the kernel library; returns (path, seconds, compiler log).
 
-    Raises RuntimeError when ``nvcc`` is missing or the build fails, with
-    the compiler's output in the message.
+    Each source is compiled by its own ``nvcc``, all at once, and the
+    objects are linked into one shared library.  Raises RuntimeError when
+    ``nvcc`` is missing or a step fails, with the compiler's output in the
+    message.
     """
     nvcc = nvcc or find_nvcc()
     if nvcc is None or not os.access(nvcc, os.X_OK):
@@ -97,27 +121,31 @@ def build(nvcc=None):
             "need the CUDA toolkit"
         )
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = BUILD_DIR / f"libheracles_sht_{_source_hash()}.so"
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
+    out = _library_path()
+    tag = f"{os.getpid()}.tmp"
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in SOURCES]
+    tmp = out.with_suffix(f".{tag}")
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n"
-            f"{' '.join(cmd)}\n{log}"
-        )
-    os.replace(tmp, out)
-    return out, seconds, log
+    try:
+        with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as pool:
+            logs = list(pool.map(
+                _run,
+                [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                 for src, obj in zip(SOURCES, objs)],
+            ))
+        logs.append(_run([nvcc, "-shared", *NVCC_FLAGS[:2], "-o", str(tmp),
+                          *map(str, objs)]))
+        os.replace(tmp, out)
+    finally:
+        for path in (*objs, tmp):
+            path.unlink(missing_ok=True)
+    return out, time.perf_counter() - t0, "".join(logs)
 
 
 @functools.lru_cache(maxsize=1)
 def load_library():
     """Build (if needed) and load the kernel library, once per process."""
-    path = BUILD_DIR / f"libheracles_sht_{_source_hash()}.so"
+    path = _library_path()
     seconds, log = 0.0, ""
     if not path.exists():
         path, seconds, log = build()

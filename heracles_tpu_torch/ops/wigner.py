@@ -23,6 +23,9 @@ those kernels (:func:`analysis_spin0_folded_plain`,
 vectorised over rings, lanes and the batch.  The seed is evaluated in
 float64 and the recurrence coefficients are computed in float64, then
 both are rounded to the working type, exactly as the kernels do.
+
+The mixing matrices' host-f64 tables (:func:`wigner_table_host`,
+:func:`legendre_sum_host`) are numpy, carried over unchanged.
 """
 
 from __future__ import annotations
@@ -41,6 +44,8 @@ __all__ = [
     "lambda_analysis_scan_folded",
     "analysis_spin0_folded_plain",
     "analysis_pair_folded_plain",
+    "wigner_table_host",
+    "legendre_sum_host",
     "PLAIN_RUNS",
 ]
 
@@ -318,3 +323,74 @@ def analysis_pair_folded_plain(FNp, Sp, FNm, Sm, x, logch, logsh, lmax, spin):
         cross=True,
     )
     return out[..., :nm], out[..., nm:]
+
+
+def wigner_table_host(m, n, theta, lmax):
+    """Host-f64 Wigner-d table d^l_{-m,-n}(theta), shape (lmax+1, nr).
+
+    Carried over from :mod:`heracles_tpu.ops.wigner` unchanged, so the
+    mixing-matrix tables are the reference's own, bit for bit.  Small
+    spins only (|m|, |n| <= ~32, where the unscaled recurrence neither
+    under- nor overflows).  The tables feed the float64 Gram contraction
+    of the mixing matrices (:mod:`.gram`).
+    """
+    m, n = int(m), int(n)
+    mp, npar = -m, -n
+    a, b = abs(mp), abs(npar)
+    j0 = max(a, b)
+    if j0 > 64:
+        raise ValueError("wigner_table_host: unscaled recurrence needs "
+                         f"small spins, got j0={j0}")
+    theta = np.asarray(theta, np.float64)
+    out = np.zeros((lmax + 1, theta.size))
+    if j0 > lmax:
+        return out
+    # seed d^{j0}_{m', n'} = (-1)^k0 C cos^pc(t/2) sin^ps(t/2)
+    c = npar if a >= b else mp
+    lf = _log_factorials(2 * j0 + 2)
+    logC = 0.5 * (lf[2 * j0] - lf[j0 + c] - lf[j0 - c])
+    pc = abs(mp + npar)
+    ps = abs(mp - npar)
+    k0 = (mp - npar if mp >= 0 else 0) if a >= b else (0 if npar > 0 else mp + b)
+    sign = 1.0 if k0 % 2 == 0 else -1.0
+    ch, sh = np.cos(theta / 2.0), np.sin(theta / 2.0)
+    out[j0] = sign * np.exp(logC) * ch**pc * sh**ps
+    x = np.cos(theta)
+    mn = float(m * n)  # m'*n' = (-m)(-n) = m*n
+    m2, n2 = float(m * m), float(n * n)
+
+    def a_of(ell):
+        return np.sqrt((ell * ell - m2) * (ell * ell - n2)) / ell
+
+    d_prev = np.zeros_like(out[j0])
+    d_curr = out[j0]
+    for ell in range(j0 + 1, lmax + 1):
+        lf_, lm1 = float(ell), float(ell - 1)
+        mid = (2.0 * lf_ - 1.0) * (x - mn / max(lm1 * lf_, 1.0))
+        a_lm1 = a_of(lm1) if ell - 1 > j0 else 0.0
+        d_new = (mid * d_curr - a_lm1 * d_prev) / a_of(lf_)
+        out[ell] = d_new
+        d_prev, d_curr = d_curr, d_new
+    return out
+
+
+def legendre_sum_host(coeffs, x):
+    """Host-f64 sum_l coeffs[l] P_l(x) via the streaming recurrence.
+
+    O(1) memory in l — used for the mixing matrices' mask correlation
+    xi(x) at l3max ~ thousands without materialising the P table.
+    Carried over from :mod:`heracles_tpu.ops.wigner` unchanged.
+    """
+    coeffs = np.asarray(coeffs, np.float64)
+    x = np.asarray(x, np.float64)
+    acc = np.full_like(x, coeffs[0])
+    if coeffs.shape[0] == 1:
+        return acc
+    p_prev = np.ones_like(x)
+    p_curr = x.copy()
+    acc += coeffs[1] * p_curr
+    for ell in range(2, coeffs.shape[0]):
+        p_new = ((2 * ell - 1) * x * p_curr - (ell - 1) * p_prev) / ell
+        acc += coeffs[ell] * p_new
+        p_prev, p_curr = p_curr, p_new
+    return acc

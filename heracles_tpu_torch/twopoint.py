@@ -13,14 +13,29 @@ Counterpart of the spectra half of :mod:`heracles_tpu.twopoint`:
   EE/BB only for spin2 x spin2, divided by the pixel window when the maps
   were deconvolved.
 
-Spectra come back as host numpy arrays (small) carrying their metadata.
-Mixing matrices are not ported yet (ROADMAP A14).
+and of its mixing-matrix half:
+
+* :func:`mixmat`, :func:`mixmat_eb`, :func:`mixing_matrices` — MASTER
+  mixing matrices by Gauss-Legendre quadrature: host-f64 Wigner-d tables
+  on the nodes, uploaded once and cached on the device, contracted
+  against the node weights times the mask correlation by the float64
+  Gram kernel (:mod:`.ops.gram`); spin-2 E/B blocks by the parity split;
+* :func:`invert_mixing_matrix` — batched rcond-cut pseudo-inverses on
+  the device (``torch.linalg.pinv``), with the M+/M- block
+  diagonalisation of the E/B sector;
+* :func:`apply_mixing_matrix` — host matrix-vector products, E/B aware.
+
+Spectra and mixing matrices come back as host numpy arrays carrying their
+metadata.
 """
 
 from __future__ import annotations
 
+import functools
 import logging
 import time
+from collections.abc import Mapping
+from dataclasses import replace
 from datetime import timedelta
 from itertools import combinations_with_replacement, product
 
@@ -29,14 +44,21 @@ import torch
 
 from .core import TocDict, toc_match, update_metadata
 from .devicemap import DeviceMap
-from .ops import sht
-from .result import Result, binned
+from .ops import gram, sht
+from .ops.wigner import legendre_sum_host, wigner_table_host
+from .progress import NoProgress
+from .result import Result, binned, get_result_array
 
 __all__ = [
     "alm2cl",
     "alm2lmax",
     "angular_power_spectra",
+    "apply_mixing_matrix",
     "debias_cls",
+    "invert_mixing_matrix",
+    "mixing_matrices",
+    "mixmat",
+    "mixmat_eb",
     "rect_pair_grid",
 ]
 
@@ -305,4 +327,319 @@ def debias_cls(cls, bias=None, *, inplace=False):
     out = cls if inplace else TocDict()
     for key in cls:
         out[key] = _debias_cl(cls[key], bias and bias.get(key), inplace=inplace)
+    return out
+
+
+# -- mixing matrices ------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=4)
+def _leggauss(npoints):
+    """Cached Gauss-Legendre rule: numpy's eigen-solve takes seconds at the
+    production 4501 nodes, and every spin combination shares the rule."""
+    return np.polynomial.legendre.leggauss(npoints)
+
+
+def _gl_nodes(npoints):
+    """Gauss-Legendre nodes, weights and colatitudes arccos(x), host f64."""
+    x, w = _leggauss(npoints)
+    return x, w, np.arccos(x)
+
+
+@functools.lru_cache(maxsize=4)
+def _mixmat_tables(l1max, l2max, s1, s2, npoints, device):
+    """Device-resident float64 Wigner-d tables on the GL nodes.
+
+    d^{l1}_{-s1,-s2} (K, l1max+1) and d^{l2}_{s1,s2} (K, l2max+1), built
+    once per (sizes, spins, device) by the host-f64 recurrence, transposed
+    once to the node-major layout the Gram kernel reads, and kept on the
+    device across masks: the tables are mask-independent, only the node
+    weights change per call.
+    """
+    _, _, theta = _gl_nodes(npoints)
+
+    def upload(m, n, lmax):
+        table = wigner_table_host(m, n, theta, lmax)
+        return torch.as_tensor(np.ascontiguousarray(table.T), device=device)
+
+    A = upload(s1, s2, l1max)
+    B = A if (s1, s2, l1max) == (-s1, -s2, l2max) else upload(-s1, -s2, l2max)
+    return A, B
+
+
+def _mixmat_operands(cl3, l1max, l2max, s1, s2, eb, device):
+    """The Gram operands of one mixing matrix's GL quadrature.
+
+    Returns the device tables ``(A, B)`` and the node weights: ``(w xi,)``
+    or, for the E/B blocks, ``(w xi_even, w xi_odd)``, as float64 device
+    vectors, with xi the mask correlation sum (2l+1)/4pi cl3 P_l at the
+    nodes.
+    """
+    l3max = cl3.shape[-1] - 1
+    npoints = (l1max + l2max + l3max) // 2 + 1
+    x, w, _ = _gl_nodes(npoints)
+    A, B = _mixmat_tables(l1max, l2max, s1, s2, npoints, device)
+    ells3 = np.arange(l3max + 1, dtype=np.float64)
+    xi = legendre_sum_host((2 * ells3 + 1) / (4 * np.pi) * cl3, x)
+    if eb:
+        # GL nodes are symmetric (x[::-1] == -x), so the even/odd parts of
+        # xi split the integral by (l1 + l2) parity exactly
+        xi_e = 0.5 * (xi + xi[::-1])
+        xi_o = 0.5 * (xi - xi[::-1])
+        us = (w * xi_e, w * xi_o)
+    else:
+        us = (w * xi,)
+    return A, B, [torch.as_tensor(u, device=device) for u in us]
+
+
+def _mixmat_gl_dispatch(cl3, l1max, l2max, s1, s2, eb, device):
+    """Float64 GL quadrature of one mixing matrix; returns a finalize callable.
+
+    The contractions are launched on ``device`` (asynchronously on a card)
+    and the matrix is assembled there; the returned zero-argument callable
+    copies it to the host.  The E/B blocks are parity-filtered at the
+    integrand: M_plus / M_minus for (l1 + l2) even / odd are separate
+    contractions against the even / odd parts of xi, so the small M_minus
+    (EE -> BB leakage) entries come out at the contraction's own precision
+    instead of eps * |M_plus|.
+    """
+    A, B, us = _mixmat_operands(cl3, l1max, l2max, s1, s2, eb, device)
+    ells2 = np.arange(l2max + 1, dtype=np.float64)
+    pref = torch.as_tensor(2 * np.pi * (2 * ells2 + 1) / (4 * np.pi),
+                           device=device)
+    if not eb:
+        M = gram.gram(A, B, us[0]) * pref
+    else:
+        G_e, G_o = (gram.gram(A, B, u) for u in us)
+        ells1 = torch.arange(l1max + 1, device=device)
+        even = (ells1[:, None] + torch.arange(l2max + 1, device=device)) % 2 == 0
+        M_plus = torch.where(even, G_e, G_o) * pref
+        M_minus = torch.where(even, G_o, G_e) * pref
+        M = torch.stack([M_plus, M_minus, M_plus - M_minus])
+    return lambda: M.cpu().numpy()
+
+
+def _mixmat_dispatch(cl, *, l1max, l2max, l3max, spin, eb, device):
+    """Shared mixmat/mixmat_eb preprocessing; returns a finalize callable.
+
+    Every cl dtype is computed in float64 (float32 converts exactly) and
+    the matrix is float64, as both paths of the reference return it.
+    """
+    cl = _tensor(cl).cpu().numpy()
+    if l3max is not None:
+        cl = cl[..., : l3max + 1]
+    lmax_default = cl.shape[-1] - 1
+    l1max = lmax_default if l1max is None else int(l1max)
+    l2max = lmax_default if l2max is None else int(l2max)
+    s1, s2 = spin
+    device = torch.device("cpu" if device is None else device)
+    return _mixmat_gl_dispatch(np.asarray(cl, np.float64), l1max, l2max,
+                               abs(s1), abs(s2), eb, device)
+
+
+def mixmat(cl, *, l1max=None, l2max=None, l3max=None, spin=(0, 0),
+           device=None):
+    """MASTER mixing matrix M[l1, l2] for a (possibly spin-weighted) pair.
+
+    Equivalent of ``convolvecl.mixmat``: M = (2 l2+1)/4pi sum_l3 (2 l3+1)
+    cl[l3] (3j(l1,l2,l3; -s1,s1,0))(3j(l1,l2,l3; -s2,s2,0)).  Computed on
+    ``device`` (default the CPU); returns a host float64 array.
+    """
+    return _mixmat_dispatch(
+        cl, l1max=l1max, l2max=l2max, l3max=l3max, spin=spin, eb=False,
+        device=device,
+    )()
+
+
+def mixmat_eb(cl, *, l1max=None, l2max=None, l3max=None, spin=(2, 2),
+              device=None):
+    """E/B mixing-matrix blocks (EE<->EE, EE<->BB, EB<->EB) for spin pairs.
+
+    Equivalent of ``convolvecl.mixmat_eb``; the EB block equals
+    M_plus - M_minus, consistent with the block-diagonal inversion of
+    :func:`invert_mixing_matrix`.  Returns a host (3, l1max+1, l2max+1)
+    float64 array.
+    """
+    return _mixmat_dispatch(
+        cl, l1max=l1max, l2max=l2max, l3max=l3max, spin=spin, eb=True,
+        device=device,
+    )()
+
+
+def _fields_device(fields):
+    """Device of the first field whose mapper has one, else the CPU."""
+    for field in fields:
+        device = getattr(getattr(field, "mapper", None), "device", None)
+        if device is not None:
+            return torch.device(device)
+    return torch.device("cpu")
+
+
+def mixing_matrices(
+    fields,
+    cls,
+    *,
+    l1max=None,
+    l2max=None,
+    l3max=None,
+    bins=None,
+    weights=None,
+    out=None,
+    progress=None,
+    device=None,
+):
+    """Mixing matrices for all field pairs covered by the given mask cls.
+
+    ``cls`` are mask (cross-)spectra keyed (mask1, mask2, bin1, bin2);
+    fields are matched through their ``mask`` attribute.  The result is
+    keyed (field1, field2, bin1, bin2) and wrapped as a Result with the
+    *output* ell on axis -2.  The contractions run on ``device``, by
+    default the device of the matched fields' mappers (the CPU when they
+    have none).
+    """
+    if out is None:
+        out = TocDict()
+    if progress is None:
+        progress = NoProgress()
+
+    masks = {}
+    for key, field in fields.items():
+        if field.mask is not None:
+            masks.setdefault(field.mask, {})[key] = field
+    if device is None:
+        device = _fields_device(f for fs in masks.values() for f in fs.values())
+
+    # phase 1: dispatch every pair's device contractions, so that later
+    # pairs' host work (mask correlation, tables) overlaps earlier kernels
+    done = set()
+    pending = []
+    current, total = 0, len(cls)
+    for (k1, k2, i1, i2), cl in cls.items():
+        current += 1
+        progress.update(current, total)
+        try:
+            fields1 = masks[k1]
+            fields2 = masks[k2]
+        except KeyError:
+            continue
+        for f1, f2 in product(fields1, fields2):
+            if (f1, f2, i1, i2) in done or (f2, f1, i2, i1) in done:
+                continue
+            done.add((f1, f2, i1, i2))
+            spin1, spin2 = fields1[f1].spin, fields2[f2].spin
+            finalize = _mixmat_dispatch(
+                cl,
+                l1max=l1max,
+                l2max=l2max,
+                l3max=l3max,
+                spin=(spin1, spin2),
+                eb=not (spin1 == 0 or spin2 == 0),
+                device=device,
+            )
+            pending.append(((f1, f2, i1, i2), (spin1, spin2), finalize))
+
+    # phase 2: materialise, in dispatch order
+    for key, spins, finalize in pending:
+        with progress.task(f"({key[0]}, {key[1]}, {key[2]}, {key[3]})"):
+            mm = finalize()
+            ell = np.arange(mm.shape[-2])
+            result = Result(mm, spin=spins, ell=ell, axis=-2)
+            if bins is not None:
+                result = binned(result, bins, weights)
+            out[key] = result
+            del mm
+    return out
+
+
+def _pinv_batch(a, rcond, device):
+    """Batched rcond-cut pseudo-inverse of a host (k, n, m) float64 stack.
+
+    One ``torch.linalg.pinv`` call on ``device``: ``rtol`` cuts singular
+    values relative to the largest, which is what ``rcond`` means to the
+    reference.  The spin-2 blocks (M+, M-, EB) invert independently.
+    """
+    a = torch.as_tensor(np.array(a, np.float64), device=device)
+    return torch.linalg.pinv(a, rtol=rcond).cpu().numpy()
+
+
+def invert_mixing_matrix(M, rcond=1e-5, progress=None, *, device=None):
+    """Pseudo-inverses of mixing matrices.
+
+    For spin2 x spin2, the (EE, BB) sector is block-diagonalised by the
+    M+ = M_EE + M_BB / M- = M_EE - M_BB transformation before pinv and
+    recombined; EB inverts independently.  ``rcond`` is a number or a
+    mapping of keys to numbers.  The pseudo-inverses of a key run as one
+    batched call on ``device`` (default the CPU).
+    """
+    if progress is None:
+        progress = NoProgress()
+    device = torch.device("cpu" if device is None else device)
+
+    inv = {}
+    current, total = 0, len(M)
+    for key, value in M.items():
+        current += 1
+        progress.update(current, total)
+        arr = value.array
+        s1, s2 = value.spin
+        *_, n, m = arr.shape
+        if isinstance(rcond, Mapping):
+            if key not in rcond:
+                raise KeyError(f"Missing rcond value for wm key: {key}")
+            rc = rcond[key]
+        else:
+            rc = rcond
+        with progress.task(f"invert {key}"):
+            ahost = np.asarray(arr, np.float64)
+            if s1 != 0 and s2 != 0:
+                blocks = np.stack(
+                    [ahost[0] + ahost[1], ahost[0] - ahost[1], ahost[2]]
+                )
+                inv_p, inv_m, inv_eb = _pinv_batch(blocks, rc, device)
+                inv_ee = (inv_p + inv_m) / 2
+                inv_bb = (inv_p - inv_m) / 2
+                arr_inv = np.array([inv_ee, inv_bb, inv_eb])
+            else:
+                arr_inv = _pinv_batch(ahost[None], rc, device)[0]
+            if n != m:
+                # pinv swaps input/output ell axes; rebuild angular arrays
+                axis = value.axis[0]
+                out_size = arr_inv.shape[axis]
+                inv[key] = replace(
+                    value,
+                    array=arr_inv,
+                    ell=np.arange(out_size),
+                    lower=np.arange(out_size),
+                    upper=np.arange(1, out_size + 1),
+                    weight=np.ones(out_size),
+                )
+            else:
+                inv[key] = replace(value, array=arr_inv)
+    return inv
+
+
+def apply_mixing_matrix(d, M):
+    """Apply mixing matrices to data cls (block E/B handling for spin-2)."""
+    out = {}
+    for key in d.keys():
+        dtype = d[key].array.dtype
+        s1, s2 = d[key].spin
+        data = np.atleast_2d(d[key].array)
+        mat = M[key].array
+        ell = get_result_array(M[key], "ell")[0]
+        lower = get_result_array(M[key], "lower")[0]
+        upper = get_result_array(M[key], "upper")[0]
+        weight = get_result_array(M[key], "weight")[0]
+        if s1 != 0 and s2 != 0:
+            ee = mat[0] @ data[0, 0] + mat[1] @ data[1, 1]
+            bb = mat[1] @ data[0, 0] + mat[0] @ data[1, 1]
+            eb = mat[2] @ data[0, 1]
+            be = mat[2] @ data[1, 0]
+            mixed = np.array([[ee, eb], [be, bb]])
+        else:
+            mixed = np.squeeze(np.array([mat @ cl for cl in data]))
+        mixed = np.asarray(mixed, dtype=dtype)
+        out[key] = replace(
+            d[key], array=mixed, ell=ell, lower=lower, upper=upper, weight=weight
+        )
     return out

@@ -1,4 +1,4 @@
-"""Hopper analysis kernels against their plain PyTorch versions.
+"""Hopper kernels against their plain PyTorch versions.
 
 These tests need an NVIDIA Hopper card and ``nvcc``; they carry the
 ``cuda`` marker and skip elsewhere.  The file imports no JAX, so on the
@@ -6,10 +6,13 @@ card it runs on its own:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_kernels.py
 
-Tolerances are the bar the Pallas kernels were held to against the jnp
-scans (tests/test_pallas.py): float32 ``atol = 2e-5 * scale, rtol = 2e-4``
-(the same algorithm, with float32 sums taken in another order); float64
-``atol = 1e-11 * scale``.
+Tolerances: the analysis kernels are held to the bar the Pallas kernels
+were held to against the jnp scans (tests/test_pallas.py): float32
+``atol = 2e-5 * scale, rtol = 2e-4`` (the same algorithm, with float32
+sums taken in another order); float64 ``atol = 1e-11 * scale``.  The Gram
+kernel to 1e-12 of the largest entry (float64 sums in another order), the
+probe kernels to steps * eps of the largest value (an FMA and a
+multiply-then-add round differently at every step).
 """
 
 import numpy as np
@@ -17,7 +20,7 @@ import pytest
 import torch
 
 from heracles_tpu_torch.healpix import ring_geometry
-from heracles_tpu_torch.ops import sht_kernels, wigner
+from heracles_tpu_torch.ops import fma_peak, gram, sht_kernels, wigner
 
 pytestmark = pytest.mark.cuda
 
@@ -82,3 +85,50 @@ def test_pair_kernel_matches_plain(cuda, nside, lmax, batch, cdtype):
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         _assert_close(g, w, cdtype)
+
+
+# (K, L1, L2): K not a multiple of the chunk, L1 = 1, L2 not a multiple
+# of the tile, and tiles on both sides of every edge
+GRAM_CASES = [(37, 1, 70), (4501 // 9, 65, 129), (1000, 130, 3)]
+
+
+@pytest.mark.parametrize("weighted", [True, False])
+@pytest.mark.parametrize("K,L1,L2", GRAM_CASES)
+def test_gram_kernel_matches_plain(cuda, K, L1, L2, weighted):
+    rng = np.random.default_rng(K)
+    A = torch.as_tensor(rng.normal(size=(K, L1)), device=cuda)
+    B = torch.as_tensor(rng.normal(size=(K, L2)), device=cuda)
+    u = torch.as_tensor(rng.normal(size=K), device=cuda) if weighted else None
+    want = gram.gram_plain(A, B, u)
+    before = gram.LAUNCHES["gram"]
+    got = gram.gram(A, B, u)
+    torch.cuda.synchronize()
+    assert gram.LAUNCHES["gram"] == before + 1
+    assert got.shape == (L1, L2) and got.device == A.device
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-12 * np.abs(want).max())
+    # a fixed summation order: the kernel repeats itself bit for bit
+    np.testing.assert_array_equal(gram.gram(A, B, u).cpu().numpy(), got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", ["fma", "rec3"])
+@pytest.mark.parametrize("nchain", [1, 4])
+def test_probe_kernel_matches_plain(cuda, kind, dtype, nchain):
+    steps = 256
+    a, b = fma_peak.inputs(33, dtype, cuda)
+    want = fma_peak.chains_plain(a, b, kind, steps, nchain)
+    before = fma_peak.LAUNCHES["fma_peak"]
+    got = fma_peak.chains(a, b, kind, steps, nchain)
+    torch.cuda.synchronize()
+    assert fma_peak.LAUNCHES["fma_peak"] == before + 1
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    assert np.all(np.isfinite(got))
+    np.testing.assert_allclose(got, want, rtol=0, atol=steps
+                               * torch.finfo(dtype).eps * np.abs(want).max())
+
+
+def test_probe_run_reports_a_rate(cuda):
+    seconds, n_ops = fma_peak.run("fma", 64, 256, 2, dtype=torch.float32,
+                                  device=cuda)
+    assert seconds > 0 and n_ops == 64 * 128 * 256 * 2 * 2

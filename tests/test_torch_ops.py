@@ -255,7 +255,34 @@ def test_kernel_module_on_cpu_uses_plain(monkeypatch):
         sht_kernels.analysis_spin0_folded(F.real, F.real, x, lch, lsh, lmax)
 
 
+def test_gram_and_probe_on_cpu_use_plain(monkeypatch):
+    """CPU tensors take the plain Gram and probe, launch nothing, build nothing."""
+    from heracles_tpu_torch.ops import fma_peak, gram
+
+    def no_build():
+        raise AssertionError("the CPU path must not build the kernels")
+
+    monkeypatch.setattr(_build, "load_library", no_build)
+    gram.reset_counts()
+    fma_peak.reset_counts()
+    rng = np.random.default_rng(4)
+    A, B = (torch.as_tensor(rng.normal(size=s)) for s in ((9, 4), (9, 6)))
+    u = torch.as_tensor(rng.normal(size=9))
+    np.testing.assert_allclose(gram.gram(A, B, u).numpy(),
+                               np.einsum("ka,k,kb->ab", A, u, B), rtol=1e-13)
+    np.testing.assert_allclose(gram.gram(A, B).numpy(), A.numpy().T @ B.numpy(),
+                               rtol=1e-13)
+    a, b = fma_peak.inputs(1, torch.float32, "cpu")
+    fma_peak.chains(a, b, "rec3", 64, 2)
+    assert gram.LAUNCHES == {} and gram.PLAIN_RUNS == {"gram": 2}
+    assert fma_peak.LAUNCHES == {} and fma_peak.PLAIN_RUNS == {"fma_peak": 1}
+
+
 def test_build_without_nvcc(tmp_path, monkeypatch):
+    # one library from every kernel source, each of which is in the checkout
+    names = [src.name for src in _build.SOURCES]
+    assert names == ["sht_analysis.cu", "gram.cu", "fma_peak.cu"]
+    assert all(src.is_file() for src in _build.SOURCES)
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     if _build.find_nvcc() is not None:  # a toolkit at /usr/local/cuda
