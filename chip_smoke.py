@@ -9,9 +9,9 @@ with its seconds:
 0. the card (``nvidia-smi`` name and power limit), torch and CUDA;
 1. build the Hopper kernels from ``heracles_tpu_torch/csrc``;
 2. each kernel against its plain PyTorch version on the same CUDA
-   tensors: the analysis kernels in float32 and float64 at three shapes,
-   the Gram kernel at three ragged shapes weighted and unweighted, the
-   probe kernels in float32 and float64 at full occupancy;
+   tensors: the analysis and synthesis kernels in float32 and float64 at
+   three shapes, the Gram kernel at three ragged shapes weighted and
+   unweighted, the probe kernels in float32 and float64 at full occupancy;
 3. the ``pipeline_n4096_l3000`` configuration: positions + shear +
    visibility, 2 tomographic bins of 5e6 rows, nside 4096, lmax 3000,
    float32 maps, through ``map_catalogs`` -> ``transform`` ->
@@ -25,9 +25,18 @@ with its seconds:
    through the kernel and its plain version (times, agreement, FP64
    rate); the host seconds of the quadrature rule and tables;
 6. the FMA-peak probe at full occupancy (FP32 and FP64 rates, with its
-   launch count), and the kernels' rates as shares of it.
+   launch count), and the kernels' rates as shares of it;
+7. synthesis at full size: ``transform`` of phase 3's POS and SHE maps
+   with a mapper of 3 Jacobi iterations (exact launch counts, finite
+   spectra and their change against phase 3's) and ``synthesize`` of bin
+   0's alms, each through the synthesis kernels; bin 0's synthesis through
+   each kernel and its plain version (times, agreement); a round trip of
+   random band-limited alms, ``alm2map`` -> ``map2alm`` with 0 and 3
+   iterations, in float64 and float32.
 
-Then a JSON line of the kernels, the card line, and the result line.
+Then a JSON line of the kernels (with each one's bound: the least time
+the card could take for the same work), the card line, and the result
+line.
 """
 
 import json
@@ -42,8 +51,13 @@ import torch
 NSIDE, LMAX, NROWS, NBINS = 4096, 3000, 5_000_000, 2
 
 # kernel vs plain: float32 at the bar the Pallas kernels were held to
-# (tests/test_pallas.py), float64 at the float64 rounding level
+# (tests/test_pallas.py), float64 at the float64 rounding level; the pair
+# synthesis in float32 at the bar of the Pallas pair synthesis
+# (tests/test_pallas.py:325)
 TOL = {torch.complex64: (2e-5, 2e-4), torch.complex128: (1e-11, 0.0)}
+PAIR_SYNTH_TOL32 = (3e-5, 3e-4)
+# Jacobi iterations of the synthesis phase
+ITERATIONS = 3
 
 # kernel name: (source, the TPU kernel it replaces)
 KERNELS = {
@@ -51,20 +65,42 @@ KERNELS = {
                               "heracles_tpu/ops/pallas_sht.py:713"),
     "analysis_pair_folded": ("heracles_tpu_torch/csrc/sht_analysis.cu",
                              "heracles_tpu/ops/pallas_sht.py:1049"),
+    "synthesis_spin0_folded": ("heracles_tpu_torch/csrc/sht_synthesis.cu",
+                               "heracles_tpu/ops/pallas_sht.py:1704"),
+    "synthesis_pair_folded": ("heracles_tpu_torch/csrc/sht_synthesis.cu",
+                              "heracles_tpu/ops/pallas_sht.py:2161"),
     "gram": ("heracles_tpu_torch/csrc/gram.cu", "heracles_tpu/ops/df32.py:93"),
     "fma_peak": ("heracles_tpu_torch/csrc/fma_peak.cu", "tools/vpu_peak.py:31"),
 }
-# the kernels of the pipeline path (phase 3); the probe has its own (phase 6)
+# the kernels of the pipeline path (phase 3); the probe has its own path
+# (phase 6), synthesis its own (phase 7)
 PIPELINE_KERNELS = ("analysis_spin0_folded", "analysis_pair_folded", "gram")
+SYNTHESIS_KERNELS = ("synthesis_spin0_folded", "synthesis_pair_folded")
 
 # Gram kernel vs plain: float64 sums in another order
 GRAM_TOL = 1e-12
 # the probe: an FMA and a multiply-then-add round differently every step
 PROBE_STEPS_CHECK, PROBE_STEPS_RATE, PROBE_NCHAIN = 256, 4096, 4
-# vector instructions per (ring, l, m) triple of the analysis kernels, by
+# vector instructions per (ring, l, m) triple of the SHT kernels, by
 # count of the source: ~14 for spin 0 (recurrence step, rescale, emit and
 # 2 contraction FMAs), twice that for the pair (two recurrences, 8 FMAs)
-INSTR_PER_TRIPLE = {"analysis_spin0_folded": 14, "analysis_pair_folded": 28}
+INSTR_PER_TRIPLE = {"analysis_spin0_folded": 14, "analysis_pair_folded": 28,
+                    "synthesis_spin0_folded": 14, "synthesis_pair_folded": 28}
+
+# The bound of a kernel: the larger of its bytes (each input read once,
+# each output written once) over HBM3's 3.35 TB/s and its floating-point
+# operations over the peak for their type: 67 TFLOP/s FP32 outside the
+# tensor cores, 67 TFLOP/s FP64 on the tensor cores (H100 SXM data sheet,
+# dense).  Operations per (ring, l, m) triple of the SHT kernels, counted
+# from the sources: the recurrence a1 x, + a0, x d, b d', - (5; the pair's
+# two columns share a1 x: 9), the emit multiply (1 per column) and the
+# contraction: 2 FMAs (4) for either spin-0 kernel, 8 FMAs (16) for either
+# pair (the synthesis sums even and odd l apart, so its (-1)^l costs
+# nothing per triple).
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOP_PER_S = {torch.float32: 67e12, torch.float64: 67e12}
+FLOP_PER_TRIPLE = {"analysis_spin0_folded": 10, "analysis_pair_folded": 27,
+                   "synthesis_spin0_folded": 10, "synthesis_pair_folded": 27}
 
 
 def check(ok, msg):
@@ -119,10 +155,10 @@ def compare(got, want, atol, rtol=0.0, what="kernel"):
 
 def kernel_label(entry):
     """A short label for a mangled kernel name in ptxas' log."""
-    m = re.search(r"analysis_kernelI([fd])Lb([01])E", entry)
+    m = re.search(r"(analysis|synthesis)_kernelI([fd])Lb([01])E", entry)
     if m:
-        return f"{'pair' if m.group(2) == '1' else 'spin0'}/" \
-               f"{'f32' if m.group(1) == 'f' else 'f64'}"
+        return f"{m.group(1)[:5]}/{'pair' if m.group(3) == '1' else 'spin0'}/" \
+               f"{'f32' if m.group(2) == 'f' else 'f64'}"
     m = re.search(r"probe_kernelI([fd])Li([01])ELi(\d)E", entry)
     if m:
         return f"{'rec3' if m.group(2) == '1' else 'fma'}/" \
@@ -196,6 +232,9 @@ def phase2(dev):
         shape = (batch, nhalf, lmax + 1)
         F64 = [rng.normal(size=shape) + 1j * rng.normal(size=shape)
                for _ in range(4)]
+        ashape = (batch, lmax + 1, lmax + 1)
+        A64 = [rng.normal(size=ashape) + 1j * rng.normal(size=ashape)
+               for _ in range(2)]
         for cdtype in (torch.complex64, torch.complex128):
             F = [torch.as_tensor(a, dtype=cdtype, device=dev) for a in F64]
             want = wigner.analysis_spin0_folded_plain(F[0], F[1], *geom, lmax)
@@ -207,6 +246,18 @@ def phase2(dev):
             got = sht_kernels.analysis_pair_folded(*F, *geom, lmax, 2)
             rel = max(compare(g, w, *TOL[cdtype])[1] for g, w in zip(got, want))
             rows.append(f"pair/{tag}/n{nside}l{lmax} {rel:.2e}")
+            A = [torch.as_tensor(a, dtype=cdtype, device=dev) for a in A64]
+            want = wigner.synthesis_spin0_folded_plain(A[0], *geom, lmax)
+            got = sht_kernels.synthesis_spin0_folded(A[0], *geom, lmax)
+            rel = max(compare(g, w, *TOL[cdtype], what="spin-0 synthesis")[1]
+                      for g, w in zip(got, want))
+            rows.append(f"synth0/{tag}/n{nside}l{lmax} {rel:.2e}")
+            tol = PAIR_SYNTH_TOL32 if cdtype == torch.complex64 else TOL[cdtype]
+            want = wigner.synthesis_pair_folded_plain(*A, *geom, lmax, 2)
+            got = sht_kernels.synthesis_pair_folded(*A, *geom, lmax, 2)
+            rel = max(compare(g, w, *tol, what="pair synthesis")[1]
+                      for g, w in zip(got, want))
+            rows.append(f"synthpair/{tag}/n{nside}l{lmax} {rel:.2e}")
 
     # ragged: K not a multiple of the chunk, L1 = 1, L2 not of the tile
     for K, L1, L2 in [(37, 1, 70), (500, 65, 129), (4501, 130, 3)]:
@@ -234,7 +285,13 @@ def phase2(dev):
             err, rel = compare(got, want, tol, what=f"{kind} probe {dtype}")
             tag = f"{kind}/{'f32' if dtype == torch.float32 else 'f64'}"
             rows.append(f"{tag}/{rows_full}x128x{PROBE_STEPS_CHECK} {rel:.2e}")
-            probe[tag] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+            # a and b read once, the chains' sum written once
+            n = a.numel()
+            flops = (n * fma_peak.executed_steps(PROBE_STEPS_CHECK) * PROBE_NCHAIN
+                     * fma_peak.OPS_PER_STEP[kind])
+            bound_ms, bound_by = bound(3.0 * n * a.element_size(), flops, dtype)
+            probe[tag] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                              bound_ms=bound_ms, bound_by=bound_by)
     return rows, probe["fma/f32"]
 
 
@@ -245,6 +302,176 @@ def band_max_rel(cl32, cl64, lmin, nbands=10):
     edges = np.linspace(0, cl64.shape[-1], nbands + 1).astype(int)
     rel = np.abs(cl32 - cl64) / np.abs(cl64)
     return [float(rel[a:b].max()) for a, b in zip(edges[:-1], edges[1:])]
+
+
+def bound(nbytes, flops, dtype):
+    """(bound_ms, bound_by): the larger of bytes / HBM rate, flops / peak."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOP_PER_S[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sht_triples(batch, nhalf, nm, lmax, spin):
+    """(ring, l, m) triples with l >= j0 = max(m, spin) of one launch."""
+    j0 = np.maximum(np.arange(nm), spin)
+    return float(batch) * nhalf * float(np.clip(lmax + 1 - j0, 0, None).sum())
+
+
+def sht_bound(name, batch, nhalf, nm, lmax, cdtype):
+    """The bound of one SHT kernel launch: ring spectra and alms moved once."""
+    pair = name.endswith("pair_folded")
+    nring, nalm = (4, 2) if pair else (2, 1)
+    item = torch.empty((), dtype=cdtype).element_size()
+    nbytes = (float(batch) * nm * item * (nring * nhalf + nalm * (lmax + 1))
+              + nhalf * (item // 2 + 16))  # x, log cos, log sin
+    flops = FLOP_PER_TRIPLE[name] * sht_triples(batch, nhalf, nm, lmax,
+                                                2 if pair else 0)
+    real = torch.float32 if cdtype == torch.complex64 else torch.float64
+    return bound(nbytes, flops, real)
+
+
+def issue_share(name, dims, ms, fma32):
+    """The vector instruction rate of one SHT launch as a share of FP32 FMA."""
+    batch, nhalf, nm = dims
+    spin = 2 if name.endswith("pair_folded") else 0
+    triples = sht_triples(batch, nhalf, nm, LMAX, spin)
+    instr = INSTR_PER_TRIPLE[name] * triples / (ms / 1e3)
+    # an FMA instruction is 2 of the probe's operations
+    return (f"{name} ~{INSTR_PER_TRIPLE[name]} instr/triple x {triples:.3g} "
+            f"triples in {ms:.1f} ms = {instr / 1e12:.2f} Tinstr/s = "
+            f"{100 * instr / (fma32 / 2):.1f}% of the FP32 fma issue rate")
+
+
+def l_band_rel(got, want, ls, nbands=10):
+    """max |got - want| / max |want| over the packed alms of each l-band."""
+    edges = np.linspace(0, int(ls.max()) + 1, nbands + 1).astype(int)
+    diff = (got.to(want.dtype) - want).abs()
+    out = []
+    for a, b in zip(edges[:-1], edges[1:]):
+        band = (ls >= a) & (ls < b)
+        out.append(diff[..., band].max().item() / want[..., band].abs().max().item())
+    return out
+
+
+def phase7(dev, maps, cls, fma32, smi):
+    """Synthesis at full size; returns (kernel reports, launches)."""
+    import heracles_tpu_torch as th
+    from heracles_tpu_torch.ops import sht, sht_kernels, wigner
+
+    t = time.perf_counter()
+    mapper = th.HealpixMapper(NSIDE, LMAX, dtype=torch.float32, device=dev,
+                              iterations=ITERATIONS)
+    fields = {
+        "POS": th.Positions(mapper, "RA", "DEC", mask="VIS", overdensity=False),
+        "SHE": th.Shears(mapper, "RA", "DEC", "G1", "G2", "W", mask="VIS"),
+    }
+    data = {k: v for k, v in maps.items() if k[0] in fields}
+    reset_counts()
+    alms, t_alms = sync_time(lambda: th.transform(fields, data))
+    launches, plain_runs = counts()
+    # at nside 4096 every map transforms on its own: per map one analysis
+    # per iteration and the first, one synthesis per iteration
+    want = {"analysis_spin0_folded": (ITERATIONS + 1) * NBINS,
+            "analysis_pair_folded": (ITERATIONS + 1) * NBINS,
+            "synthesis_spin0_folded": ITERATIONS * NBINS,
+            "synthesis_pair_folded": ITERATIONS * NBINS}
+    check(dict(launches) == want, f"transform launches {dict(launches)}, "
+          f"expected {want}")
+    check(sum(plain_runs.values()) == 0, f"plain versions ran: {plain_runs}")
+    cls_it, t_cls = sync_time(lambda: th.angular_power_spectra(alms))
+    change = {}
+    for key, cl in cls_it.items():
+        arr = np.asarray(cl, np.float64)
+        check(bool(np.all(np.isfinite(arr))), f"refined {key} not finite")
+        ref = np.asarray(cls[key], np.float64)
+        # l >= 2: the spin-2 rows below are zero
+        edges = np.linspace(2, LMAX + 1, 11).astype(int)
+        change[key] = max(
+            float(np.abs(arr[..., a:b] - ref[..., a:b]).max()
+                  / np.abs(ref[..., a:b]).max())
+            for a, b in zip(edges[:-1], edges[1:]))
+
+    pos, she = alms["POS", 0], alms["SHE", 0]
+    m_pos, t_syn0 = sync_time(lambda: mapper.synthesize(pos, spin=0))
+    m_she, t_syn2 = sync_time(lambda: mapper.synthesize(she, spin=2))
+    launches, plain_runs = counts()
+    for name in SYNTHESIS_KERNELS:
+        check(launches.get(name, 0) == want[name] + 1,
+              f"{name}: {launches.get(name, 0)} launches after synthesize")
+    check(sum(plain_runs.values()) == 0, f"plain versions ran: {plain_runs}")
+    npix = 12 * NSIDE**2
+    check(tuple(m_pos.shape) == (npix,) and tuple(m_she.shape) == (2, npix),
+          f"synthesized shapes {tuple(m_pos.shape)}, {tuple(m_she.shape)}")
+    for label, m in (("POS", m_pos), ("SHE", m_she)):
+        check(m.array.dtype == torch.float32, f"{label} map {m.array.dtype}")
+        check(bool(torch.isfinite(m.array).all()), f"{label} map not finite")
+    del m_pos, m_she
+
+    # bin 0 through each kernel and its plain version
+    x, lch, lsh = sht._geometry(NSIDE, dev)
+    a0 = sht.unpack_alm(pos.array, LMAX)
+    eb = sht.unpack_alm(she.array, LMAX)
+    a_p = -(eb[0] + 1j * eb[1])
+    a_m = (-(eb[0] - 1j * eb[1])).conj().resolve_conj()
+    report = {}
+    for name, args, extra, tol in (
+        ("synthesis_spin0_folded", (a0,), (), TOL[torch.complex64]),
+        ("synthesis_pair_folded", (a_p, a_m), (2,), PAIR_SYNTH_TOL32),
+    ):
+        kernel = getattr(sht_kernels, name)
+        plain = getattr(wigner, name + "_plain")
+        event_ms(lambda: kernel(*args, x, lch, lsh, LMAX, *extra))  # warm
+        got, ms = event_ms(lambda: kernel(*args, x, lch, lsh, LMAX, *extra))
+        want_g, plain_ms = event_ms(lambda: plain(*args, x, lch, lsh, LMAX,
+                                                  *extra))
+        errs = [compare(g, w, *tol, what=name) for g, w in zip(got, want_g)]
+        dims = (1, x.shape[0], LMAX + 1)
+        bound_ms, bound_by = sht_bound(name, *dims, LMAX, torch.complex64)
+        report[name] = dict(max_abs_err=max(e[0] for e in errs),
+                            rel=max(e[1] for e in errs), ms=ms,
+                            plain_ms=plain_ms, dims=dims, bound_ms=bound_ms,
+                            bound_by=bound_by)
+        del got, want_g
+    del a0, eb, a_p, a_m
+
+    # round trip of random band-limited alms
+    ls, ms_ = sht._pack_index(LMAX, LMAX, dev)
+    rng = np.random.default_rng(3)
+    a_np = rng.normal(size=ls.numel()) + 1j * rng.normal(size=ls.numel())
+    a_np[ms_.cpu().numpy() == 0] = a_np[ms_.cpu().numpy() == 0].real
+    trip = {}
+    for cdtype, bar in ((torch.complex128, 1e-8), (torch.complex64, 1e-3)):
+        alm = torch.as_tensor(a_np, dtype=cdtype, device=dev)
+        m = sht.alm2map(alm, NSIDE, LMAX)
+        for it in (0, ITERATIONS):
+            (back, sec) = sync_time(lambda: sht.map2alm(m, LMAX, iterations=it))
+            rel = l_band_rel(back, alm, ls)
+            trip[cdtype, it] = (rel, sec)
+        tag = "f64" if cdtype == torch.complex128 else "f32"
+        worst = max(trip[cdtype, ITERATIONS][0])
+        check(worst <= bar, f"round trip {tag} after {ITERATIONS} iterations: "
+              f"{worst:.2e} > {bar:.0e}")
+        del m, alm
+
+    parts = [f"{n}: kernel {r['ms']:.1f} ms, plain {r['plain_ms']:.1f} ms, "
+             f"bound {r['bound_ms']:.2f} ms ({r['bound_by']}), max|d| "
+             f"{r['max_abs_err']:.3e} ({r['rel']:.2e} of max); "
+             f"{issue_share(n, r['dims'], r['ms'], fma32)}"
+             for n, r in report.items()]
+    trip_txt = "; ".join(
+        f"{'f64' if c == torch.complex128 else 'f32'} iter {it} "
+        f"({sec:.2f} s): " + " ".join(f"{v:.1e}" for v in rel)
+        for (c, it), (rel, sec) in trip.items())
+    change_txt = ", ".join(f"{k}: {v:.2e}" for k, v in change.items())
+    print(f"phase 7 synthesis n{NSIDE} l{LMAX} f32, {ITERATIONS} iterations: "
+          f"transform {t_alms:.2f} s (POS+SHE x {NBINS} bins), spectra "
+          f"{t_cls:.2f} s, synthesize spin 0 {t_syn0:.2f} s, spin 2 "
+          f"{t_syn2:.2f} s; launches {dict(launches)}; no plain run; "
+          f"band-max change of the refined spectra against phase 3's: "
+          f"{change_txt}; {'; '.join(parts)}; round trip alm2map -> map2alm, "
+          f"max|da|/max|a| per l-band (10 bands): {trip_txt}; card {smi} "
+          f"({time.perf_counter() - t:.1f} s)", flush=True)
+    return report, launches
 
 
 def main():
@@ -357,9 +584,13 @@ def main():
         if name == "analysis_spin0_folded":
             got, want = (got,), (want,)
         errs = [compare(g, p, *TOL[torch.complex64]) for g, p in zip(got, want)]
+        *batch, nhalf, nm = args[0].shape
+        dims = (int(np.prod(batch)), nhalf, nm)
+        bound_ms, bound_by = sht_bound(name, *dims, LMAX, torch.complex64)
         report[name] = dict(max_abs_err=max(e[0] for e in errs),
                             rel=max(e[1] for e in errs), ms=ms,
-                            plain_ms=plain_ms, shape=tuple(args[0].shape))
+                            plain_ms=plain_ms, dims=dims, bound_ms=bound_ms,
+                            bound_by=bound_by)
         del got, want
     del spin0_args, pair_args
 
@@ -374,6 +605,7 @@ def main():
             bands[label] = rel
             check(max(rel) <= 1e-3, f"{label} f32 vs f64 band max {max(rel):.2e}")
     parts = [f"{n}: kernel {r['ms']:.1f} ms, plain {r['plain_ms']:.1f} ms, "
+             f"bound {r['bound_ms']:.2f} ms ({r['bound_by']}), "
              f"max|d| {r['max_abs_err']:.3e} ({r['rel']:.2e} of max)"
              for n, r in report.items()]
     band_txt = "; ".join(f"{k} " + " ".join(f"{v:.1e}" for v in vals)
@@ -406,10 +638,19 @@ def main():
         event_ms(lambda: gram.gram(A, B, u))  # warm
         got, ms = event_ms(lambda: gram.gram(A, B, u))
         want, plain_ms = event_ms(lambda: gram.gram_plain(A, B, u))
+        # the library yardstick: one PyTorch call (cuBLAS DGEMM underneath)
+        event_ms(lambda: torch.einsum("ka,k,kb->ab", A, u, B))  # warm
+        _, library_ms = event_ms(lambda: torch.einsum("ka,k,kb->ab", A, u, B))
         err, rel = compare(got, want, GRAM_TOL, what=f"gram {label}")
-        flop = 2.0 * A.shape[1] * B.shape[1] * A.shape[0]
+        (K, L1), L2 = A.shape, B.shape[1]
+        flop = 2.0 * L1 * L2 * K
+        # A, B and u read once, M written once; the u scaling is K L2 flops
+        bound_ms, bound_by = bound(8.0 * (K * L1 + K * L2 + K + L1 * L2),
+                                   flop + K * L2, torch.float64)
         contractions[label] = dict(max_abs_err=err, rel=rel, ms=ms,
-                                   plain_ms=plain_ms, flops=flop / (ms / 1e3))
+                                   plain_ms=plain_ms, library_ms=library_ms,
+                                   bound_ms=bound_ms, bound_by=bound_by,
+                                   flops=flop / (ms / 1e3))
         del got, want
     gram_rate = float(np.mean([c["flops"] for c in contractions.values()]))
 
@@ -425,6 +666,8 @@ def main():
                              nodes)
     t_xi = time.perf_counter() - t0
     parts = [f"{k}: kernel {c['ms']:.2f} ms, plain {c['plain_ms']:.2f} ms, "
+             f"einsum {c['library_ms']:.2f} ms, bound {c['bound_ms']:.2f} ms "
+             f"({c['bound_by']}), "
              f"max|d| {c['max_abs_err']:.2e} ({c['rel']:.1e} of max), "
              f"{c['flops'] / 1e12:.2f} TFLOP/s" for k, c in contractions.items()]
     print(f"phase 5 invert_mixing_matrix ({n_pinv} pinv of {LMAX + 1}^2 on "
@@ -451,17 +694,9 @@ def main():
     fma64 = rates["fma", torch.float64]
     shares = [f"gram FP64 {gram_rate / 1e12:.2f} TFLOP/s = "
               f"{100 * gram_rate / fma64:.1f}% of FP64 fma"]
-    for name in INSTR_PER_TRIPLE:
-        *batch, nhalf, nm = report[name]["shape"]
-        spin = 0 if name == "analysis_spin0_folded" else 2
-        j0 = np.maximum(np.arange(nm), spin)
-        triples = float(np.prod(batch)) * nhalf * float(np.sum(LMAX + 1 - j0))
-        instr = INSTR_PER_TRIPLE[name] * triples / (report[name]["ms"] / 1e3)
-        # an FMA instruction is 2 of the probe's operations
-        shares.append(f"{name} ~{INSTR_PER_TRIPLE[name]} instr/triple x "
-                      f"{triples:.3g} triples in {report[name]['ms']:.1f} ms = "
-                      f"{instr / 1e12:.2f} Tinstr/s = {100 * instr / (fma32 / 2):.1f}% "
-                      f"of the FP32 fma issue rate")
+    for name in ("analysis_spin0_folded", "analysis_pair_folded"):
+        shares.append(issue_share(name, report[name]["dims"],
+                                  report[name]["ms"], fma32))
     rate_txt = ", ".join(
         f"{k}/{'f32' if d == torch.float32 else 'f64'} {r / 1e12:.2f} Top/s"
         for (k, d), r in rates.items())
@@ -470,14 +705,22 @@ def main():
           f"launches {probe_launches}; {'; '.join(shares)}; card {smi} "
           f"({time.perf_counter() - t:.1f} s)", flush=True)
 
-    gram_report = dict(
+    # -- phase 7: synthesis, its own path --------------------------------
+    synth_report, synth_launches = phase7(dev, maps, cls, fma32, smi)
+    report.update(synth_report)
+
+    def mean(key):
+        return float(np.mean([c[key] for c in contractions.values()]))
+
+    report["gram"] = dict(
         max_abs_err=max(c["max_abs_err"] for c in contractions.values()),
-        ms=float(np.mean([c["ms"] for c in contractions.values()])),
-        plain_ms=float(np.mean([c["plain_ms"] for c in contractions.values()])),
+        ms=mean("ms"), plain_ms=mean("plain_ms"), library_ms=mean("library_ms"),
+        bound_ms=mean("bound_ms"), bound_by=contractions["(0,0)"]["bound_by"],
     )
-    report["gram"] = gram_report
     report["fma_peak"] = probe_check
     launches["fma_peak"] = probe_launches.get("fma_peak", 0)
+    for name in SYNTHESIS_KERNELS:
+        launches[name] = synth_launches.get(name, 0)
     kernels = [
         {
             "name": name,
@@ -488,9 +731,16 @@ def main():
             "max_abs_err": report[name]["max_abs_err"],
             "ms": report[name]["ms"],
             "plain_ms": report[name]["plain_ms"],
+            "bound_ms": report[name]["bound_ms"],
+            "bound_by": report[name]["bound_by"],
+            # no single PyTorch call computes the recurrence-generated
+            # contractions or the probe's chains
+            "library_ms": report[name].get("library_ms"),
         }
         for name, (source, replaces) in KERNELS.items()
     ]
+    for k in kernels:
+        check(k["launches"] > 0, f"{k['name']} never launched on its path")
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card()}")
     print(json.dumps({"ok": True, "device": {

@@ -21,8 +21,11 @@ from .devicemap import DeviceMap
 __all__ = ["to_torch", "to_numpy"]
 
 
-def to_torch(tocdict, device="cpu"):
-    """TocDict of metadata-tagged arrays -> TocDict of DeviceMaps on ``device``."""
+def to_torch(tocdict, device="cuda"):
+    """TocDict of metadata-tagged arrays -> TocDict of DeviceMaps on ``device``.
+
+    ``device`` defaults to the CUDA card.
+    """
     out = TocDict()
     for key, value in tocdict.items():
         if isinstance(value, DeviceMap):

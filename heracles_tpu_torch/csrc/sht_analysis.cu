@@ -42,7 +42,9 @@
 //     the TPU's compensated hi/lo seed planes unnecessary;
 //   * the recurrence coefficients of each chunk of LC multipoles are
 //     computed in float64 by LC threads into a double-buffered shared
-//     table while the block works on the previous chunk.
+//     table while the block works on the previous chunk;
+//   * the recurrence itself (seed, coefficients, step, rescale, emit) is
+//     wigner_recurrence.cuh, shared with the synthesis kernels.
 //
 // C interface (loaded with ctypes): heracles_analysis_{spin0,pair}_{f32,f64}
 // launch on the given stream and return cudaGetLastError();
@@ -51,47 +53,40 @@
 #include <cuda_runtime.h>
 #include <stddef.h>
 
+#include "wigner_recurrence.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRings = 2;                 // rings per thread
 constexpr int kTile = kThreads * kRings;  // rings per tile
-constexpr int kNoSeed = -(1 << 30);       // exponent of a padding ring
-constexpr double kLog2Scale = 60.0;
-constexpr double kLn2 = 0.6931471805599453;
-constexpr double kInvFourPi = 0.07957747154594767;
 
+using wigner::advance;
+using wigner::Arith;
+using wigner::coef_row;
+using wigner::emit_of;
+using wigner::kNoSeed;
+using wigner::norm_of;
+using wigner::seed_of;
+using wigner::step;
+
+// register accumulators per thread
 template <typename T>
-struct Traits;
-
-// mul/add/sub with round-to-nearest that the compiler may not fuse into
-// an FMA: the recurrence then rounds exactly as the plain version does,
-// and the two agree to the summation order of the contraction
+struct AccValues;
 template <>
-struct Traits<float> {
-  static constexpr int kValues = 64;  // register accumulators per thread
-  __device__ static __forceinline__ float scale() { return 0x1p60f; }
-  __device__ static __forceinline__ float inv_scale() { return 0x1p-60f; }
-  __device__ static __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
-  __device__ static __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
-  __device__ static __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
+struct AccValues<float> {
+  static constexpr int n = 64;
 };
-
 template <>
-struct Traits<double> {
-  static constexpr int kValues = 32;
-  __device__ static __forceinline__ double scale() { return 0x1p60; }
-  __device__ static __forceinline__ double inv_scale() { return 0x1p-60; }
-  __device__ static __forceinline__ double mul(double a, double b) { return __dmul_rn(a, b); }
-  __device__ static __forceinline__ double add(double a, double b) { return __dadd_rn(a, b); }
-  __device__ static __forceinline__ double sub(double a, double b) { return __dsub_rn(a, b); }
+struct AccValues<double> {
+  static constexpr int n = 32;
 };
 
 template <typename T, bool kPair>
 struct Shape {
   static constexpr int NC = kPair ? 4 : 2;  // (re, im) of one or two outputs
-  static constexpr int V = Traits<T>::kValues;
+  static constexpr int V = AccValues<T>::n;
   static constexpr int LC = V / NC;  // multipoles per chunk
 };
 
@@ -100,65 +95,6 @@ size_t smem_bytes(int lmax) {
   using S = Shape<T, kPair>;
   return (size_t(lmax + 1) * S::NC + 2 * kWarps * S::V + 2 * 3 * S::LC) *
          sizeof(T);
-}
-
-template <typename T>
-__device__ __forceinline__ T emit_of(int k) {
-  return k == 0 ? T(1) : (k == -1 ? Traits<T>::inv_scale() : T(0));
-}
-
-// Seed d^{j0} = sign * exp(logc + pc log cos(t/2) + ps log sin(t/2)) as
-// mant * 2^(60 k), evaluated in float64.
-template <typename T>
-__device__ __forceinline__ void seed_of(double logc, double sign, double pc,
-                                        double ps, double lch, double lsh,
-                                        T& mant, int& k) {
-  double lv = logc;  // unfused, as the plain version evaluates it
-  if (pc != 0.0) lv = __dadd_rn(lv, __dmul_rn(pc, lch));
-  if (ps != 0.0) lv = __dadd_rn(lv, __dmul_rn(ps, lsh));
-  const double ls = lv / (kLn2 * kLog2Scale);
-  const double kf = floor(ls);
-  mant = T(sign * exp2((ls - kf) * kLog2Scale));
-  k = int(kf);
-}
-
-// Coefficients taking (d^{L-2}, d^{L-1}) to d^L = (a1 x + a0) d^{L-1} - b d^{L-2}
-// for the column (m, s); zero outside j0 < L <= lmax.
-template <typename T>
-__device__ void coef_row(int L, int j0, int m, int s, int lmax, T* a1, T* a0,
-                         T* b) {
-  if (L > lmax || L <= j0) {
-    *a1 = T(0);
-    *a0 = T(0);
-    *b = T(0);
-    return;
-  }
-  const double l = L, lm = L - 1;
-  const double m2 = double(m) * m, s2 = double(s) * s;
-  const double al = sqrt((l * l - m2) * (l * l - s2)) / l;
-  const double alm =
-      lm > 0.0 ? sqrt(fmax((lm * lm - m2) * (lm * lm - s2), 0.0)) / lm : 0.0;
-  const double inv = 1.0 / al;
-  *a1 = T((2.0 * l - 1.0) * inv);
-  *a0 = T(-(2.0 * l - 1.0) * (double(m) * s) / (fmax(lm, 1.0) * l) * inv);
-  *b = T(alm * inv);
-}
-
-// d^{l+1} = (a1 x + a0) d^l - b d^{l-1}, unfused (see Traits).
-template <typename T>
-__device__ __forceinline__ T step(T a1x, T a0, T b, T dc, T dp) {
-  using R = Traits<T>;
-  return R::sub(R::mul(R::add(a1x, a0), dc), R::mul(b, dp));
-}
-
-// Take the new value with the 2^60 block rescale.
-template <typename T>
-__device__ __forceinline__ void advance(T dn, T& dp, T& dc, int& k) {
-  const bool over = fabs(dn) > Traits<T>::scale();
-  const T sc = over ? Traits<T>::inv_scale() : T(1);
-  dp = dc * sc;
-  dc = dn * sc;
-  k += over ? 1 : 0;
 }
 
 // One butterfly stage: lanes with bit O set keep the upper H values, the
@@ -317,7 +253,7 @@ __global__ void __launch_bounds__(kThreads)
               const T fim = (t & 1) ? fb[r][1] : fa[r][1];
               acc[2 * t] += lam * fre;
               acc[2 * t + 1] += lam * fim;
-              const T a1x = Traits<T>::mul(a1, xr[r]);
+              const T a1x = Arith<T>::mul(a1, xr[r]);
               advance<T>(step<T>(a1x, a0, bb, dc[r], dp[r]), dp[r], dc[r], k[r]);
             } else {
               const T lp = dc[r] * emit_of<T>(k[r]);
@@ -329,7 +265,7 @@ __global__ void __launch_bounds__(kThreads)
               acc[4 * t + 2] += lm * fc[r][0] + lps * fd[r][0];
               acc[4 * t + 3] += lm * fc[r][1] + lps * fd[r][1];
               // the -s column's a0 is minus the +s column's
-              const T a1x = Traits<T>::mul(a1, xr[r]);
+              const T a1x = Arith<T>::mul(a1, xr[r]);
               const T dnp = step<T>(a1x, a0, bb, dc[r], dp[r]);
               const T dnm = step<T>(a1x, -a0, bb, dcm[r], dpm[r]);
               advance<T>(dnp, dp[r], dc[r], k[r]);
@@ -361,7 +297,7 @@ __global__ void __launch_bounds__(kThreads)
             T sum = T(0);
 #pragma unroll
             for (int w = 0; w < kWarps; ++w) sum += part[(buf * kWarps + w) * V + tid];
-            const T norm = T(sqrt((2.0 * l + 1.0) * kInvFourPi));
+            const T norm = norm_of<T>(l);
             col[l * NC + tid % NC] += sum * norm;
           }
         }

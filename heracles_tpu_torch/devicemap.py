@@ -47,9 +47,9 @@ class DeviceMap:
             self._dtype = np.dtype(dtype)
         else:
             base = _numpy_dtype(array.dtype)
-            self._dtype = np.dtype(
-                base.str, metadata=dict(metadata) if metadata else None
-            )
+            # numpy takes no metadata=None: a plain dtype has none
+            self._dtype = (np.dtype(base.str, metadata=dict(metadata))
+                           if metadata else np.dtype(base.str))
 
     @property
     def array(self):

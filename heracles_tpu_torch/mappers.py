@@ -1,11 +1,12 @@
-"""HEALPix mapper on torch: device scatter map-making and the analysis SHT.
+"""HEALPix mapper on torch: device scatter map-making and the SHT.
 
 Counterpart of :class:`heracles_tpu.mappers.HealpixMapper`: catalogue
 points are scatter-added into a map on the mapper's device
-(``index_add_``), and ``transform`` runs the spin-0/2 ``map2alm`` of
-:mod:`heracles_tpu_torch.ops.sht` with quadrature ring weights and
-optional pixel-window deconvolution.  The map dtype and the device are
-explicit constructor arguments.
+(``index_add_``), ``transform`` runs the spin-0/2 ``map2alm`` of
+:mod:`heracles_tpu_torch.ops.sht` with quadrature ring weights, optional
+Jacobi iterations and optional pixel-window deconvolution, and
+``synthesize`` runs ``alm2map``.  The map dtype and the device (the CUDA
+card unless the caller names another) are constructor arguments.
 """
 
 from __future__ import annotations
@@ -26,21 +27,24 @@ class HealpixMapper:
     """Mapper for HEALPix maps.
 
     ``lmax`` defaults to ``3*nside//2`` and ``deconvolve`` (pixel-window
-    deconvolution of the alms) to True.  ``dtype`` (torch.float32 or
-    torch.float64) is the map precision; the alms are complex of the
-    same precision.  Maps and alms live on ``device``.
+    deconvolution of the alms) to True.  ``iterations`` is the number of
+    Jacobi refinement steps of every analysis (healpy's ``iter=``).
+    ``dtype`` (torch.float32 or torch.float64) is the map precision; the
+    alms are complex of the same precision.  Maps and alms live on
+    ``device``, by default the CUDA card.
     """
 
     # transform() accepts leading batch axes
     batched_transform = True
 
-    def __init__(self, nside, lmax=None, *, deconvolve=None,
-                 dtype=torch.float64, device="cpu"):
+    def __init__(self, nside, lmax=None, *, deconvolve=None, iterations=0,
+                 dtype=torch.float64, device="cuda"):
         if dtype not in (torch.float32, torch.float64):
             raise TypeError(f"map dtype must be float32 or float64, got {dtype}")
         self._nside = int(nside)
         self._lmax = sht.resolve_lmax(nside, lmax)
         self._deconv = True if deconvolve is None else bool(deconvolve)
+        self._iterations = int(iterations)
         self._dtype = dtype
         self._device = torch.device(device)
 
@@ -55,6 +59,10 @@ class HealpixMapper:
     @property
     def deconvolve(self):
         return self._deconv
+
+    @property
+    def iterations(self):
+        return self._iterations
 
     @property
     def dtype(self):
@@ -123,30 +131,51 @@ class HealpixMapper:
         ls, _ = sht._pack_index(self._lmax, self._lmax, self._device)
         return torch.as_tensor(fl, dtype=dtype, device=self._device)[ls]
 
+    def _unwrap(self, data, metadata):
+        """(tensor, metadata) of a DeviceMap, a tensor or a numpy array.
+
+        Numpy input is moved to the mapper's device; a tensor stays where
+        it is and takes its metadata from ``metadata``.
+        """
+        if isinstance(data, DeviceMap):
+            return data.array, {**data.metadata, **(metadata or {})}
+        if isinstance(data, torch.Tensor):
+            return data, dict(metadata or {})
+        md = dict(getattr(data.dtype, "metadata", None) or {})
+        md.update(metadata or {})
+        arr = torch.as_tensor(np.asarray(data, np.dtype(data.dtype.str)),
+                              device=self._device)
+        return arr, md
+
     def transform(self, data, spin=0, *, metadata=None):
         """Spin-0/2 spherical harmonic analysis with quadrature weights.
 
         Spin-0 input may carry leading batch axes; spin-2 input is
         (..., 2, npix) [Q, U] and returns (..., 2, nlm) (E, B).  ``data``
         is a DeviceMap, a tensor (metadata from ``metadata``) or a numpy
-        map (moved to the mapper's device).  Returns a DeviceMap of
-        packed alms.
+        map (moved to the mapper's device).  The mapper's Jacobi
+        iterations run before the pixel-window deconvolution.  Returns a
+        DeviceMap of packed alms.
         """
-        if isinstance(data, DeviceMap):
-            md = {**data.metadata, **(metadata or {})}
-            arr = data.array
-        elif isinstance(data, torch.Tensor):
-            md = dict(metadata or {})
-            arr = data
-        else:
-            md = dict(getattr(data.dtype, "metadata", None) or {})
-            md.update(metadata or {})
-            arr = torch.as_tensor(np.asarray(data, np.dtype(data.dtype.str)),
-                                  device=self._device)
-        alm = sht.map2alm(arr, lmax=self._lmax, spin=spin, weights="ring")
+        arr, md = self._unwrap(data, metadata)
+        alm = sht.map2alm(arr, lmax=self._lmax, spin=spin, weights="ring",
+                          iterations=self._iterations)
         if self._deconv:
             alm = alm * self._fl_packed(spin, alm.real.dtype)
         return DeviceMap(alm, metadata={**md, "deconv": self._deconv})
+
+    def synthesize(self, alm, spin=0):
+        """Inverse transform: packed alms -> a DeviceMap of maps.
+
+        ``alm``: a DeviceMap, a tensor or a numpy array of packed alms
+        (..., nlm) for spin 0 or (..., 2, nlm) (E, B) for spin 2; numpy
+        input is moved to the mapper's device.  Like the reference, no
+        pixel window is applied.  The map has the mapper's dtype and
+        metadata.
+        """
+        arr, _ = self._unwrap(alm, None)
+        out = sht.alm2map(arr, self._nside, lmax=self._lmax, spin=spin)
+        return DeviceMap(out.to(self._dtype), metadata=self._metadata(spin))
 
     def resample(self, data):
         raise NotImplementedError(

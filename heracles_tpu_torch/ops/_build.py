@@ -5,7 +5,8 @@ use with ``nvcc`` for ``sm_90a``, one ``nvcc`` per source, all started
 together, and linked into one shared library with a plain C interface,
 which is loaded with :mod:`ctypes`.  The library lands in
 ``build/heracles_tpu_torch/`` beside the package (named after a hash of
-the sources, so an edited source is rebuilt).  Nothing here runs when the
+the sources and the headers they include, so an edited file is
+rebuilt).  Nothing here runs when the
 module is imported.
 """
 
@@ -26,7 +27,9 @@ __all__ = ["KernelLibrary", "build", "find_nvcc", "load_library"]
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(_PKG / "csrc" / name
-                for name in ("sht_analysis.cu", "gram.cu", "fma_peak.cu"))
+                for name in ("sht_analysis.cu", "sht_synthesis.cu", "gram.cu",
+                             "fma_peak.cu"))
+HEADERS = (_PKG / "csrc" / "wigner_recurrence.cuh",)
 BUILD_DIR = _PKG.parent / "build" / "heracles_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -42,6 +45,10 @@ _SIGNATURES = {
     "heracles_analysis_spin0_f64": [_P] * 7 + [_I] * 4 + [_P],
     "heracles_analysis_pair_f32": [_P] * 10 + [_I] * 5 + [_P],
     "heracles_analysis_pair_f64": [_P] * 10 + [_I] * 5 + [_P],
+    "heracles_synthesis_spin0_f32": [_P] * 7 + [_I] * 4 + [_P],
+    "heracles_synthesis_spin0_f64": [_P] * 7 + [_I] * 4 + [_P],
+    "heracles_synthesis_pair_f32": [_P] * 10 + [_I] * 5 + [_P],
+    "heracles_synthesis_pair_f64": [_P] * 10 + [_I] * 5 + [_P],
     "heracles_gram_f64": [_P] * 4 + [_I] * 3 + [_P],
     "heracles_fma_peak_f32": [_P] * 3 + [_I] * 4 + [_P],
     "heracles_fma_peak_f64": [_P] * 3 + [_I] * 4 + [_P],
@@ -63,9 +70,11 @@ class KernelLibrary:
             msg = self.lib.heracles_cuda_error_string(err).decode()
             raise RuntimeError(f"CUDA kernel launch failed: {msg} ({err})")
 
-    def smem_bytes(self, pair, is_double, lmax):
-        return int(self.lib.heracles_analysis_smem_bytes(
-            int(pair), int(is_double), int(lmax)))
+    def smem_bytes(self, direction, pair, is_double, lmax):
+        """Dynamic shared memory of one launch; ``direction`` is
+        "analysis" or "synthesis"."""
+        fn = getattr(self.lib, f"heracles_{direction}_smem_bytes")
+        return int(fn(int(pair), int(is_double), int(lmax)))
 
 
 def find_nvcc():
@@ -83,7 +92,7 @@ def find_nvcc():
 
 def _source_hash():
     h = hashlib.sha256()
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
@@ -154,8 +163,10 @@ def load_library():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    lib.heracles_analysis_smem_bytes.argtypes = [_I, _I, _I]
-    lib.heracles_analysis_smem_bytes.restype = ctypes.c_size_t
+    for direction in ("analysis", "synthesis"):
+        fn = getattr(lib, f"heracles_{direction}_smem_bytes")
+        fn.argtypes = [_I, _I, _I]
+        fn.restype = ctypes.c_size_t
     lib.heracles_cuda_error_string.argtypes = [_I]
     lib.heracles_cuda_error_string.restype = ctypes.c_char_p
     return KernelLibrary(lib, path, seconds, log)

@@ -1,6 +1,6 @@
 """Batched Fourier analysis over HEALPix isolatitude rings, on torch.fft.
 
-Counterpart of :mod:`heracles_tpu.ops.ringfft` (analysis direction).
+Counterpart of :mod:`heracles_tpu.ops.ringfft`, both directions.
 HEALPix rings are ragged (ring *i* has ``nph = 4i`` pixels in the caps
 and ``4*nside`` in the belt), so:
 
@@ -12,8 +12,9 @@ and ``4*nside`` in the belt), so:
   length and whose output extent is the order range, so orders m >= nph
   (aliased) come out directly.
 
-Ring rows are extracted by plain indexing.  Chirps and phases are built
-in float64 and rounded to the working type.
+Ring rows are extracted, and written back by the synthesis, by one index
+operation per bucket whose index is built on the tensors' device.  Chirps
+and phases are built in float64 and rounded to the working type.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ import math
 import numpy as np
 import torch
 
-__all__ = ["ring_analysis", "ring_plan"]
+__all__ = ["ring_analysis", "ring_synthesis", "ring_plan"]
 
 _COMPLEX = {torch.float32: torch.complex64, torch.float64: torch.complex128,
             torch.complex64: torch.complex64,
@@ -185,3 +186,94 @@ def ring_analysis(maps, nside, nm, *, weight=None):
     if complex_in:
         return F, torch.cat(out_neg, dim=-2)
     return F, None
+
+
+def _ring_pixels(nph, npix, L):
+    """Flat index into (R, L) padded rows of each pixel of R contiguous rings.
+
+    ``nph``: (R,) int64 tensor of ring lengths summing to ``npix``; the
+    index is built on its device, in pixel order.
+    """
+    dev = nph.device
+    row = torch.repeat_interleave(torch.arange(nph.numel(), device=dev), nph,
+                                  output_size=npix)
+    start = torch.cumsum(nph, 0) - nph
+    return row * L + torch.arange(npix, device=dev) - start[row]
+
+
+def _fold_orders(h, L):
+    """(..., nm) -> (..., L): orders summed by their residue m mod L."""
+    nm = h.shape[-1]
+    q = -(-nm // L)
+    pad = h.new_zeros(h.shape[:-1] + (q * L - nm,))
+    return torch.cat([h, pad], dim=-1).reshape(h.shape[:-1] + (q, L)).sum(-2)
+
+
+def ring_synthesis(h_pos, h_neg, nside, *, real_output=True):
+    """Inverse of :func:`ring_analysis`: evaluate per-ring Fourier series.
+
+    v_p = sum_{m=0}^{nm-1} h_pos[..., r, m] e^{+i m phi_p}
+        + sum_{m=1}^{nm-1} h_neg[..., r, m] e^{-i m phi_p}
+
+    ``h_pos``/``h_neg``: (..., nrings, nm) complex; ``h_neg=None`` stands
+    for conj(h_pos) (a real map).  Returns (..., npix) maps, real if
+    ``real_output``.  The belt is one batched inverse FFT; cap rings
+    evaluate the +-m series with chirp transforms whose modulus is the ring
+    length, so orders m >= nph alias exactly.
+    """
+    nm = h_pos.shape[-1]
+    cdt = h_pos.dtype
+    dev = h_pos.device
+    plan = ring_plan(nside, nm)
+    m = torch.arange(nm, dtype=torch.float64, device=dev)[None, :]
+    pieces = []
+    for b in plan:
+        L = b["L"]
+        r0, r1 = b["rings"]
+        phi0 = torch.as_tensor(b["phi0"], device=dev)[:, None]
+        phase = torch.polar(torch.ones_like(m * phi0), m * phi0).to(cdt)
+        hp = h_pos[..., r0:r1, :] * phase
+        if h_neg is None:
+            hn = hp.conj()
+        else:
+            hn = h_neg[..., r0:r1, :] * phase.conj()
+        # m = 0 enters once, through h_pos
+        hn = torch.cat([torch.zeros_like(hn[..., :1]), hn[..., 1:]], dim=-1)
+        if b["belt"]:
+            if 2 * nm - 1 <= L:
+                # no aliasing: the frequency rows by concatenation
+                zeros = hp.new_zeros(hp.shape[:-1] + (L - 2 * nm + 1,))
+                d = torch.cat([hp, zeros, torch.flip(hn[..., 1:], dims=(-1,))],
+                              dim=-1)
+            else:
+                # orders beyond the ring length alias: +m lands on m mod L,
+                # -m on -m mod L
+                fn = _fold_orders(hn, L)
+                d = _fold_orders(hp, L) + torch.roll(torch.flip(fn, dims=(-1,)),
+                                                     1, dims=-1)
+            v = torch.fft.ifft(d, dim=-1) * L
+            if real_output:
+                v = v.real
+            pieces.append(v.reshape(v.shape[:-2] + ((r1 - r0) * L,)))
+            continue
+        nph = torch.as_tensor(b["nph"], device=dev)
+        nmax = int(b["nph"].max())
+        pad = hp.new_zeros(hp.shape[:-1] + (L - nm,))
+        if h_neg is None:
+            # v = h_0 + 2 Re B+(h, m > 0)
+            hp_pos = torch.cat([torch.zeros_like(hp[..., :1]), hp[..., 1:], pad],
+                               dim=-1)
+            vb = 2.0 * _bluestein_dft(hp_pos, nph, L, sign=+1,
+                                      out_extent=nmax).real
+            v = vb + (hp[..., :1].real if real_output else hp[..., :1])
+        else:
+            v = (_bluestein_dft(torch.cat([hp, pad], dim=-1), nph, L, sign=+1,
+                                out_extent=nmax)
+                 + _bluestein_dft(torch.cat([hn, pad], dim=-1), nph, L,
+                                  sign=-1, out_extent=nmax))
+            if real_output:
+                v = v.real
+        p0, p1 = b["pix"]
+        flat = v.reshape(v.shape[:-2] + (-1,))
+        pieces.append(flat[..., _ring_pixels(nph, p1 - p0, L)])
+    return torch.cat(pieces, dim=-1)

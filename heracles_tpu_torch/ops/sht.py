@@ -1,20 +1,19 @@
-"""Spherical harmonic analysis of HEALPix maps, on torch.
+"""Spherical harmonic analysis and synthesis of HEALPix maps, on torch.
 
-Counterpart of :mod:`heracles_tpu.ops.sht` for the analysis direction:
+Counterpart of :mod:`heracles_tpu.ops.sht`:
 
 * phase 1 (azimuth): batched ring FFTs (:mod:`.ringfft`);
-* phase 2 (colatitude): the folded Wigner-d contraction of the Hopper
+* phase 2 (colatitude): the folded Wigner-d contractions of the Hopper
   kernels (:mod:`.sht_kernels`), or their plain versions on the CPU;
 * quadrature: per-ring weights such that the analysis of band-limited
-  maps is exact (shipped tables, else a host least-squares solve).
+  maps is exact (shipped tables, else a host least-squares solve);
+* synthesis (:func:`alm2map`) runs the two phases in reverse, and
+  ``map2alm(iterations=N)`` refines the analysis by N Jacobi steps.
 
 Conventions (HEALPix/healpy): alms are healpy-packed at the API boundary
 (index = m*(2*lmax+1-m)//2 + l) and rectangular (lmax+1, mmax+1)
 internally; spin 2: a_E = -(a_{+2} + a_{-2})/2, a_B = i(a_{+2} - a_{-2})/2
 with (Q + iU) = sum a_{+2,lm} {}_2Y_{lm}.
-
-Synthesis (``alm2map``) and the Jacobi ``iterations`` of ``map2alm`` are
-not ported yet (ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -38,6 +37,7 @@ __all__ = [
     "pack_alm",
     "unpack_alm",
     "map2alm",
+    "alm2map",
     "ring_weights",
     "pixel_window",
     "resolve_lmax",
@@ -207,40 +207,108 @@ def _analysis_rect(Fw, lmax, ns):
                                             abs(int(ns[0])))
 
 
+def _unfold_rings(GN, GS):
+    """Full-ring spectra from the folded synthesis' (GN, GS).
+
+    The northern rows come as they are; the southern rows are the flipped
+    GS without its equator row (the equator is its own mirror).
+    """
+    return torch.cat([GN, torch.flip(GS[..., :-1, :], dims=(-2,))], dim=-2)
+
+
+def _synthesis_rect(alms, lmax, ns, nside):
+    """Folded Wigner synthesis of rect alms; tuple of full-ring spectra.
+
+    ``alms``: one (..., lmax+1, nm) array per spin column n in ``ns``;
+    returns one (..., nrings, nm) array each.
+    """
+    x, logch, logsh = _geometry(nside, alms[0].device)
+    if len(ns) == 1:
+        GN, GS = sht_kernels.synthesis_spin0_folded(alms[0], x, logch, logsh,
+                                                    lmax)
+        return (_unfold_rings(GN, GS),)
+    GNp, GSp, GNm, GSm = sht_kernels.synthesis_pair_folded(
+        alms[0], alms[1], x, logch, logsh, lmax, abs(int(ns[0])))
+    return _unfold_rings(GNp, GSp), _unfold_rings(GNm, GSm)
+
+
 def map2alm(maps, lmax=None, mmax=None, *, spin=0, weights="ring",
             iterations=0, packed=True):
     """Spin-0/2 spherical harmonic analysis of HEALPix RING maps.
 
     ``maps``: (..., npix) real tensor for spin 0; (..., 2, npix) [Q, U]
     for spin 2.  ``weights``: "ring" (quadrature weights, default), None
-    (pixel area) or per-ring weights.  Runs on the maps' device and in
+    (pixel area) or per-ring weights.  ``iterations``: Jacobi refinement
+    steps alm += A(w (f - S(alm))), healpy's ``iter=`` counterpart; each
+    costs one synthesis and one analysis, with the residual formed on the
+    maps' device and in their dtype.  Runs on the maps' device and in
     their precision (float32 -> complex64 alms, float64 -> complex128).
-    Returns packed alms (..., nlm) for spin 0, or (..., 2, nlm) (E, B)
-    for spin 2 (``packed=False``: rectangular (..., lmax+1, mmax+1)).
+    Returns packed alms (..., nlm) for spin 0, or (..., 2, nlm) (E, B) for
+    spin 2 (``packed=False``: rectangular (..., lmax+1, mmax+1)).
     """
-    if iterations:
-        raise NotImplementedError(
-            "map2alm(iterations>0) needs synthesis, which is not ported yet "
-            "(ROADMAP A10)"
-        )
     spin = abs(int(spin))
     nside = npix2nside(maps.shape[-1])
     lmax = resolve_lmax(nside, lmax)
     mmax = lmax if mmax is None else int(mmax)
+    out = _map2alm_once(maps, nside, lmax, mmax, spin, weights)
+    for _ in range(int(iterations)):
+        resid = maps - alm2map(out, nside, lmax, mmax, spin=spin, packed=False)
+        out = out + _map2alm_once(resid, nside, lmax, mmax, spin, weights)
+    if packed:
+        return pack_alm(out, lmax, mmax)
+    return out
+
+
+def _map2alm_once(maps, nside, lmax, mmax, spin, weights):
+    """One analysis pass; rectangular alms (E, B stacked for spin 2)."""
     w = _weights_arr(nside, weights)
     if spin == 0:
         F, _ = ringfft.ring_analysis(maps, nside, mmax + 1, weight=w)
         (out,) = _analysis_rect((F,), lmax, (0,))
-    else:
-        u = torch.complex(maps[..., 0, :], maps[..., 1, :])
-        F, Fneg = ringfft.ring_analysis(u, nside, mmax + 1, weight=w)
-        # a_{+s,lm} = sum_r w slm(l,m,+s) F_m(r): column +s;
-        # a_{-s,lm} = sum_r w slm(l,m,-s) conj(F_{-m}(r)): column -s
-        a_p, a_m = _analysis_rect((F, Fneg.conj()), lmax, (spin, -spin))
-        out = torch.stack([-(a_p + a_m) / 2, 1j * (a_p - a_m) / 2], dim=-3)
+        return out
+    u = torch.complex(maps[..., 0, :], maps[..., 1, :])
+    F, Fneg = ringfft.ring_analysis(u, nside, mmax + 1, weight=w)
+    # a_{+s,lm} = sum_r w slm(l,m,+s) F_m(r): column +s;
+    # a_{-s,lm} = sum_r w slm(l,m,-s) conj(F_{-m}(r)): column -s
+    a_p, a_m = _analysis_rect((F, Fneg.conj()), lmax, (spin, -spin))
+    return torch.stack([-(a_p + a_m) / 2, 1j * (a_p - a_m) / 2], dim=-3)
+
+
+def alm2map(alm, nside, lmax=None, mmax=None, *, spin=0, packed=True):
+    """Spin-0/2 spherical harmonic synthesis onto HEALPix RING maps.
+
+    ``alm``: packed (..., nlm) complex for spin 0, (..., 2, nlm) (E, B)
+    for spin 2; rectangular (..., lmax+1, mmax+1) with ``packed=False``.
+    Runs on the alms' device and in their precision (complex64 -> float32
+    maps, complex128 -> float64).  Returns (..., npix) or (..., 2, npix)
+    [Q, U].
+    """
+    spin = abs(int(spin))
+    nside = int(nside)
+    if lmax is None:
+        if packed:
+            # invert nlm = (lmax+1)(lmax+2)/2 (mmax = lmax)
+            nlm = alm.shape[-1]
+            lmax = int((np.sqrt(8 * nlm + 1) - 3) / 2 + 0.5)
+        else:
+            lmax = alm.shape[-2] - 1
+    lmax = int(lmax)
+    mmax = lmax if mmax is None else int(mmax)
     if packed:
-        return pack_alm(out, lmax, mmax)
-    return out
+        alm = unpack_alm(alm, lmax, mmax)
+    if spin == 0:
+        (G,) = _synthesis_rect((alm,), lmax, (0,), nside)
+        return ringfft.ring_synthesis(G, None, nside)
+    alm_e = alm[..., 0, :, :]
+    alm_b = alm[..., 1, :, :]
+    a_p = -(alm_e + 1j * alm_b)  # a_{+spin}
+    a_m = -(alm_e - 1j * alm_b)  # a_{-spin}
+    # u = sum_{m>=0} G+_m e^{im phi} + sum_{m>0} G-_m e^{-im phi} with
+    # G+_m = sum_l a_{+s,lm} slm(l,m,+s) and
+    # G-_m = sum_l conj(a_{-s,lm}) slm(l,m,-s) (reality relations)
+    Gp, Gm = _synthesis_rect((a_p, a_m.conj()), lmax, (spin, -spin), nside)
+    u = ringfft.ring_synthesis(Gp, Gm, nside, real_output=False)
+    return torch.stack([u.real, u.imag], dim=-2)
 
 
 def _pixwin_table(nside, lmax, pol):

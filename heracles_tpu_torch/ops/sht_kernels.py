@@ -1,16 +1,18 @@
-"""Folded Wigner-d analysis: the Hopper kernels and their dispatch.
+"""Folded Wigner-d analysis and synthesis: the Hopper kernels and their dispatch.
 
-Counterpart of :mod:`heracles_tpu.ops.pallas_sht` for the analysis
-direction.  :func:`analysis_spin0_folded` and :func:`analysis_pair_folded`
-keep the signatures and return layouts of their Pallas twins, minus the
-arguments that tune the TPU or emulate wider arithmetic on it (``dd``,
-``comp``, ``interpret``, ``contract``, ``ring_block``, ``nb`` and the
-``*_lo`` residuals).  The tensor decides the path:
+Counterpart of :mod:`heracles_tpu.ops.pallas_sht`.
+:func:`analysis_spin0_folded`, :func:`analysis_pair_folded`,
+:func:`synthesis_spin0_folded` and :func:`synthesis_pair_folded` keep the
+signatures and return layouts of their Pallas twins, minus the arguments
+that tune the TPU or emulate wider arithmetic on it (``dd``, ``comp``,
+``interpret``, ``contract``, ``skip``, ``ring_block``, ``nb``,
+``m_chunk``, ``l_chunk``, ``seed_planes`` and the ``*_lo`` residuals).
+The tensor decides the path:
 
 * a CPU tensor takes the plain version (:mod:`.wigner`);
 * a CUDA tensor launches the hand-written kernel
-  (``heracles_tpu_torch/csrc/sht_analysis.cu``, built at first use by
-  :mod:`._build`), or raises;
+  (``heracles_tpu_torch/csrc/sht_analysis.cu``, ``sht_synthesis.cu``,
+  built at first use by :mod:`._build`), or raises;
 * complex64 input runs the float32 kernel, complex128 the float64 one.
 
 ``LAUNCHES`` counts kernel launches per kernel name.
@@ -29,6 +31,8 @@ from . import wigner
 __all__ = [
     "analysis_spin0_folded",
     "analysis_pair_folded",
+    "synthesis_spin0_folded",
+    "synthesis_pair_folded",
     "LAUNCHES",
     "reset_counts",
 ]
@@ -54,17 +58,25 @@ def _seed_planes(nm, spin):
     return wigner.pair_seed_planes(np.arange(nm), spin)
 
 
-def _check(name, arrays, nhalf_vecs):
+def _check(name, what, arrays, rows, rings, nhalf):
+    """Raise on inputs a kernel does not take.
+
+    ``arrays`` must share dtype (complex64 or complex128), shape and
+    device and be (..., rows, nm); the ring vectors ``rings`` must be
+    (nhalf,).
+    """
     F0 = arrays[0]
     if F0.dtype not in _REAL:
-        raise TypeError(f"{name}: expected complex64 or complex128 spectra, "
+        raise TypeError(f"{name}: expected complex64 or complex128 {what}, "
                         f"got {F0.dtype}")
     for F in arrays[1:]:
         if F.shape != F0.shape or F.dtype != F0.dtype or F.device != F0.device:
-            raise ValueError(f"{name}: spectra differ in shape, dtype or "
+            raise ValueError(f"{name}: {what} differ in shape, dtype or "
                              "device")
-    nhalf = F0.shape[-2]
-    for v in nhalf_vecs:
+    if F0.dim() < 2 or F0.shape[-2] != rows:
+        raise ValueError(f"{name}: {what} must be (..., {rows}, nm), "
+                         f"got {tuple(F0.shape)}")
+    for v in rings:
         if tuple(v.shape) != (nhalf,):
             raise ValueError(f"{name}: ring vectors must have shape "
                              f"({nhalf},), got {tuple(v.shape)}")
@@ -72,49 +84,48 @@ def _check(name, arrays, nhalf_vecs):
         raise ValueError(f"{name}: unsupported device {F0.device}")
 
 
-def _launch(name, spectra, x, logch, logsh, lmax, spin):
-    """Launch one analysis kernel on CUDA tensors; returns the alms."""
+def _launch(name, inputs, x, logch, logsh, lmax, spin, out_rows, nout):
+    """Launch one kernel on CUDA tensors; returns its ``nout`` outputs.
+
+    ``name`` is ``{analysis,synthesis}_{spin0,pair}_folded``; ``inputs``
+    are its (..., rows, nm) complex operands and each output is
+    (..., out_rows, nm).
+    """
     from . import _build
 
     kl = _build.load_library()
+    direction = name.split("_")[0]
     pair = spin is not None
-    F0 = spectra[0]
-    dev = F0.device
-    real = _REAL[F0.dtype]
+    A = inputs[0]
+    dev = A.device
+    real = _REAL[A.dtype]
     is_double = real == torch.float64
-    smem = kl.smem_bytes(pair, is_double, lmax)
+    smem = kl.smem_bytes(direction, pair, is_double, lmax)
     if smem > _SMEM_LIMIT:
         raise ValueError(f"{name}: lmax={lmax} needs {smem} bytes of shared "
                          f"memory per block, more than {_SMEM_LIMIT}")
-    batch = F0.shape[:-2]
-    nhalf, nm = F0.shape[-2:]
+    batch = A.shape[:-2]
+    rows, nm = A.shape[-2:]
     B = int(np.prod(batch, dtype=np.int64))
-    flat = [F.reshape(B, nhalf, nm).resolve_conj().resolve_neg().contiguous()
-            for F in spectra]
+    flat = [F.reshape(B, rows, nm).resolve_conj().resolve_neg().contiguous()
+            for F in inputs]
     xv = x.to(device=dev, dtype=real).contiguous()
     lch = logch.to(device=dev, dtype=torch.float64).contiguous()
     lsh = logsh.to(device=dev, dtype=torch.float64).contiguous()
     seed = torch.as_tensor(_seed_planes(nm, spin), device=dev)
-    outs = [torch.empty((B, lmax + 1, nm), dtype=F0.dtype, device=dev)
-            for _ in range(2 if pair else 1)]
-    suffix = "f64" if is_double else "f32"
+    outs = [torch.empty((B, out_rows, nm), dtype=A.dtype, device=dev)
+            for _ in range(nout)]
+    fn = getattr(kl.lib, f"heracles_{direction}_{'pair' if pair else 'spin0'}_"
+                         f"{'f64' if is_double else 'f32'}")
+    ints = (B, x.shape[0], nm, lmax) + ((int(spin),) if pair else ())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if pair:
-            err = getattr(kl.lib, f"heracles_analysis_pair_{suffix}")(
-                *(F.data_ptr() for F in flat), xv.data_ptr(), lch.data_ptr(),
-                lsh.data_ptr(), seed.data_ptr(), outs[0].data_ptr(),
-                outs[1].data_ptr(), B, nhalf, nm, lmax, int(spin), stream,
-            )
-        else:
-            err = getattr(kl.lib, f"heracles_analysis_spin0_{suffix}")(
-                *(F.data_ptr() for F in flat), xv.data_ptr(), lch.data_ptr(),
-                lsh.data_ptr(), seed.data_ptr(), outs[0].data_ptr(),
-                B, nhalf, nm, lmax, stream,
-            )
+        err = fn(*(t.data_ptr() for t in flat), xv.data_ptr(), lch.data_ptr(),
+                 lsh.data_ptr(), seed.data_ptr(),
+                 *(o.data_ptr() for o in outs), *ints, stream)
     kl.check(err)
     LAUNCHES[name] += 1
-    return [o.reshape(batch + (lmax + 1, nm)) for o in outs]
+    return [o.reshape(batch + (out_rows, nm)) for o in outs]
 
 
 def analysis_spin0_folded(Fe, Fo, x, logch, logsh, lmax):
@@ -126,11 +137,13 @@ def analysis_spin0_folded(Fe, Fo, x, logch, logsh, lmax):
     (nhalf,) log cos(theta/2), log sin(theta/2), read in float64 (pass
     float64 values for full seed accuracy).  Returns (..., lmax+1, nm).
     """
-    _check("analysis_spin0_folded", (Fe, Fo), (x, logch, logsh))
+    nhalf = x.shape[0]
+    _check("analysis_spin0_folded", "spectra", (Fe, Fo), nhalf,
+           (x, logch, logsh), nhalf)
     if Fe.device.type == "cpu":
         return wigner.analysis_spin0_folded_plain(Fe, Fo, x, logch, logsh, lmax)
     (alm,) = _launch("analysis_spin0_folded", (Fe, Fo), x, logch, logsh,
-                     int(lmax), None)
+                     int(lmax), None, int(lmax) + 1, 1)
     return alm
 
 
@@ -143,11 +156,51 @@ def analysis_pair_folded(FNp, Sp, FNm, Sm, x, logch, logsh, lmax, spin):
     rows of each branch; ``S*``: the partner-paired (-1)^m-signed southern
     rows.  Each output is (..., lmax+1, nm).
     """
-    _check("analysis_pair_folded", (FNp, Sp, FNm, Sm), (x, logch, logsh))
+    nhalf = x.shape[0]
+    _check("analysis_pair_folded", "spectra", (FNp, Sp, FNm, Sm), nhalf,
+           (x, logch, logsh), nhalf)
     spin = abs(int(spin))
     if FNp.device.type == "cpu":
         return wigner.analysis_pair_folded_plain(FNp, Sp, FNm, Sm, x, logch,
                                                  logsh, lmax, spin)
     alm_p, alm_m = _launch("analysis_pair_folded", (FNp, Sp, FNm, Sm), x,
-                           logch, logsh, int(lmax), spin)
+                           logch, logsh, int(lmax), spin, int(lmax) + 1, 2)
     return alm_p, alm_m
+
+
+def synthesis_spin0_folded(alm, x, logch, logsh, lmax):
+    """Folded spin-0 synthesis: rectangular alm -> (GN, GS) ring spectra.
+
+    ``alm``: (..., lmax+1, nm) complex; ``x``/``logch``/``logsh``: (nhalf,)
+    northern-ring geometry as for :func:`analysis_spin0_folded`.  Returns
+    GN = sum_l alm lam (the northern rings) and GS = (-1)^m sum_l (-1)^l
+    alm lam (their mirrored southern partners), each (..., nhalf, nm).
+    """
+    lmax = int(lmax)
+    _check("synthesis_spin0_folded", "alms", (alm,), lmax + 1,
+           (x, logch, logsh), x.shape[0])
+    if alm.device.type == "cpu":
+        return wigner.synthesis_spin0_folded_plain(alm, x, logch, logsh, lmax)
+    GN, GS = _launch("synthesis_spin0_folded", (alm,), x, logch, logsh, lmax,
+                     None, x.shape[0], 2)
+    return GN, GS
+
+
+def synthesis_pair_folded(alm_p, alm_m, x, logch, logsh, lmax, spin):
+    """Folded spin-pair synthesis; returns (GNp, GSp, GNm, GSm).
+
+    ``alm_p``/``alm_m``: (..., lmax+1, nm) alms of the n = +spin and
+    n = -spin columns.  GNp = sum a_p lam_p and GNm = sum a_m lam_m on
+    the northern rings; GSp = (-1)^m sum (-1)^l a_p lam_m and
+    GSm = (-1)^m sum (-1)^l a_m lam_p on their mirrored southern partners.
+    Each is (..., nhalf, nm).
+    """
+    lmax = int(lmax)
+    _check("synthesis_pair_folded", "alms", (alm_p, alm_m), lmax + 1,
+           (x, logch, logsh), x.shape[0])
+    spin = abs(int(spin))
+    if alm_p.device.type == "cpu":
+        return wigner.synthesis_pair_folded_plain(alm_p, alm_m, x, logch,
+                                                  logsh, lmax, spin)
+    return tuple(_launch("synthesis_pair_folded", (alm_p, alm_m), x, logch,
+                         logsh, lmax, spin, x.shape[0], 4))

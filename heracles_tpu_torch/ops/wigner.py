@@ -1,4 +1,4 @@
-"""Scaled Wigner-d recurrences for the analysis SHT, in plain PyTorch.
+"""Scaled Wigner-d recurrences for the SHT, in plain PyTorch.
 
 Counterpart of :mod:`heracles_tpu.ops.wigner`.  Everything is built on
 the normalised spin-weighted functions
@@ -19,8 +19,9 @@ Here live the host-f64 seed constants (:func:`spin0_seed_planes`,
 :func:`pair_seed_planes`) that the Hopper kernels of
 :mod:`heracles_tpu_torch.ops.sht_kernels` take, and the plain versions of
 those kernels (:func:`analysis_spin0_folded_plain`,
-:func:`analysis_pair_folded_plain`): a Python loop over l on tensors,
-vectorised over rings, lanes and the batch.  The seed is evaluated in
+:func:`analysis_pair_folded_plain`, :func:`synthesis_spin0_folded_plain`,
+:func:`synthesis_pair_folded_plain`): one Python loop over l on tensors
+(:func:`_lambda_rows`), vectorised over rings, lanes and the batch.  The seed is evaluated in
 float64 and the recurrence coefficients are computed in float64, then
 both are rounded to the working type, exactly as the kernels do.
 
@@ -44,6 +45,9 @@ __all__ = [
     "lambda_analysis_scan_folded",
     "analysis_spin0_folded_plain",
     "analysis_pair_folded_plain",
+    "lambda_synthesis_scan_folded",
+    "synthesis_spin0_folded_plain",
+    "synthesis_pair_folded_plain",
     "wigner_table_host",
     "legendre_sum_host",
     "PLAIN_RUNS",
@@ -195,45 +199,39 @@ def _coeff_tables(ms, ns, j0, lmax, dtype, device):
     return A1.to(dtype), A0.to(dtype), B.to(dtype)
 
 
-def _folded_scan(ms, ns, x, logch, logsh, lmax, Fa, Fb, split):
-    """The loop over l shared by every plain analysis.
+def _sorted_lanes(ms, ns):
+    """Lanes (ms[i], ns[i]) in order of j0: (ms, ns, j0, order).
 
-    Lanes are (ms[i], ns[i]); ``Fa``/``Fb``: (..., nr, lanes) complex.
-    ``split=False``: returns sum_r lam * (Fa on even l, Fb on odd l);
-    ``split=True``: returns the pair (sum_r lam * Fa, sum_r lam * Fb).
-    Outputs are (..., lmax+1, lanes) complex.  Lanes are processed in
-    order of j0, so at step l only the first lanes (those with j0 <= l)
-    are live and the rest are skipped.
+    ``order`` is the permutation applied, or None where the lanes were
+    already in order.
     """
     ms = np.asarray(ms, dtype=np.int64)
     ns = np.broadcast_to(np.asarray(ns, dtype=np.int64), ms.shape)
     j0 = np.maximum(np.abs(ms), np.abs(ns))
     order = np.argsort(j0, kind="stable")
-    permuted = not np.array_equal(order, np.arange(order.size))
-    device = Fa.device
-    if permuted:
-        idx = torch.as_tensor(order, device=device)
-        ms, ns, j0 = ms[order], ns[order], j0[order]
-        Fa = Fa.index_select(-1, idx)
-        Fb = Fb.index_select(-1, idx)
-    Fa = Fa.resolve_conj().resolve_neg()
-    Fb = Fb.resolve_conj().resolve_neg()
-    dtype = Fa.real.dtype
+    if np.array_equal(order, np.arange(order.size)):
+        return ms, ns, j0, None
+    return ms[order], ns[order], j0[order], order
+
+
+def _lambda_rows(ms, ns, j0, x, logch, logsh, lmax, dtype, device):
+    """The loop over l shared by every plain analysis and synthesis.
+
+    Lanes (ms[i], ns[i]) must be in order of j0 (:func:`_sorted_lanes`).
+    Yields ``(ell, lam)`` for each l with a live lane, ``lam`` (nr, n)
+    being the emitted functions of the first n lanes (those with
+    j0 <= l; the rest are skipped).  The seed is evaluated in float64 and
+    the coefficients computed in float64, then both are rounded to
+    ``dtype``, as the kernels do.
+    """
     mant, kseed = _lane_seeds(ms, ns, logch, logsh, dtype)
     A1, A0, B = _coeff_tables(ms, ns, j0, lmax, dtype, device)
     xs = x.to(device=device, dtype=dtype)[:, None]
-    Far = torch.view_as_real(Fa)
-    Fbr = torch.view_as_real(Fb)
     nr, nlanes = mant.shape
-    batch = Fa.shape[:-2]
     # recurrence state, updated in place lane block by lane block
     dp = torch.zeros((nr, nlanes), dtype=dtype, device=device)
     dc = torch.zeros_like(dp)
     k = torch.full((nr, nlanes), _NO_SEED, dtype=torch.int32, device=device)
-    outs = [
-        torch.zeros(batch + (lmax + 1, nlanes, 2), dtype=dtype, device=device)
-        for _ in range(2 if split else 1)
-    ]
     ells = np.arange(lmax + 1)
     n_live = np.searchsorted(j0, ells, side="right")
     n_old = np.searchsorted(j0, ells, side="left")
@@ -249,14 +247,7 @@ def _folded_scan(ms, ns, x, logch, logsh, lmax, Fa, Fb, split):
             k[:, s0:n] = kseed[:, s0:n]
         kl = k[:, :n]
         emit = torch.where(kl == 0, one, torch.where(kl == -1, inv_scale, 0.0))
-        lam = (dc[:, :n] * emit)[:, :, None]
-        norm = math.sqrt((2 * ell + 1) / (4 * math.pi))
-        if split:
-            outs[0][..., ell, :n, :] = (lam * Far[..., :n, :]).sum(-3) * norm
-            outs[1][..., ell, :n, :] = (lam * Fbr[..., :n, :]).sum(-3) * norm
-        else:
-            F = Far if ell % 2 == 0 else Fbr
-            outs[0][..., ell, :n, :] = (lam * F[..., :n, :]).sum(-3) * norm
+        yield ell, dc[:, :n] * emit
         if ell == lmax:
             break
         dcl, dpl = dc[:, :n], dp[:, :n]
@@ -266,11 +257,97 @@ def _folded_scan(ms, ns, x, logch, logsh, lmax, Fa, Fb, split):
         dp[:, :n] = dcl * sc
         dc[:, :n] = dn * sc
         k[:, :n] += over.to(torch.int32)
-    outs = [torch.view_as_complex(o) for o in outs]
-    if permuted:
-        inv = torch.as_tensor(np.argsort(order), device=device)
-        outs = [o.index_select(-1, inv) for o in outs]
+
+
+def _unsort(outs, order, device):
+    """Undo the lane permutation of :func:`_sorted_lanes` on the last axis."""
+    if order is None:
+        return outs
+    inv = torch.as_tensor(np.argsort(order), device=device)
+    return [o.index_select(-1, inv) for o in outs]
+
+
+def _folded_scan(ms, ns, x, logch, logsh, lmax, Fa, Fb, split):
+    """The plain folded analysis.
+
+    Lanes are (ms[i], ns[i]); ``Fa``/``Fb``: (..., nr, lanes) complex.
+    ``split=False``: returns sum_r lam * (Fa on even l, Fb on odd l);
+    ``split=True``: returns the pair (sum_r lam * Fa, sum_r lam * Fb).
+    Outputs are (..., lmax+1, lanes) complex.
+    """
+    ms, ns, j0, order = _sorted_lanes(ms, ns)
+    device = Fa.device
+    if order is not None:
+        idx = torch.as_tensor(order, device=device)
+        Fa = Fa.index_select(-1, idx)
+        Fb = Fb.index_select(-1, idx)
+    Fa = Fa.resolve_conj().resolve_neg()
+    Fb = Fb.resolve_conj().resolve_neg()
+    dtype = Fa.real.dtype
+    Far = torch.view_as_real(Fa)
+    Fbr = torch.view_as_real(Fb)
+    batch = Fa.shape[:-2]
+    nlanes = ms.size
+    outs = [
+        torch.zeros(batch + (lmax + 1, nlanes, 2), dtype=dtype, device=device)
+        for _ in range(2 if split else 1)
+    ]
+    for ell, lam in _lambda_rows(ms, ns, j0, x, logch, logsh, lmax, dtype,
+                                 device):
+        n = lam.shape[1]
+        lam = lam[:, :, None]
+        norm = math.sqrt((2 * ell + 1) / (4 * math.pi))
+        if split:
+            outs[0][..., ell, :n, :] = (lam * Far[..., :n, :]).sum(-3) * norm
+            outs[1][..., ell, :n, :] = (lam * Fbr[..., :n, :]).sum(-3) * norm
+        else:
+            F = Far if ell % 2 == 0 else Fbr
+            outs[0][..., ell, :n, :] = (lam * F[..., :n, :]).sum(-3) * norm
+    outs = _unsort([torch.view_as_complex(o) for o in outs], order, device)
     return tuple(outs) if split else outs[0]
+
+
+def _folded_synth(ms, ns, x, logch, logsh, lmax, a, aS):
+    """The plain folded synthesis: (sum_l a lam, sum_l (-1)^l aS lam).
+
+    Lanes are (ms[i], ns[i]); ``a``/``aS``: (..., lmax+1, lanes) complex
+    alms.  Each is multiplied by sqrt((2l+1)/4pi) (rounded from float64 to
+    the working type, as the kernels do) before the sums.  Returns
+    (GN, S), each (..., nr, lanes) complex, nr = len(x).
+    """
+    ms, ns, j0, order = _sorted_lanes(ms, ns)
+    device = a.device
+    if order is not None:
+        idx = torch.as_tensor(order, device=device)
+        a = a.index_select(-1, idx)
+        aS = aS.index_select(-1, idx)
+    dtype = a.real.dtype
+    ells = torch.arange(lmax + 1, dtype=torch.float64, device=device)
+    norm = torch.sqrt((2.0 * ells + 1.0) * (0.25 / math.pi)).to(dtype)[:, None, None]
+    ar = torch.view_as_real(a.resolve_conj().resolve_neg()) * norm
+    aSr = torch.view_as_real(aS.resolve_conj().resolve_neg()) * norm
+    batch = a.shape[:-2]
+    GN = torch.zeros(batch + (x.shape[0], ms.size, 2), dtype=dtype, device=device)
+    S = torch.zeros_like(GN)
+    for ell, lam in _lambda_rows(ms, ns, j0, x, logch, logsh, lmax, dtype,
+                                 device):
+        n = lam.shape[1]
+        lam = lam[:, :, None]
+        GN[..., :n, :] += ar[..., ell, None, :n, :] * lam
+        t = aSr[..., ell, None, :n, :] * lam
+        if ell % 2:
+            S[..., :n, :] -= t
+        else:
+            S[..., :n, :] += t
+    return tuple(_unsort([torch.view_as_complex(GN), torch.view_as_complex(S)],
+                         order, device))
+
+
+def _swap_blocks(arr, dim=-1):
+    """Swap the two equal halves of ``arr`` along ``dim`` (the +-n blocks)."""
+    half = arr.shape[dim] // 2
+    return torch.cat([arr.narrow(dim, half, half), arr.narrow(dim, 0, half)],
+                     dim=dim)
 
 
 def lambda_analysis_scan_folded(ms, ns, x, logch, logsh, lmax, FN, FS,
@@ -289,11 +366,26 @@ def lambda_analysis_scan_folded(ms, ns, x, logch, logsh, lmax, FN, FS,
                             split=False)
     north, south = _folded_scan(ms, ns, x, logch, logsh, lmax, FN, FS,
                                 split=True)
-    half = south.shape[-1] // 2
-    swapped = torch.cat([south[..., half:], south[..., :half]], dim=-1)
     sign = torch.ones(lmax + 1, 1, dtype=north.real.dtype, device=north.device)
     sign[1::2] = -1.0
-    return north + sign * swapped
+    return north + sign * _swap_blocks(south)
+
+
+def lambda_synthesis_scan_folded(ms, ns, x, logch, logsh, lmax, alm,
+                                 cross=False):
+    """Ring-pair-folded synthesis: (GN, GS), each (..., nhalf, lanes).
+
+    ``alm``: (..., lmax+1, lanes) complex.  GN holds the ring spectra on
+    the northern rings, GS those of their mirrored southern partners,
+    GS[L] = (-1)^{m_L} sum_l (-1)^l alm[l, P(L)] lam[l, L] routed back to
+    column L (P is the swap of the two +-n lane blocks when ``cross``,
+    the identity otherwise).
+    """
+    almP = _swap_blocks(alm) if cross else alm
+    GN, S = _folded_synth(ms, ns, x, logch, logsh, lmax, alm, almP)
+    GS = _swap_blocks(S) if cross else S
+    msign = torch.as_tensor(_msign(ms), dtype=GN.real.dtype, device=GN.device)
+    return GN, GS * msign
 
 
 def analysis_spin0_folded_plain(Fe, Fo, x, logch, logsh, lmax):
@@ -323,6 +415,36 @@ def analysis_pair_folded_plain(FNp, Sp, FNm, Sm, x, logch, logsh, lmax, spin):
         cross=True,
     )
     return out[..., :nm], out[..., nm:]
+
+
+def synthesis_spin0_folded_plain(alm, x, logch, logsh, lmax):
+    """Plain version of the spin-0 synthesis kernel (same signature).
+
+    GN = sum_l alm lam and GS = (-1)^m sum_l (-1)^l alm lam, each
+    (..., nhalf, nm).
+    """
+    PLAIN_RUNS["synthesis_spin0_folded"] += 1
+    nm = alm.shape[-1]
+    return lambda_synthesis_scan_folded(np.arange(nm), 0, x, logch, logsh,
+                                        lmax, alm)
+
+
+def synthesis_pair_folded_plain(alm_p, alm_m, x, logch, logsh, lmax, spin):
+    """Plain version of the spin-pair synthesis kernel (same signature).
+
+    GNp = sum a_p lam_p, GSp = (-1)^m sum (-1)^l a_p lam_m,
+    GNm = sum a_m lam_m, GSm = (-1)^m sum (-1)^l a_m lam_p; returns
+    (GNp, GSp, GNm, GSm).
+    """
+    PLAIN_RUNS["synthesis_pair_folded"] += 1
+    nm = alm_p.shape[-1]
+    ms = np.tile(np.arange(nm), 2)
+    ns = np.repeat(np.asarray([spin, -spin], np.int64), nm)
+    GN, GS = lambda_synthesis_scan_folded(
+        ms, ns, x, logch, logsh, lmax, torch.cat([alm_p, alm_m], dim=-1),
+        cross=True,
+    )
+    return GN[..., :nm], GS[..., :nm], GN[..., nm:], GS[..., nm:]
 
 
 def wigner_table_host(m, n, theta, lmax):

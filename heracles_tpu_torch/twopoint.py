@@ -432,18 +432,17 @@ def _mixmat_dispatch(cl, *, l1max, l2max, l3max, spin, eb, device):
     l1max = lmax_default if l1max is None else int(l1max)
     l2max = lmax_default if l2max is None else int(l2max)
     s1, s2 = spin
-    device = torch.device("cpu" if device is None else device)
     return _mixmat_gl_dispatch(np.asarray(cl, np.float64), l1max, l2max,
-                               abs(s1), abs(s2), eb, device)
+                               abs(s1), abs(s2), eb, torch.device(device))
 
 
 def mixmat(cl, *, l1max=None, l2max=None, l3max=None, spin=(0, 0),
-           device=None):
+           device="cuda"):
     """MASTER mixing matrix M[l1, l2] for a (possibly spin-weighted) pair.
 
     Equivalent of ``convolvecl.mixmat``: M = (2 l2+1)/4pi sum_l3 (2 l3+1)
     cl[l3] (3j(l1,l2,l3; -s1,s1,0))(3j(l1,l2,l3; -s2,s2,0)).  Computed on
-    ``device`` (default the CPU); returns a host float64 array.
+    ``device`` (default the CUDA card); returns a host float64 array.
     """
     return _mixmat_dispatch(
         cl, l1max=l1max, l2max=l2max, l3max=l3max, spin=spin, eb=False,
@@ -452,13 +451,13 @@ def mixmat(cl, *, l1max=None, l2max=None, l3max=None, spin=(0, 0),
 
 
 def mixmat_eb(cl, *, l1max=None, l2max=None, l3max=None, spin=(2, 2),
-              device=None):
+              device="cuda"):
     """E/B mixing-matrix blocks (EE<->EE, EE<->BB, EB<->EB) for spin pairs.
 
     Equivalent of ``convolvecl.mixmat_eb``; the EB block equals
     M_plus - M_minus, consistent with the block-diagonal inversion of
-    :func:`invert_mixing_matrix`.  Returns a host (3, l1max+1, l2max+1)
-    float64 array.
+    :func:`invert_mixing_matrix`.  Computed on ``device`` (default the CUDA
+    card); returns a host (3, l1max+1, l2max+1) float64 array.
     """
     return _mixmat_dispatch(
         cl, l1max=l1max, l2max=l2max, l3max=l3max, spin=spin, eb=True,
@@ -467,12 +466,12 @@ def mixmat_eb(cl, *, l1max=None, l2max=None, l3max=None, spin=(2, 2),
 
 
 def _fields_device(fields):
-    """Device of the first field whose mapper has one, else the CPU."""
+    """Device of the first field whose mapper has one, else the CUDA card."""
     for field in fields:
         device = getattr(getattr(field, "mapper", None), "device", None)
         if device is not None:
             return torch.device(device)
-    return torch.device("cpu")
+    return torch.device("cuda")
 
 
 def mixing_matrices(
@@ -494,8 +493,8 @@ def mixing_matrices(
     fields are matched through their ``mask`` attribute.  The result is
     keyed (field1, field2, bin1, bin2) and wrapped as a Result with the
     *output* ell on axis -2.  The contractions run on ``device``, by
-    default the device of the matched fields' mappers (the CPU when they
-    have none).
+    default the device of the matched fields' mappers (the CUDA card when
+    they have none).
     """
     if out is None:
         out = TocDict()
@@ -562,18 +561,18 @@ def _pinv_batch(a, rcond, device):
     return torch.linalg.pinv(a, rtol=rcond).cpu().numpy()
 
 
-def invert_mixing_matrix(M, rcond=1e-5, progress=None, *, device=None):
+def invert_mixing_matrix(M, rcond=1e-5, progress=None, *, device="cuda"):
     """Pseudo-inverses of mixing matrices.
 
     For spin2 x spin2, the (EE, BB) sector is block-diagonalised by the
     M+ = M_EE + M_BB / M- = M_EE - M_BB transformation before pinv and
     recombined; EB inverts independently.  ``rcond`` is a number or a
     mapping of keys to numbers.  The pseudo-inverses of a key run as one
-    batched call on ``device`` (default the CPU).
+    batched call on ``device`` (default the CUDA card).
     """
     if progress is None:
         progress = NoProgress()
-    device = torch.device("cpu" if device is None else device)
+    device = torch.device(device)
 
     inv = {}
     current, total = 0, len(M)

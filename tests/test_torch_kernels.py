@@ -6,10 +6,11 @@ card it runs on its own:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_kernels.py
 
-Tolerances: the analysis kernels are held to the bar the Pallas kernels
-were held to against the jnp scans (tests/test_pallas.py): float32
-``atol = 2e-5 * scale, rtol = 2e-4`` (the same algorithm, with float32
-sums taken in another order); float64 ``atol = 1e-11 * scale``.  The Gram
+Tolerances: the analysis and synthesis kernels are held to the bar the
+Pallas kernels were held to against the jnp scans (tests/test_pallas.py):
+float32 ``atol = 2e-5 * scale, rtol = 2e-4`` (the same algorithm, with
+float32 sums taken in another order), the pair synthesis ``atol = 3e-5 *
+scale, rtol = 3e-4``; float64 ``atol = 1e-11 * scale``.  The Gram
 kernel to 1e-12 of the largest entry (float64 sums in another order), the
 probe kernels to steps * eps of the largest value (an FMA and a
 multiply-then-add round differently at every step).
@@ -54,14 +55,23 @@ def _inputs(nside, lmax, batch, nspec, cdtype, device, seed):
     return spectra, geom
 
 
-def _assert_close(got, want, cdtype):
+def _assert_close(got, want, cdtype, tol32=(2e-5, 2e-4)):
     got, want = got.cpu().numpy(), want.cpu().numpy()
     scale = np.abs(want).max()
     assert np.all(np.isfinite(got))
     if cdtype == torch.complex64:
-        np.testing.assert_allclose(got, want, atol=2e-5 * scale, rtol=2e-4)
+        np.testing.assert_allclose(got, want, atol=tol32[0] * scale,
+                                   rtol=tol32[1])
     else:
         np.testing.assert_allclose(got, want, atol=1e-11 * scale, rtol=0)
+
+
+def _alms(nside, lmax, batch, nalm, cdtype, device, seed):
+    rng = np.random.default_rng(seed)
+    shape = (batch, lmax + 1, lmax + 1)
+    alms = [torch.as_tensor(rng.normal(size=shape) + 1j * rng.normal(size=shape),
+                            dtype=cdtype, device=device) for _ in range(nalm)]
+    return alms, _inputs(nside, lmax, 1, 0, cdtype, device, seed)[1]
 
 
 @pytest.mark.parametrize("cdtype", [torch.complex64, torch.complex128])
@@ -85,6 +95,62 @@ def test_pair_kernel_matches_plain(cuda, nside, lmax, batch, cdtype):
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         _assert_close(g, w, cdtype)
+
+
+@pytest.mark.parametrize("cdtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("nside,lmax,batch", CASES)
+def test_synthesis_spin0_kernel_matches_plain(cuda, nside, lmax, batch, cdtype):
+    (alm,), geom = _alms(nside, lmax, batch, 1, cdtype, cuda, 2)
+    want = wigner.synthesis_spin0_folded_plain(alm, *geom, lmax)
+    before = sht_kernels.LAUNCHES["synthesis_spin0_folded"]
+    got = sht_kernels.synthesis_spin0_folded(alm, *geom, lmax)
+    torch.cuda.synchronize()
+    assert sht_kernels.LAUNCHES["synthesis_spin0_folded"] == before + 1
+    for g, w in zip(got, want):
+        assert g.shape == (batch, 2 * nside, lmax + 1)
+        _assert_close(g, w, cdtype)
+    # each output written once, no atomics: the kernel repeats bit for bit
+    again = sht_kernels.synthesis_spin0_folded(alm, *geom, lmax)
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+
+
+@pytest.mark.parametrize("cdtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("nside,lmax,batch", CASES)
+def test_synthesis_pair_kernel_matches_plain(cuda, nside, lmax, batch, cdtype):
+    alms, geom = _alms(nside, lmax, batch, 2, cdtype, cuda, 3)
+    want = wigner.synthesis_pair_folded_plain(*alms, *geom, lmax, 2)
+    before = sht_kernels.LAUNCHES["synthesis_pair_folded"]
+    got = sht_kernels.synthesis_pair_folded(*alms, *geom, lmax, 2)
+    torch.cuda.synchronize()
+    assert sht_kernels.LAUNCHES["synthesis_pair_folded"] == before + 1
+    for g, w in zip(got, want):
+        _assert_close(g, w, cdtype, tol32=(3e-5, 3e-4))
+
+
+@pytest.mark.parametrize("cdtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("pair", [False, True])
+def test_synthesis_kernels_at_high_lmax(cuda, pair, cdtype):
+    """lmax 6200 (HealpixMapper's default at nside 4096 is 6144): the
+    coefficient and alm table streams through shared memory in chunks, so
+    its size does not limit lmax; 16 orders keep the plain version cheap."""
+    nside, lmax, nm = 8, 6200, 16
+    rng = np.random.default_rng(6)
+    alms = [torch.as_tensor(rng.normal(size=(lmax + 1, nm))
+                            + 1j * rng.normal(size=(lmax + 1, nm)),
+                            dtype=cdtype, device=cuda)
+            for _ in range(2 if pair else 1)]
+    geom = _inputs(nside, lmax, 1, 0, cdtype, cuda, 6)[1]
+    if pair:
+        want = wigner.synthesis_pair_folded_plain(*alms, *geom, lmax, 2)
+        got = sht_kernels.synthesis_pair_folded(*alms, *geom, lmax, 2)
+    else:
+        want = wigner.synthesis_spin0_folded_plain(*alms, *geom, lmax)
+        got = sht_kernels.synthesis_spin0_folded(*alms, *geom, lmax)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.shape == (2 * nside, nm)
+        _assert_close(g, w, cdtype, tol32=(3e-5, 3e-4) if pair else (2e-5, 2e-4))
 
 
 # (K, L1, L2): K not a multiple of the chunk, L1 = 1, L2 not a multiple

@@ -156,7 +156,7 @@ def test_mixmat_matches_reference(spin, eb, cl_dtype, monkeypatch):
     cl3 = _mask_cl3().astype(cl_dtype)
     fn_j, fn_t = (jtp.mixmat_eb, ttp.mixmat_eb) if eb else (jtp.mixmat, ttp.mixmat)
     want = np.asarray(fn_j(cl3, l1max=LMAX, l2max=LMAX, spin=spin))
-    got = fn_t(cl3, l1max=LMAX, l2max=LMAX, spin=spin)
+    got = fn_t(cl3, l1max=LMAX, l2max=LMAX, spin=spin, device="cpu")
     assert got.dtype == np.float64 and got.shape == want.shape
     for g, w in zip(got.reshape(-1, *got.shape[-2:]), want.reshape(-1, *want.shape[-2:])):
         assert _rel(g, w) <= 1e-11
@@ -166,17 +166,18 @@ def test_mixmat_sizes_and_counts():
     """l1max/l2max/l3max cut the matrix; the CPU path launches nothing."""
     gram.reset_counts()
     cl = np.ones(13)
-    M = ttp.mixmat(cl, l1max=5, l2max=8, l3max=10)
+    M = ttp.mixmat(cl, l1max=5, l2max=8, l3max=10, device="cpu")
     np.testing.assert_allclose(M, jtp.mixmat(cl, l1max=5, l2max=8, l3max=10),
                                rtol=0, atol=1e-12)
     assert M.shape == (6, 9)
     assert gram.LAUNCHES == {} and gram.PLAIN_RUNS == {"gram": 1}
-    eb = ttp.mixmat_eb(_mask_cl3(), l1max=LMAX, l2max=LMAX)
+    eb = ttp.mixmat_eb(_mask_cl3(), l1max=LMAX, l2max=LMAX, device="cpu")
     assert gram.PLAIN_RUNS == {"gram": 3}
     # the full-sky mask mixes nothing
     cl = np.zeros(11)
     cl[0] = 4 * np.pi
-    np.testing.assert_allclose(ttp.mixmat(cl), np.eye(11), atol=1e-10)
+    np.testing.assert_allclose(ttp.mixmat(cl, device="cpu"), np.eye(11),
+                               atol=1e-10)
     np.testing.assert_array_equal(eb[2], eb[0] - eb[1])
 
 
@@ -199,7 +200,7 @@ def test_mixing_matrices_match_reference(binned):
     }
     kw = dict(bins=np.array([0, 3, 7, 13]), weights="2l+1") if binned else {}
     want = jtp.mixing_matrices(fields, jh.TocDict(cls), **kw)
-    got = ttp.mixing_matrices(fields, th.TocDict(cls), **kw)
+    got = ttp.mixing_matrices(fields, th.TocDict(cls), device="cpu", **kw)
     assert list(got) == list(want)
     assert set(got) == {
         ("POS", "POS", 0, 0), ("POS", "SHE", 0, 0), ("SHE", "SHE", 0, 0),
@@ -234,7 +235,7 @@ def test_invert_and_apply_match_reference(spin):
     dt = {key: th.Result(arr.copy(), spin=spin)}
 
     inv_j = jtp.invert_mixing_matrix(M, rcond=1e-5)
-    inv_t = ttp.invert_mixing_matrix(Mt, rcond={key: 1e-5})
+    inv_t = ttp.invert_mixing_matrix(Mt, rcond={key: 1e-5}, device="cpu")
     assert inv_t[key].array.shape == inv_j[key].array.shape
     assert _rel(inv_t[key].array, inv_j[key].array) <= 1e-9
 
@@ -251,17 +252,17 @@ def test_invert_and_apply_match_reference(spin):
 
 def test_invert_rectangular_rebuilds_ell():
     cl = _well_conditioned_cl3(6, 14)
-    mm = ttp.mixmat(cl, l1max=8, l2max=12)
+    mm = ttp.mixmat(cl, l1max=8, l2max=12, device="cpu")
     key = ("A", "A", 0, 0)
     M = {key: th.Result(mm, spin=(0, 0), ell=np.arange(9), axis=-2)}
     want = jtp.invert_mixing_matrix(
         {key: jh.Result(mm, spin=(0, 0), ell=np.arange(9), axis=-2)})[key]
-    got = ttp.invert_mixing_matrix(M)[key]
+    got = ttp.invert_mixing_matrix(M, device="cpu")[key]
     assert got.array.shape == (13, 9)
     for name in ("ell", "lower", "upper", "weight"):
         np.testing.assert_array_equal(getattr(got, name), getattr(want, name))
     with pytest.raises(KeyError, match="Missing rcond"):
-        ttp.invert_mixing_matrix(M, rcond={})
+        ttp.invert_mixing_matrix(M, rcond={}, device="cpu")
 
 
 # -- the toy 3x2pt pipeline through the mixing matrices -----------------------
@@ -269,8 +270,13 @@ def test_invert_rectangular_rebuilds_ell():
 NSIDE, PLMAX, NROWS = 16, 24, 20_000
 
 
+def _on_cpu(pkg):
+    """The port's mapper argument that keeps it on the CPU."""
+    return {"device": "cpu"} if pkg is th else {}
+
+
 def _pipeline(pkg, vis):
-    mapper = pkg.HealpixMapper(NSIDE, PLMAX, deconvolve=False)
+    mapper = pkg.HealpixMapper(NSIDE, PLMAX, deconvolve=False, **_on_cpu(pkg))
     fields = {
         "POS": pkg.Positions(mapper, "RA", "DEC", mask="VIS", overdensity=False),
         "SHE": pkg.Shears(mapper, "RA", "DEC", "G1", "G2", "W", mask="VIS"),
@@ -333,7 +339,7 @@ def test_weights_field_matches_reference():
     arr["W"][::7] = 0.0  # zero weights are dropped
     maps = {}
     for pkg in (jh, th):
-        mapper = pkg.HealpixMapper(8, 12, deconvolve=False)
+        mapper = pkg.HealpixMapper(8, 12, deconvolve=False, **_on_cpu(pkg))
         field = pkg.Weights(mapper, "RA", "DEC", "W")
         cat = pkg.ArrayCatalog(arr)
         cat.page_size = 1500
@@ -358,7 +364,7 @@ def test_weights_field_matches_reference():
 ])
 def test_get_masks_matches_reference(kwargs):
     def make(pkg):
-        mapper = pkg.HealpixMapper(8, 12)
+        mapper = pkg.HealpixMapper(8, 12, **_on_cpu(pkg))
         return {
             "POS": pkg.Positions(mapper, "RA", "DEC", mask="VIS"),
             "SHE": pkg.Shears(mapper, "RA", "DEC", "G1", "G2", mask="WHT"),

@@ -281,8 +281,9 @@ def test_gram_and_probe_on_cpu_use_plain(monkeypatch):
 def test_build_without_nvcc(tmp_path, monkeypatch):
     # one library from every kernel source, each of which is in the checkout
     names = [src.name for src in _build.SOURCES]
-    assert names == ["sht_analysis.cu", "gram.cu", "fma_peak.cu"]
-    assert all(src.is_file() for src in _build.SOURCES)
+    assert names == ["sht_analysis.cu", "sht_synthesis.cu", "gram.cu",
+                     "fma_peak.cu"]
+    assert all(src.is_file() for src in _build.SOURCES + _build.HEADERS)
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     if _build.find_nvcc() is not None:  # a toolkit at /usr/local/cuda

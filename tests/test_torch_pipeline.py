@@ -69,7 +69,8 @@ def jax_run():
 
 @pytest.fixture(scope="module")
 def torch_run():
-    return _run(th, th.HealpixMapper(NSIDE, LMAX, deconvolve=False))
+    return _run(th, th.HealpixMapper(NSIDE, LMAX, deconvolve=False,
+                                     device="cpu"))
 
 
 def _assert_spectra_equal(got, want):
@@ -122,7 +123,7 @@ def test_pipeline_maps_match(jax_run, torch_run):
 def test_jax_alms_through_port_spectra(jax_run):
     """heracles_tpu's alms, carried over with to_torch, give its spectra."""
     _, alms_j, cls_j = jax_run
-    alms_t = th.to_torch(alms_j, "cpu")
+    alms_t = th.to_torch(alms_j, device="cpu")
     assert all(isinstance(v, th.DeviceMap) for v in alms_t.values())
     _assert_spectra_equal(th.angular_power_spectra(alms_t), cls_j)
     back = th.to_numpy(alms_t)
@@ -150,7 +151,7 @@ def test_visibility_on_device_tensor():
     vis = _visibility()
     assert th.fsky_from_visibility(torch.as_tensor(vis)) == pytest.approx(
         th.fsky_from_visibility(vis), rel=1e-14)
-    mapper = th.HealpixMapper(NSIDE, LMAX, deconvolve=False)
+    mapper = th.HealpixMapper(NSIDE, LMAX, deconvolve=False, device="cpu")
     cat = th.ArrayCatalog(_catalog_arrays()[0])
     cat.visibility = torch.as_tensor(vis, dtype=torch.float64)
     maps = th.map_catalogs({"VIS": th.Visibility(mapper)}, {0: cat})
@@ -186,7 +187,8 @@ def test_mapper_transform_deconvolved(spin):
     rng = np.random.default_rng(spin)
     maps = rng.normal(size=(2, 12 * nside**2) if spin else (12 * nside**2,))
     want = jh.HealpixMapper(nside, lmax).transform(maps.copy(), spin=spin)
-    got = th.HealpixMapper(nside, lmax).transform(torch.as_tensor(maps), spin=spin)
+    got = th.HealpixMapper(nside, lmax, device="cpu").transform(
+        torch.as_tensor(maps), spin=spin)
     assert got.metadata["deconv"] is True
     np.testing.assert_allclose(np.asarray(got), want, rtol=0,
                                atol=1e-10 * np.abs(want).max())
