@@ -7,11 +7,14 @@ machine without a card, and on any failed check.  Phases, one line each
 with its seconds:
 
 0. the card (``nvidia-smi`` name and power limit), torch and CUDA;
-1. build the Hopper kernels from ``heracles_tpu_torch/csrc``;
+1. build the Hopper kernels from ``heracles_tpu_torch/csrc`` (ptxas'
+   registers and spills, the Gram kernel's DMMA instruction count from
+   its SASS, the pair analysis' resident blocks per SM);
 2. each kernel against its plain PyTorch version on the same CUDA
    tensors: the analysis and synthesis kernels in float32 and float64 at
    three shapes, the Gram kernel at three ragged shapes weighted and
-   unweighted, the probe kernels in float32 and float64 at full occupancy;
+   unweighted (the pair analysis and the Gram kernel also repeated bit
+   for bit), the probe kernels in float32 and float64 at full occupancy;
 3. the ``pipeline_n4096_l3000`` configuration: positions + shear +
    visibility, 2 tomographic bins of 5e6 rows, nside 4096, lmax 3000,
    float32 maps, through ``map_catalogs`` -> ``transform`` ->
@@ -25,7 +28,9 @@ with its seconds:
    through the kernel and its plain version (times, agreement, FP64
    rate); the host seconds of the quadrature rule and tables;
 6. the FMA-peak probe at full occupancy (FP32 and FP64 rates, with its
-   launch count), and the kernels' rates as shares of it;
+   launch count), the analysis kernels' issue rates as shares of it, and
+   the Gram rate as a share of the FP64 tensor-core peak and against
+   einsum's;
 7. synthesis at full size: ``transform`` of phase 3's POS and SHE maps
    with a mapper of 3 Jacobi iterations (exact launch counts, finite
    spectra and their change against phase 3's) and ``synthesize`` of bin
@@ -44,6 +49,7 @@ import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -63,7 +69,7 @@ ITERATIONS = 3
 KERNELS = {
     "analysis_spin0_folded": ("heracles_tpu_torch/csrc/sht_analysis.cu",
                               "heracles_tpu/ops/pallas_sht.py:713"),
-    "analysis_pair_folded": ("heracles_tpu_torch/csrc/sht_analysis.cu",
+    "analysis_pair_folded": ("heracles_tpu_torch/csrc/sht_analysis_pair.cu",
                              "heracles_tpu/ops/pallas_sht.py:1049"),
     "synthesis_spin0_folded": ("heracles_tpu_torch/csrc/sht_synthesis.cu",
                                "heracles_tpu/ops/pallas_sht.py:1704"),
@@ -83,9 +89,19 @@ GRAM_TOL = 1e-12
 PROBE_STEPS_CHECK, PROBE_STEPS_RATE, PROBE_NCHAIN = 256, 4096, 4
 # vector instructions per (ring, l, m) triple of the SHT kernels, by
 # count of the source: ~14 for spin 0 (recurrence step, rescale, emit and
-# 2 contraction FMAs), twice that for the pair (two recurrences, 8 FMAs)
-INSTR_PER_TRIPLE = {"analysis_spin0_folded": 14, "analysis_pair_folded": 28,
+# 2 contraction FMAs), twice that for the pair synthesis (two recurrences,
+# 8 FMAs).  The pair analysis (sht_analysis_pair.cu) has two paths, so its
+# share is a range: ~21 on a warp whose rings all sit at k = -1 (a1 x, two
+# 4-operation steps, 8 FMAs, a quarter of the coefficient row read, and
+# 124 instructions of warp butterfly per 32 triples of a chunk) and ~43 on
+# the full step (each column adds ~5 for its emit factor, ~6 for the
+# rescale)
+INSTR_PER_TRIPLE = {"analysis_spin0_folded": 14,
+                    "analysis_pair_folded": (21, 43),
                     "synthesis_spin0_folded": 14, "synthesis_pair_folded": 28}
+# the FP64 tensor-core peak (H100 SXM data sheet, dense), the Gram
+# kernel's yardstick
+FP64_TENSOR_PEAK = 67e12
 
 # The bound of a kernel: the larger of its bytes (each input read once,
 # each output written once) over HBM3's 3.35 TB/s and its floating-point
@@ -155,15 +171,46 @@ def compare(got, want, atol, rtol=0.0, what="kernel"):
 
 def kernel_label(entry):
     """A short label for a mangled kernel name in ptxas' log."""
-    m = re.search(r"(analysis|synthesis)_kernelI([fd])Lb([01])E", entry)
+    def prec(c):
+        return "f32" if c == "f" else "f64"
+
+    m = re.search(r"pair_analysis_kernelI([fd])E", entry)
     if m:
-        return f"{m.group(1)[:5]}/{'pair' if m.group(3) == '1' else 'spin0'}/" \
-               f"{'f32' if m.group(2) == 'f' else 'f64'}"
+        return f"analy/pair/{prec(m.group(1))}"
+    m = re.search(r"analysis_kernelI([fd])E", entry)
+    if m:
+        return f"analy/spin0/{prec(m.group(1))}"
+    m = re.search(r"synthesis_kernelI([fd])Lb([01])E", entry)
+    if m:
+        return f"synth/{'pair' if m.group(2) == '1' else 'spin0'}/" \
+               f"{prec(m.group(1))}"
     m = re.search(r"probe_kernelI([fd])Li([01])ELi(\d)E", entry)
     if m:
         return f"{'rec3' if m.group(2) == '1' else 'fma'}/" \
-               f"{'f32' if m.group(1) == 'f' else 'f64'}/nchain{m.group(3)}"
-    return "gram/f64" if "gram_kernel" in entry else None
+               f"{prec(m.group(1))}/nchain{m.group(3)}"
+    m = re.search(r"gram_kernelILb([01])E", entry)
+    if m:
+        return f"gram/f64/{'u' if m.group(1) == '1' else '1'}"
+    return None
+
+
+def sass_count(path, function, opcode):
+    """Instructions ``opcode`` in the SASS of the functions whose mangled
+    name contains ``function``, by ``cuobjdump -sass`` of the built
+    library (from the toolkit nvcc came from)."""
+    from heracles_tpu_torch.ops import _build
+
+    tool = Path(_build.find_nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(path)], capture_output=True,
+                          text=True, check=True).stdout
+    n, inside = 0, False
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            inside = function in m.group(1)
+        elif inside and re.search(rf"\b{opcode}\b", line):
+            n += 1
+    return n
 
 
 def ptxas_summary(log):
@@ -245,6 +292,9 @@ def phase2(dev):
             want = wigner.analysis_pair_folded_plain(*F, *geom, lmax, 2)
             got = sht_kernels.analysis_pair_folded(*F, *geom, lmax, 2)
             rel = max(compare(g, w, *TOL[cdtype])[1] for g, w in zip(got, want))
+            again = sht_kernels.analysis_pair_folded(*F, *geom, lmax, 2)
+            check(all(torch.equal(g, a) for g, a in zip(got, again)),
+                  f"pair analysis n{nside} l{lmax} does not repeat bit for bit")
             rows.append(f"pair/{tag}/n{nside}l{lmax} {rel:.2e}")
             A = [torch.as_tensor(a, dtype=cdtype, device=dev) for a in A64]
             want = wigner.synthesis_spin0_folded_plain(A[0], *geom, lmax)
@@ -266,8 +316,11 @@ def phase2(dev):
         B = torch.as_tensor(rng.normal(size=(K, L2)), device=dev)
         u = torch.as_tensor(rng.normal(size=K), device=dev)
         for tag, w in (("u", u), ("1", None)):
-            _, rel = compare(gram.gram(A, B, w), gram.gram_plain(A, B, w),
-                             GRAM_TOL, what=f"gram K{K} {L1}x{L2}")
+            got = gram.gram(A, B, w)
+            _, rel = compare(got, gram.gram_plain(A, B, w), GRAM_TOL,
+                             what=f"gram K{K} {L1}x{L2}")
+            check(torch.equal(got, gram.gram(A, B, w)),
+                  f"gram K{K} {L1}x{L2} does not repeat bit for bit")
             rows.append(f"gram/{tag}/K{K}x{L1}x{L2} {rel:.2e}")
 
     # the probe at full occupancy, few steps; the float32 fma case is the
@@ -335,11 +388,15 @@ def issue_share(name, dims, ms, fma32):
     batch, nhalf, nm = dims
     spin = 2 if name.endswith("pair_folded") else 0
     triples = sht_triples(batch, nhalf, nm, LMAX, spin)
-    instr = INSTR_PER_TRIPLE[name] * triples / (ms / 1e3)
+    counts = INSTR_PER_TRIPLE[name]
+    counts = counts if isinstance(counts, tuple) else (counts,)
+    rates = [c * triples / (ms / 1e3) for c in counts]
     # an FMA instruction is 2 of the probe's operations
-    return (f"{name} ~{INSTR_PER_TRIPLE[name]} instr/triple x {triples:.3g} "
-            f"triples in {ms:.1f} ms = {instr / 1e12:.2f} Tinstr/s = "
-            f"{100 * instr / (fma32 / 2):.1f}% of the FP32 fma issue rate")
+    return (f"{name} ~{'-'.join(map(str, counts))} instr/triple x "
+            f"{triples:.3g} triples in {ms:.1f} ms = "
+            f"{'-'.join(f'{r / 1e12:.2f}' for r in rates)} Tinstr/s = "
+            f"{'-'.join(f'{100 * r / (fma32 / 2):.1f}' for r in rates)}% of "
+            f"the FP32 fma issue rate")
 
 
 def l_band_rel(got, want, ls, nbands=10):
@@ -496,9 +553,13 @@ def main():
 
     t = time.perf_counter()
     kl = _build.load_library()
+    dmma = sass_count(kl.path, "gram_kernel", "DMMA")
+    check(dmma > 0, "the Gram kernel's SASS has no DMMA instruction")
+    pair_blocks = [kl.pair_blocks_per_sm(d) for d in (False, True)]
     print(f"phase 1 build: nvcc {kl.seconds:.1f} s -> {kl.path.name}; "
-          f"{ptxas_summary(kl.log)} ({time.perf_counter() - t:.1f} s)",
-          flush=True)
+          f"{ptxas_summary(kl.log)}; gram DMMA instructions {dmma}; pair "
+          f"analysis blocks per SM {pair_blocks[0]} (f32), {pair_blocks[1]} "
+          f"(f64) at any lmax ({time.perf_counter() - t:.1f} s)", flush=True)
 
     t = time.perf_counter()
     rows, probe_check = phase2(dev)
@@ -669,7 +730,9 @@ def main():
              f"einsum {c['library_ms']:.2f} ms, bound {c['bound_ms']:.2f} ms "
              f"({c['bound_by']}), "
              f"max|d| {c['max_abs_err']:.2e} ({c['rel']:.1e} of max), "
-             f"{c['flops'] / 1e12:.2f} TFLOP/s" for k, c in contractions.items()]
+             f"{c['flops'] / 1e12:.2f} TFLOP/s = "
+             f"{100 * c['flops'] / FP64_TENSOR_PEAK:.1f}% of the FP64 tensor "
+             f"peak" for k, c in contractions.items()]
     print(f"phase 5 invert_mixing_matrix ({n_pinv} pinv of {LMAX + 1}^2 on "
           f"the card) {t_inv:.2f} s; apply_mixing_matrix ({len(mixed)} spectra) "
           f"{t_apply:.3f} s; gram at K{K} x {LMAX + 1}^2: {'; '.join(parts)}; "
@@ -692,8 +755,13 @@ def main():
     check(sum(probe_plain.values()) == 0, f"plain versions ran: {probe_plain}")
     fma32 = rates["fma", torch.float32]
     fma64 = rates["fma", torch.float64]
+    einsum_rate = float(np.mean([c["flops"] * c["ms"] / c["library_ms"]
+                                 for c in contractions.values()]))
     shares = [f"gram FP64 {gram_rate / 1e12:.2f} TFLOP/s = "
-              f"{100 * gram_rate / fma64:.1f}% of FP64 fma"]
+              f"{100 * gram_rate / FP64_TENSOR_PEAK:.1f}% of the 67 TFLOP/s "
+              f"FP64 tensor-core peak, {gram_rate / einsum_rate:.2f}x einsum's "
+              f"{einsum_rate / 1e12:.2f} TFLOP/s ({gram_rate / fma64:.2f}x the "
+              f"probe's FP64 fma rate)"]
     for name in ("analysis_spin0_folded", "analysis_pair_folded"):
         shares.append(issue_share(name, report[name]["dims"],
                                   report[name]["ms"], fma32))

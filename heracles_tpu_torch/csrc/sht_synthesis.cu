@@ -48,8 +48,7 @@
 //     repeat bit for bit.
 //
 // C interface (loaded with ctypes): heracles_synthesis_{spin0,pair}_{f32,f64}
-// launch on the given stream and return cudaGetLastError();
-// heracles_synthesis_smem_bytes gives a launch's dynamic shared memory.
+// launch on the given stream and return cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -326,15 +325,6 @@ int heracles_synthesis_pair_f64(const void* alm_p, const void* alm_m,
                                 int spin, void* stream) {
   return launch<double, true>(alm_p, alm_m, x, logch, logsh, seed, gnp, gsp,
                               gnm, gsm, batch, nhalf, nm, lmax, spin, stream);
-}
-
-// lmax is taken for symmetry with heracles_analysis_smem_bytes: the
-// chunked table does not grow with it
-size_t heracles_synthesis_smem_bytes(int pair, int is_double, int /*lmax*/) {
-  if (pair) {
-    return is_double ? smem_bytes<double, true>() : smem_bytes<float, true>();
-  }
-  return is_double ? smem_bytes<double, false>() : smem_bytes<float, false>();
 }
 
 }  // extern "C"

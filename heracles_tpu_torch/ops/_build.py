@@ -27,9 +27,10 @@ __all__ = ["KernelLibrary", "build", "find_nvcc", "load_library"]
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(_PKG / "csrc" / name
-                for name in ("sht_analysis.cu", "sht_synthesis.cu", "gram.cu",
-                             "fma_peak.cu"))
-HEADERS = (_PKG / "csrc" / "wigner_recurrence.cuh",)
+                for name in ("sht_analysis.cu", "sht_analysis_pair.cu",
+                             "sht_synthesis.cu", "gram.cu", "fma_peak.cu"))
+HEADERS = tuple(_PKG / "csrc" / name
+                for name in ("warp_reduce.cuh", "wigner_recurrence.cuh"))
 BUILD_DIR = _PKG.parent / "build" / "heracles_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -39,19 +40,23 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# (name, argtypes): every launcher returns cudaGetLastError() as an int
+# every extern "C" function of SOURCES: name -> (restype, argtypes); the
+# launchers return cudaGetLastError() as an int
 _SIGNATURES = {
-    "heracles_analysis_spin0_f32": [_P] * 7 + [_I] * 4 + [_P],
-    "heracles_analysis_spin0_f64": [_P] * 7 + [_I] * 4 + [_P],
-    "heracles_analysis_pair_f32": [_P] * 10 + [_I] * 5 + [_P],
-    "heracles_analysis_pair_f64": [_P] * 10 + [_I] * 5 + [_P],
-    "heracles_synthesis_spin0_f32": [_P] * 7 + [_I] * 4 + [_P],
-    "heracles_synthesis_spin0_f64": [_P] * 7 + [_I] * 4 + [_P],
-    "heracles_synthesis_pair_f32": [_P] * 10 + [_I] * 5 + [_P],
-    "heracles_synthesis_pair_f64": [_P] * 10 + [_I] * 5 + [_P],
-    "heracles_gram_f64": [_P] * 4 + [_I] * 3 + [_P],
-    "heracles_fma_peak_f32": [_P] * 3 + [_I] * 4 + [_P],
-    "heracles_fma_peak_f64": [_P] * 3 + [_I] * 4 + [_P],
+    "heracles_analysis_spin0_f32": (_I, [_P] * 7 + [_I] * 4 + [_P]),
+    "heracles_analysis_spin0_f64": (_I, [_P] * 7 + [_I] * 4 + [_P]),
+    "heracles_analysis_spin0_smem_bytes": (ctypes.c_size_t, [_I, _I]),
+    "heracles_cuda_error_string": (ctypes.c_char_p, [_I]),
+    "heracles_analysis_pair_f32": (_I, [_P] * 10 + [_I] * 5 + [_P]),
+    "heracles_analysis_pair_f64": (_I, [_P] * 10 + [_I] * 5 + [_P]),
+    "heracles_analysis_pair_blocks_per_sm": (_I, [_I, _P]),
+    "heracles_synthesis_spin0_f32": (_I, [_P] * 7 + [_I] * 4 + [_P]),
+    "heracles_synthesis_spin0_f64": (_I, [_P] * 7 + [_I] * 4 + [_P]),
+    "heracles_synthesis_pair_f32": (_I, [_P] * 10 + [_I] * 5 + [_P]),
+    "heracles_synthesis_pair_f64": (_I, [_P] * 10 + [_I] * 5 + [_P]),
+    "heracles_gram_f64": (_I, [_P] * 4 + [_I] * 3 + [_P]),
+    "heracles_fma_peak_f32": (_I, [_P] * 3 + [_I] * 4 + [_P]),
+    "heracles_fma_peak_f64": (_I, [_P] * 3 + [_I] * 4 + [_P]),
 }
 
 
@@ -70,11 +75,17 @@ class KernelLibrary:
             msg = self.lib.heracles_cuda_error_string(err).decode()
             raise RuntimeError(f"CUDA kernel launch failed: {msg} ({err})")
 
-    def smem_bytes(self, direction, pair, is_double, lmax):
-        """Dynamic shared memory of one launch; ``direction`` is
-        "analysis" or "synthesis"."""
-        fn = getattr(self.lib, f"heracles_{direction}_smem_bytes")
-        return int(fn(int(pair), int(is_double), int(lmax)))
+    def spin0_smem_bytes(self, is_double, lmax):
+        """Dynamic shared memory of one spin-0 analysis launch."""
+        return int(self.lib.heracles_analysis_spin0_smem_bytes(
+            int(is_double), int(lmax)))
+
+    def pair_blocks_per_sm(self, is_double):
+        """Resident blocks per SM of the pair analysis kernel."""
+        n = ctypes.c_int(0)
+        self.check(self.lib.heracles_analysis_pair_blocks_per_sm(
+            int(is_double), ctypes.addressof(n)))
+        return n.value
 
 
 def find_nvcc():
@@ -159,14 +170,8 @@ def load_library():
     if not path.exists():
         path, seconds, log = build()
     lib = ctypes.CDLL(str(path))
-    for name, argtypes in _SIGNATURES.items():
+    for name, (restype, argtypes) in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    for direction in ("analysis", "synthesis"):
-        fn = getattr(lib, f"heracles_{direction}_smem_bytes")
-        fn.argtypes = [_I, _I, _I]
-        fn.restype = ctypes.c_size_t
-    lib.heracles_cuda_error_string.argtypes = [_I]
-    lib.heracles_cuda_error_string.restype = ctypes.c_char_p
+        fn.restype = restype
     return KernelLibrary(lib, path, seconds, log)

@@ -11,8 +11,8 @@ The tensor decides the path:
 
 * a CPU tensor takes the plain version (:mod:`.wigner`);
 * a CUDA tensor launches the hand-written kernel
-  (``heracles_tpu_torch/csrc/sht_analysis.cu``, ``sht_synthesis.cu``,
-  built at first use by :mod:`._build`), or raises;
+  (``heracles_tpu_torch/csrc/sht_analysis.cu``, ``sht_analysis_pair.cu``,
+  ``sht_synthesis.cu``, built at first use by :mod:`._build`), or raises;
 * complex64 input runs the float32 kernel, complex128 the float64 one.
 
 ``LAUNCHES`` counts kernel launches per kernel name.
@@ -39,7 +39,9 @@ __all__ = [
 
 LAUNCHES = collections.Counter()
 
-# the largest dynamic shared memory a Hopper block may use
+# the largest dynamic shared memory a Hopper block may use: it bounds the
+# lmax of the spin-0 analysis, whose block holds the order's whole column
+# (the other kernels' shared memory does not grow with lmax)
 _SMEM_LIMIT = 232448
 
 _REAL = {torch.complex64: torch.float32, torch.complex128: torch.float64}
@@ -100,10 +102,12 @@ def _launch(name, inputs, x, logch, logsh, lmax, spin, out_rows, nout):
     dev = A.device
     real = _REAL[A.dtype]
     is_double = real == torch.float64
-    smem = kl.smem_bytes(direction, pair, is_double, lmax)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"{name}: lmax={lmax} needs {smem} bytes of shared "
-                         f"memory per block, more than {_SMEM_LIMIT}")
+    if name == "analysis_spin0_folded":
+        smem = kl.spin0_smem_bytes(is_double, lmax)
+        if smem > _SMEM_LIMIT:
+            raise ValueError(f"{name}: lmax={lmax} needs {smem} bytes of "
+                             f"shared memory per block, more than "
+                             f"{_SMEM_LIMIT}")
     batch = A.shape[:-2]
     rows, nm = A.shape[-2:]
     B = int(np.prod(batch, dtype=np.int64))

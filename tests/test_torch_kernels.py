@@ -91,10 +91,17 @@ def test_spin0_kernel_matches_plain(cuda, nside, lmax, batch, cdtype):
 def test_pair_kernel_matches_plain(cuda, nside, lmax, batch, cdtype):
     F, geom = _inputs(nside, lmax, batch, 4, cdtype, cuda, 1)
     want = wigner.analysis_pair_folded_plain(*F, *geom, lmax, 2)
+    before = sht_kernels.LAUNCHES["analysis_pair_folded"]
     got = sht_kernels.analysis_pair_folded(*F, *geom, lmax, 2)
     torch.cuda.synchronize()
+    assert sht_kernels.LAUNCHES["analysis_pair_folded"] == before + 1
     for g, w in zip(got, want):
         _assert_close(g, w, cdtype)
+    # each row summed over ring tiles in a fixed order, no atomics: the
+    # kernel repeats bit for bit
+    again = sht_kernels.analysis_pair_folded(*F, *geom, lmax, 2)
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
 
 
 @pytest.mark.parametrize("cdtype", [torch.complex64, torch.complex128])
@@ -153,9 +160,33 @@ def test_synthesis_kernels_at_high_lmax(cuda, pair, cdtype):
         _assert_close(g, w, cdtype, tol32=(3e-5, 3e-4) if pair else (2e-5, 2e-4))
 
 
-# (K, L1, L2): K not a multiple of the chunk, L1 = 1, L2 not a multiple
-# of the tile, and tiles on both sides of every edge
-GRAM_CASES = [(37, 1, 70), (4501 // 9, 65, 129), (1000, 130, 3)]
+@pytest.mark.parametrize("cdtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("lmax", [6200, 7400])
+def test_pair_kernel_at_high_lmax(cuda, lmax, cdtype):
+    """lmax 6200 (HealpixMapper's default at nside 4096 is 6144) and 7400,
+    above the ~7200 that the whole-column table of the first pair kernel
+    allowed in float64: the block's shared memory no longer grows with
+    lmax.  16 orders keep the plain version cheap."""
+    nside, nm = 8, 16
+    rng = np.random.default_rng(lmax)
+    F = [torch.as_tensor(rng.normal(size=(2 * nside, nm))
+                         + 1j * rng.normal(size=(2 * nside, nm)),
+                         dtype=cdtype, device=cuda) for _ in range(4)]
+    geom = _inputs(nside, lmax, 1, 0, cdtype, cuda, 7)[1]
+    want = wigner.analysis_pair_folded_plain(*F, *geom, lmax, 2)
+    got = sht_kernels.analysis_pair_folded(*F, *geom, lmax, 2)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.shape == (lmax + 1, nm)
+        _assert_close(g, w, cdtype)
+
+
+# (K, L1, L2): K not a multiple of the MMA depth (8) or the stage (16),
+# L1 = 1, L not a multiple of the MMA fragments (16 x 8), the warp tile
+# (64 x 24) or the block tile (192 x 96), and tiles on both sides of every
+# edge
+GRAM_CASES = [(37, 1, 70), (4501 // 9, 65, 129), (1000, 130, 3),
+              (21, 193, 97), (4501, 3, 1)]
 
 
 @pytest.mark.parametrize("weighted", [True, False])
@@ -175,6 +206,23 @@ def test_gram_kernel_matches_plain(cuda, K, L1, L2, weighted):
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-12 * np.abs(want).max())
     # a fixed summation order: the kernel repeats itself bit for bit
     np.testing.assert_array_equal(gram.gram(A, B, u).cpu().numpy(), got)
+
+
+@pytest.mark.parametrize("weighted", [True, False])
+@pytest.mark.parametrize("K,L", [(37, 1), (603, 200), (4501, 3001)])
+def test_gram_kernel_with_a_as_b(cuda, K, L, weighted):
+    """The spin-0 case passes one table as A and B; the last shape is a
+    production contraction (K 4501, 3001 x 3001)."""
+    rng = np.random.default_rng(K + L)
+    A = torch.as_tensor(rng.normal(size=(K, L)), device=cuda)
+    u = torch.as_tensor(rng.normal(size=K), device=cuda) if weighted else None
+    want = gram.gram_plain(A, A, u)
+    got = gram.gram(A, A, u)
+    torch.cuda.synchronize()
+    assert got.shape == (L, L)
+    scale = want.abs().max().item()
+    assert (got - want).abs().max().item() <= 1e-12 * scale
+    assert torch.equal(gram.gram(A, A, u), got)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])

@@ -281,8 +281,8 @@ def test_gram_and_probe_on_cpu_use_plain(monkeypatch):
 def test_build_without_nvcc(tmp_path, monkeypatch):
     # one library from every kernel source, each of which is in the checkout
     names = [src.name for src in _build.SOURCES]
-    assert names == ["sht_analysis.cu", "sht_synthesis.cu", "gram.cu",
-                     "fma_peak.cu"]
+    assert names == ["sht_analysis.cu", "sht_analysis_pair.cu",
+                     "sht_synthesis.cu", "gram.cu", "fma_peak.cu"]
     assert all(src.is_file() for src in _build.SOURCES + _build.HEADERS)
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
@@ -292,3 +292,44 @@ def test_build_without_nvcc(tmp_path, monkeypatch):
         _build.build()
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build(nvcc=str(tmp_path / "nvcc"))
+
+
+def _c_functions(source):
+    """{name: (return type, [parameter types])} of the extern "C" block."""
+    import re
+
+    text = re.sub(r"/\*.*?\*/|//[^\n]*", "", source.read_text(), flags=re.S)
+    block = text[text.index('extern "C" {'):]
+    out = {}
+    for ret, name, params in re.findall(
+            r"(int|size_t|const char\s*\*)\s+(heracles_\w+)\s*\(([^)]*)\)",
+            block):
+        types = []
+        for p in params.split(","):
+            p = p.strip()
+            types.append("ptr" if "*" in p else p.split()[0])
+        out[name] = (ret.replace(" ", ""), types)
+    return out
+
+
+def test_c_interface_matches_signatures():
+    """Every extern "C" function of every kernel source is declared in
+    _build._SIGNATURES with its return type and arity, each parameter
+    with the ctypes type its C type needs, and nothing else is declared:
+    a changed launcher fails here before it fails on the card."""
+    import ctypes
+
+    ctype = {"ptr": ctypes.c_void_p, "int": ctypes.c_int,
+             "size_t": ctypes.c_size_t, "constchar*": ctypes.c_char_p}
+    found = {}
+    for src in _build.SOURCES:
+        funcs = _c_functions(src)
+        assert funcs, f"no extern C function in {src.name}"
+        assert not set(funcs) & set(found), f"{src.name} repeats a name"
+        found.update(funcs)
+    assert set(found) == set(_build._SIGNATURES)
+    for name, (ret, params) in found.items():
+        restype, argtypes = _build._SIGNATURES[name]
+        assert restype is ctype[ret], name
+        assert len(argtypes) == len(params), name
+        assert all(a is ctype[p] for a, p in zip(argtypes, params)), name
