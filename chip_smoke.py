@@ -9,20 +9,25 @@ with its seconds:
 0. the card (``nvidia-smi`` name and power limit), torch and CUDA;
 1. build the Hopper kernels from ``heracles_tpu_torch/csrc`` (ptxas'
    registers and spills, the Gram kernel's DMMA instruction count from
-   its SASS, the pair analysis' resident blocks per SM);
+   its SASS, the resident blocks per SM of both analysis kernels and the
+   pair synthesis);
 2. each kernel against its plain PyTorch version on the same CUDA
    tensors: the analysis and synthesis kernels in float32 and float64 at
-   three shapes, the Gram kernel at three ragged shapes weighted and
-   unweighted (the pair analysis and the Gram kernel also repeated bit
-   for bit), the probe kernels in float32 and float64 at full occupancy;
+   three shapes (both analyses, the pair synthesis and the Gram kernel
+   also repeated bit for bit), the pair synthesis on alms of 1e-12, the
+   spin-0 analysis at lmax 15000 (above what a whole column in shared
+   memory would allow in float64), the Gram kernel at three ragged shapes
+   weighted and unweighted, the probe kernels in float32 and float64 at
+   full occupancy;
 3. the ``pipeline_n4096_l3000`` configuration: positions + shear +
    visibility, 2 tomographic bins of 5e6 rows, nside 4096, lmax 3000,
    float32 maps, through ``map_catalogs`` -> ``transform`` ->
    ``angular_power_spectra`` -> ``mixing_matrices`` of the mask spectra,
    with the kernels' launch counts over that run;
 4. bin 0's POS and SHE analyses at full size through each kernel and its
-   plain version (times, agreement), and float32 against float64 spectra
-   per l-band;
+   plain version (times, agreement), the share of the spin-0 analysis'
+   work on each of its paths (a diagnostic launch), and float32 against
+   float64 spectra per l-band;
 5. the pseudo-inverses of the mixing matrices and their application to
    the data spectra; one Gram contraction of each spin kind at full size
    through the kernel and its plain version (times, agreement, FP64
@@ -35,7 +40,8 @@ with its seconds:
    with a mapper of 3 Jacobi iterations (exact launch counts, finite
    spectra and their change against phase 3's) and ``synthesize`` of bin
    0's alms, each through the synthesis kernels; bin 0's synthesis through
-   each kernel and its plain version (times, agreement); a round trip of
+   each kernel and its plain version (times, agreement) and the share of
+   the pair synthesis' work on each of its paths; a round trip of
    random band-limited alms, ``alm2map`` -> ``map2alm`` with 0 and 3
    iterations, in float64 and float32.
 
@@ -73,7 +79,7 @@ KERNELS = {
                              "heracles_tpu/ops/pallas_sht.py:1049"),
     "synthesis_spin0_folded": ("heracles_tpu_torch/csrc/sht_synthesis.cu",
                                "heracles_tpu/ops/pallas_sht.py:1704"),
-    "synthesis_pair_folded": ("heracles_tpu_torch/csrc/sht_synthesis.cu",
+    "synthesis_pair_folded": ("heracles_tpu_torch/csrc/sht_synthesis_pair.cu",
                               "heracles_tpu/ops/pallas_sht.py:2161"),
     "gram": ("heracles_tpu_torch/csrc/gram.cu", "heracles_tpu/ops/df32.py:93"),
     "fma_peak": ("heracles_tpu_torch/csrc/fma_peak.cu", "tools/vpu_peak.py:31"),
@@ -88,17 +94,27 @@ GRAM_TOL = 1e-12
 # the probe: an FMA and a multiply-then-add round differently every step
 PROBE_STEPS_CHECK, PROBE_STEPS_RATE, PROBE_NCHAIN = 256, 4096, 4
 # vector instructions per (ring, l, m) triple of the SHT kernels, by
-# count of the source: ~14 for spin 0 (recurrence step, rescale, emit and
-# 2 contraction FMAs), twice that for the pair synthesis (two recurrences,
-# 8 FMAs).  The pair analysis (sht_analysis_pair.cu) has two paths, so its
-# share is a range: ~21 on a warp whose rings all sit at k = -1 (a1 x, two
-# 4-operation steps, 8 FMAs, a quarter of the coefficient row read, and
-# 124 instructions of warp butterfly per 32 triples of a chunk) and ~43 on
-# the full step (each column adds ~5 for its emit factor, ~6 for the
-# rescale)
-INSTR_PER_TRIPLE = {"analysis_spin0_folded": 14,
+# count of the sources.  Per column the recurrence step is 4 (+ a0, x d,
+# b d', -), the emit factor ~5 (two compares, two selects, a multiply), the
+# rescale ~6 (compare, select, two multiplies, the exponent's add); a1 x
+# is 1 per triple.  The spin-0 synthesis (sht_synthesis.cu) has one path:
+# 1 + 4 + 5 + 6, 2 FMAs and 5 scalar reads of the row per 4 rings, ~19.
+# The pair analysis (sht_analysis_pair.cu) has two paths, (steady, full):
+# ~21 on a warp whose rings all sit at k = -1 (a1 x, two steps, 8 FMAs, a
+# quarter of the coefficient row read, and 124 instructions of warp
+# butterfly per 32 triples of a chunk) and ~43 on the full step.  The
+# spin-0 analysis (sht_analysis.cu) and the pair synthesis
+# (sht_synthesis_pair.cu) have three, (steady, dead, full): the spin-0
+# analysis 1 + 4 + 2 FMAs, ~2.4 of butterfly and zeroed sums per triple
+# (124 + 32 per 64 triples of a chunk) and a quarter of a row read, ~10;
+# 1 + 4 and a rescale of ~8 per 8 steps, ~6, where nothing emits yet; ~21
+# on the full step.  The pair synthesis 1 + 8 + 8 FMAs, the negated a0 and
+# two vector reads of the row per 4 rings, ~18; 1 + 8 + 2, ~11; ~40.
+INSTR_PER_TRIPLE = {"analysis_spin0_folded": (10, 6, 21),
                     "analysis_pair_folded": (21, 43),
-                    "synthesis_spin0_folded": 14, "synthesis_pair_folded": 28}
+                    "synthesis_spin0_folded": 19,
+                    "synthesis_pair_folded": (18, 11, 40)}
+PATHS = ("steady", "dead", "full")
 # the FP64 tensor-core peak (H100 SXM data sheet, dense), the Gram
 # kernel's yardstick
 FP64_TENSOR_PEAK = 67e12
@@ -177,13 +193,18 @@ def kernel_label(entry):
     m = re.search(r"pair_analysis_kernelI([fd])E", entry)
     if m:
         return f"analy/pair/{prec(m.group(1))}"
-    m = re.search(r"analysis_kernelI([fd])E", entry)
+    # the diagnostic twins that count the paths carry Lb1
+    m = re.search(r"pair_synthesis_kernelI([fd])Lb([01])E", entry)
     if m:
-        return f"analy/spin0/{prec(m.group(1))}"
-    m = re.search(r"synthesis_kernelI([fd])Lb([01])E", entry)
+        return f"synth/pair/{prec(m.group(1))}" \
+               f"{'/paths' if m.group(2) == '1' else ''}"
+    m = re.search(r"analysis_kernelI([fd])Lb([01])E", entry)
     if m:
-        return f"synth/{'pair' if m.group(2) == '1' else 'spin0'}/" \
-               f"{prec(m.group(1))}"
+        return f"analy/spin0/{prec(m.group(1))}" \
+               f"{'/paths' if m.group(2) == '1' else ''}"
+    m = re.search(r"synthesis_kernelI([fd])E", entry)
+    if m:
+        return f"synth/spin0/{prec(m.group(1))}"
     m = re.search(r"probe_kernelI([fd])Li([01])ELi(\d)E", entry)
     if m:
         return f"{'rec3' if m.group(2) == '1' else 'fma'}/" \
@@ -287,6 +308,9 @@ def phase2(dev):
             want = wigner.analysis_spin0_folded_plain(F[0], F[1], *geom, lmax)
             got = sht_kernels.analysis_spin0_folded(F[0], F[1], *geom, lmax)
             _, rel = compare(got, want, *TOL[cdtype])
+            again = sht_kernels.analysis_spin0_folded(F[0], F[1], *geom, lmax)
+            check(torch.equal(got, again), f"spin-0 analysis n{nside} l{lmax} "
+                  "does not repeat bit for bit")
             tag = "f32" if cdtype == torch.complex64 else "f64"
             rows.append(f"spin0/{tag}/n{nside}l{lmax} {rel:.2e}")
             want = wigner.analysis_pair_folded_plain(*F, *geom, lmax, 2)
@@ -307,7 +331,37 @@ def phase2(dev):
             got = sht_kernels.synthesis_pair_folded(*A, *geom, lmax, 2)
             rel = max(compare(g, w, *tol, what="pair synthesis")[1]
                       for g, w in zip(got, want))
+            again = sht_kernels.synthesis_pair_folded(*A, *geom, lmax, 2)
+            check(all(torch.equal(g, a) for g, a in zip(got, again)),
+                  f"pair synthesis n{nside} l{lmax} does not repeat bit for bit")
             rows.append(f"synthpair/{tag}/n{nside}l{lmax} {rel:.2e}")
+            if cdtype == torch.complex64 and nside == 64:
+                # the kernel holds the alms times 2^-60: tiny ones (Jacobi
+                # residuals) must stay clear of the subnormals
+                tiny = [a * 1e-12 for a in A]
+                want = wigner.synthesis_pair_folded_plain(*tiny, *geom, lmax, 2)
+                got = sht_kernels.synthesis_pair_folded(*tiny, *geom, lmax, 2)
+                rel = max(compare(g, w, *tol, what="pair synthesis of 1e-12")[1]
+                          for g, w in zip(got, want))
+                rows.append(f"synthpair/{tag}/n{nside}l{lmax}x1e-12 {rel:.2e}")
+
+    # the spin-0 analysis' shared memory does not grow with lmax: a whole
+    # column at lmax 15000 would pass a block's 227 KB in float64
+    nside, lmax, nm = 8, 15000, 8
+    nhalf = 2 * nside
+    z = ring_geometry(nside)["z"][:nhalf]
+    geom = [torch.as_tensor(a, device=dev) for a in (
+        z, 0.5 * np.log((1.0 + z) / 2.0), 0.5 * np.log((1.0 - z) / 2.0))]
+    rng = np.random.default_rng(lmax)
+    F64 = [rng.normal(size=(nhalf, nm)) + 1j * rng.normal(size=(nhalf, nm))
+           for _ in range(2)]
+    for cdtype in (torch.complex64, torch.complex128):
+        F = [torch.as_tensor(a, dtype=cdtype, device=dev) for a in F64]
+        want = wigner.analysis_spin0_folded_plain(*F, *geom, lmax)
+        got = sht_kernels.analysis_spin0_folded(*F, *geom, lmax)
+        _, rel = compare(got, want, *TOL[cdtype])
+        tag = "f32" if cdtype == torch.complex64 else "f64"
+        rows.append(f"spin0/{tag}/n{nside}l{lmax}m{nm} {rel:.2e}")
 
     # ragged: K not a multiple of the chunk, L1 = 1, L2 not of the tile
     for K, L1, L2 in [(37, 1, 70), (500, 65, 129), (4501, 130, 3)]:
@@ -383,8 +437,12 @@ def sht_bound(name, batch, nhalf, nm, lmax, cdtype):
     return bound(nbytes, flops, real)
 
 
-def issue_share(name, dims, ms, fma32):
-    """The vector instruction rate of one SHT launch as a share of FP32 FMA."""
+def issue_share(name, dims, ms, fma32, paths=None):
+    """The vector instruction rate of one SHT launch as a share of FP32 FMA.
+
+    A kernel with several paths has a count for each; with ``paths`` (the
+    launch's sub-chunks on each path) the counts are weighted by them.
+    """
     batch, nhalf, nm = dims
     spin = 2 if name.endswith("pair_folded") else 0
     triples = sht_triples(batch, nhalf, nm, LMAX, spin)
@@ -392,11 +450,29 @@ def issue_share(name, dims, ms, fma32):
     counts = counts if isinstance(counts, tuple) else (counts,)
     rates = [c * triples / (ms / 1e3) for c in counts]
     # an FMA instruction is 2 of the probe's operations
-    return (f"{name} ~{'-'.join(map(str, counts))} instr/triple x "
-            f"{triples:.3g} triples in {ms:.1f} ms = "
-            f"{'-'.join(f'{r / 1e12:.2f}' for r in rates)} Tinstr/s = "
-            f"{'-'.join(f'{100 * r / (fma32 / 2):.1f}' for r in rates)}% of "
-            f"the FP32 fma issue rate")
+    txt = (f"{name} ~{'-'.join(map(str, counts))} instr/triple x "
+           f"{triples:.3g} triples in {ms:.1f} ms = "
+           f"{'-'.join(f'{r / 1e12:.2f}' for r in rates)} Tinstr/s = "
+           f"{'-'.join(f'{100 * r / (fma32 / 2):.1f}' for r in rates)}% of "
+           f"the FP32 fma issue rate")
+    if paths:
+        total = sum(paths.values())
+        mean = sum(c * paths[p] for c, p in zip(counts, PATHS)) / total
+        rate = mean * triples / (ms / 1e3)
+        txt += (f"; by its paths' shares ~{mean:.1f} instr/triple = "
+                f"{rate / 1e12:.2f} Tinstr/s = {100 * rate / (fma32 / 2):.1f}%")
+    return txt
+
+
+def path_shares(name, *args):
+    """(counts, text): the sub-chunks of one diagnostic launch by path."""
+    from heracles_tpu_torch.ops import sht_kernels
+
+    counts = sht_kernels.path_counts(name, *args)
+    total = sum(counts.values())
+    check(counts["steady"] > 0, f"{name} never took its steady path: {counts}")
+    txt = ", ".join(f"{p} {100 * counts[p] / total:.1f}%" for p in PATHS)
+    return counts, f"{name} paths (warp sub-chunks of 8 l): {txt}"
 
 
 def l_band_rel(got, want, ls, nbands=10):
@@ -489,6 +565,9 @@ def phase7(dev, maps, cls, fma32, smi):
                             plain_ms=plain_ms, dims=dims, bound_ms=bound_ms,
                             bound_by=bound_by)
         del got, want_g
+    pair_paths, pair_paths_txt = path_shares(
+        "synthesis_pair_folded", a_p, a_m, x, lch, lsh, LMAX, 2)
+    paths = {"synthesis_pair_folded": pair_paths}
     del a0, eb, a_p, a_m
 
     # round trip of random band-limited alms
@@ -513,8 +592,8 @@ def phase7(dev, maps, cls, fma32, smi):
     parts = [f"{n}: kernel {r['ms']:.1f} ms, plain {r['plain_ms']:.1f} ms, "
              f"bound {r['bound_ms']:.2f} ms ({r['bound_by']}), max|d| "
              f"{r['max_abs_err']:.3e} ({r['rel']:.2e} of max); "
-             f"{issue_share(n, r['dims'], r['ms'], fma32)}"
-             for n, r in report.items()]
+             f"{issue_share(n, r['dims'], r['ms'], fma32, paths.get(n))}"
+             for n, r in report.items()] + [pair_paths_txt]
     trip_txt = "; ".join(
         f"{'f64' if c == torch.complex128 else 'f32'} iter {it} "
         f"({sec:.2f} s): " + " ".join(f"{v:.1e}" for v in rel)
@@ -555,11 +634,14 @@ def main():
     kl = _build.load_library()
     dmma = sass_count(kl.path, "gram_kernel", "DMMA")
     check(dmma > 0, "the Gram kernel's SASS has no DMMA instruction")
-    pair_blocks = [kl.pair_blocks_per_sm(d) for d in (False, True)]
+    blocks = "; ".join(
+        f"{kernel} {kl.blocks_per_sm(kernel, False)} (f32), "
+        f"{kl.blocks_per_sm(kernel, True)} (f64)"
+        for kernel in ("analysis_spin0", "analysis_pair", "synthesis_pair"))
     print(f"phase 1 build: nvcc {kl.seconds:.1f} s -> {kl.path.name}; "
-          f"{ptxas_summary(kl.log)}; gram DMMA instructions {dmma}; pair "
-          f"analysis blocks per SM {pair_blocks[0]} (f32), {pair_blocks[1]} "
-          f"(f64) at any lmax ({time.perf_counter() - t:.1f} s)", flush=True)
+          f"{ptxas_summary(kl.log)}; gram DMMA instructions {dmma}; blocks "
+          f"per SM at any lmax: {blocks} ({time.perf_counter() - t:.1f} s)",
+          flush=True)
 
     t = time.perf_counter()
     rows, probe_check = phase2(dev)
@@ -653,6 +735,8 @@ def main():
                             plain_ms=plain_ms, dims=dims, bound_ms=bound_ms,
                             bound_by=bound_by)
         del got, want
+    spin0_paths, spin0_paths_txt = path_shares(
+        "analysis_spin0_folded", *spin0_args, x, lch, lsh, LMAX)
     del spin0_args, pair_args
 
     bands = {}
@@ -672,6 +756,7 @@ def main():
     band_txt = "; ".join(f"{k} " + " ".join(f"{v:.1e}" for v in vals)
                          for k, vals in bands.items())
     print(f"phase 4 bin 0 at n{NSIDE} l{LMAX} f32: {'; '.join(parts)}; "
+          f"{spin0_paths_txt}; "
           f"f32 vs f64 Cl band max rel (10 bands): {band_txt}; card {smi} "
           f"({time.perf_counter() - t:.1f} s)", flush=True)
 
@@ -763,8 +848,9 @@ def main():
               f"{einsum_rate / 1e12:.2f} TFLOP/s ({gram_rate / fma64:.2f}x the "
               f"probe's FP64 fma rate)"]
     for name in ("analysis_spin0_folded", "analysis_pair_folded"):
-        shares.append(issue_share(name, report[name]["dims"],
-                                  report[name]["ms"], fma32))
+        shares.append(issue_share(
+            name, report[name]["dims"], report[name]["ms"], fma32,
+            spin0_paths if name == "analysis_spin0_folded" else None))
     rate_txt = ", ".join(
         f"{k}/{'f32' if d == torch.float32 else 'f64'} {r / 1e12:.2f} Top/s"
         for (k, d), r in rates.items())

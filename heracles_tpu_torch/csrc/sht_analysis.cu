@@ -6,49 +6,72 @@
 //
 // What it computes, per batch element b and order m, for l = m..lmax:
 //   alm[b,l,m] = sum_r lam_lm(x_r) (l even ? Fe : Fo)[b,r,m]
-// where lam is the normalised Wigner-d function of
-// heracles_tpu/ops/wigner.py: the three-term recurrence in l, seeded at
-// j0 = m, with the seed's magnitude carried as a mantissa and a count k of
-// factors 2^60 (block rescaling), and only k = 0 or -1 emitting.
+// where lam is the normalised Wigner-d function of wigner_recurrence.cuh:
+// the three-term recurrence in l, seeded at j0 = m, with the seed's
+// magnitude carried as a mantissa and a count k of factors 2^60 (block
+// rescaling), and only k = 0 or -1 emitting.
 //
-// What bounds it: FP32 (or FP64) vector issue.  Per (ring, l, m) triple
-// the recurrence costs ~10 operations (unfused, so that it rounds as the
-// plain version does) and the contraction 2 FMAs, while F is read once per
-// (ring, m): ~3.7e10 triples against ~0.4 GB of F for one map at nside
-// 4096, lmax 3000.
+// What bounds it: FP32 (or FP64) vector issue.  One map at nside 4096,
+// lmax 3000 has 3.69e10 (ring, l, m) triples; each needs 10 flop (the
+// recurrence's 5 unfused operations, the emit multiply, 2 FMAs), while F is
+// read once (0.4 GB in float32) and the alms written once.
 //
-// Design:
-//   * one block per (order m, batch element); blockIdx.x = m, so the
-//     longest columns (low m) start first;
-//   * each thread owns kRings rings; the block walks the northern rings in
-//     tiles of kTile and runs the recurrence from j0 to lmax for each tile
-//     with F in registers (read with a stride of nm complex values: the
-//     read is small beside the compute, so F is not transposed);
-//   * the contributions of LC consecutive l stay in registers, are summed
-//     over the warp by a butterfly reduce-scatter (V - V/32 shuffles for
-//     V values, after which lane i holds values FV*i..FV*i+FV-1), over the
-//     block's warps through shared memory in a fixed order, and into the
-//     order's output column, which stays in shared memory until every tile
-//     is done (the TPU kernel's resident out tile); the column is written
-//     once and no atomics are used, so results repeat bit for bit;
+// Design (the pair analysis' shape, sht_analysis_pair.cu, with the block's
+// warps decoupled):
+//   * one block of 128 threads per (order m, batch element), blockIdx.x = m
+//     so the longest columns start first; each thread owns kRings = 4 rings
+//     of a tile of 512 (lane + 32 r of its warp's 128 adjacent rings) and
+//     runs their recurrence from j0 to lmax with F in registers (read with
+//     a stride of nm complex values: the read is small beside the compute,
+//     so F is not transposed);
+//   * the sum over rings needs a reduction across threads, once per chunk
+//     of LC = 16 multipoles: a warp butterfly reduce-scatter of the V = 32
+//     partial sums (31 shuffles per 64 triples of a lane);
+//   * the block's four warps do not meet at every chunk.  Each warp writes
+//     its chunk sums into a slot of its own, part[warp][128 rows][2], through
+//     the 128 multipoles of a table section, with no barrier between chunks;
+//     at the section's end, where the coefficient table's double buffer
+//     needs a barrier anyway, thread t sums the four slots of row t in a
+//     fixed order, multiplies by the norm and flushes the row.  The slots
+//     are double-buffered too, so that one barrier per 128 multipoles
+//     serves both, and a warp on a cheap path does not wait for one on the
+//     full step inside a section;
+//   * no column that grows with lmax: a section's rows go straight to the
+//     output, which this block alone owns.  The first ring tile writes
+//     them, later tiles add to them: the thread that flushes a row is the
+//     same in every tile and loads the row's earlier sum before the
+//     section's compute, so the read-modify-write needs no atomics, waits
+//     on no load, and each output is summed over tiles in a fixed order;
+//     results repeat bit for bit;
+//   * every warp picks the steady, dead or full path at the start of each
+//     sub-chunk of 8 multipoles (sht_paths.cuh); the spectra are held times
+//     2^-60 and the emit factor times 2^60, so the steady step multiplies d
+//     itself and each FMA's product is the same exact number as before.
+//     (The order 0 sits at k = 0, its functions being of order 1, and runs
+//     the full step throughout.)  Rows past lmax are zeros, so a chunk
+//     always runs both its sub-chunks;
+//   * the recurrence coefficients (float64, rounded to T) stream through a
+//     double-buffered shared table of 128 rows, one row filled by each
+//     thread per section while the block works on the other buffer; each
+//     step's row is one broadcast vector read;
+//   * the contraction is 2 explicit FMAs per triple;
 //   * the seed is evaluated in float64 from the host log-coefficients and
-//     the float64 ring half-angle logs in both instantiations, which makes
-//     the TPU's compensated hi/lo seed planes unnecessary;
-//   * the recurrence coefficients of each chunk of LC multipoles are
-//     computed in float64 by LC threads into a double-buffered shared
-//     table while the block works on the previous chunk;
-//   * the recurrence itself (seed, coefficients, step, rescale, emit) is
-//     wigner_recurrence.cuh, shared with the pair analysis and the
-//     synthesis kernels.
+//     the float64 ring half-angle logs in both instantiations;
+//   * the recurrence itself (seed, coefficients, unfused step, rescale) is
+//     wigner_recurrence.cuh, shared with the other SHT kernels, and rounds
+//     as the plain version does.
 //
 // C interface (loaded with ctypes): heracles_analysis_spin0_{f32,f64}
 // launch on the given stream and return cudaGetLastError();
-// heracles_analysis_spin0_smem_bytes gives a launch's dynamic shared
-// memory.
+// heracles_analysis_spin0_blocks_per_sm gives the resident blocks per SM
+// (the shared memory does not depend on lmax);
+// heracles_analysis_spin0_paths_f32 is a diagnostic launch that also counts
+// the warps' sub-chunks on each path (steady, dead, full).
 
 #include <cuda_runtime.h>
 #include <stddef.h>
 
+#include "sht_paths.cuh"
 #include "warp_reduce.cuh"
 #include "wigner_recurrence.cuh"
 
@@ -56,55 +79,142 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kRings = 2;                 // rings per thread
+constexpr int kRings = 4;                 // rings per thread
 constexpr int kTile = kThreads * kRings;  // rings per tile
+constexpr int kRows = kThreads;           // rows of a section: one per thread
 constexpr int NC = 2;                     // (re, im)
+constexpr int LC = 16;                    // multipoles per chunk
+constexpr int V = NC * LC;                // register sums per thread
+constexpr int kSub = sht_paths::kSub;     // multipoles per path decision
 
+using sht_paths::emit_scaled;
+using sht_paths::madd;
+using sht_paths::Path;
+using sht_paths::PathCounts;
+using sht_paths::rescale_deferred;
 using warp_reduce::reduce_scatter;
 using wigner::advance;
 using wigner::Arith;
 using wigner::coef_row;
-using wigner::emit_of;
 using wigner::kNoSeed;
 using wigner::norm_of;
 using wigner::seed_of;
 using wigner::step;
 
-// register accumulators per thread
-template <typename T>
-struct AccValues;
-template <>
-struct AccValues<float> {
-  static constexpr int n = 64;
-};
-template <>
-struct AccValues<double> {
-  static constexpr int n = 32;
-};
+// A coefficient row (a1, a0, b, pad) of the shared table, in vector reads.
+__device__ __forceinline__ void load_row(const float* row, float& a1,
+                                         float& a0, float& b) {
+  const float4 v = *reinterpret_cast<const float4*>(row);
+  a1 = v.x;
+  a0 = v.y;
+  b = v.z;
+}
+__device__ __forceinline__ void load_row(const double* row, double& a1,
+                                         double& a0, double& b) {
+  const double2 v = *reinterpret_cast<const double2*>(row);
+  a1 = v.x;
+  a0 = v.y;
+  b = row[2];
+}
 
-template <typename T>
-size_t smem_bytes(int lmax) {
-  constexpr int V = AccValues<T>::n;
-  constexpr int LC = V / NC;
-  return (size_t(lmax + 1) * NC + 2 * kWarps * V + 2 * 3 * LC) * sizeof(T);
+__device__ __forceinline__ void load2(const float* p, float& re, float& im) {
+  const float2 v = *reinterpret_cast<const float2*>(p);
+  re = v.x;
+  im = v.y;
+}
+__device__ __forceinline__ void load2(const double* p, double& re, double& im) {
+  const double2 v = *reinterpret_cast<const double2*>(p);
+  re = v.x;
+  im = v.y;
+}
+__device__ __forceinline__ void store2(float* p, float re, float im) {
+  *reinterpret_cast<float2*>(p) = make_float2(re, im);
+}
+__device__ __forceinline__ void store2(double* p, double re, double im) {
+  *reinterpret_cast<double2*>(p) = make_double2(re, im);
 }
 
 template <typename T>
+struct Ring {
+  T x, dp, dc;  // cos(theta); d^{l-1}, d^l
+  int k;        // the 2^60 exponent
+  // F of the parity of j0 and of j0 + 1, (re, im), each times 2^-60
+  T fa[2], fb[2];
+};
+
+// kSub multipoles of a chunk, from its multipole kOff on.
+template <typename T, Path P, int kOff>
+__device__ __forceinline__ void spin0_sub(const T* __restrict__ cf,
+                                          Ring<T> (&rs)[kRings], T (&acc)[V]) {
+#pragma unroll
+  for (int t = kOff; t < kOff + kSub; ++t) {
+    T a1, a0, bb;
+    load_row(cf + 4 * t, a1, a0, bb);
+#pragma unroll
+    for (int r = 0; r < kRings; ++r) {
+      Ring<T>& q = rs[r];
+      if (P != Path::kDead) {
+        const T lam = P == Path::kSteady ? q.dc : q.dc * emit_scaled<T>(q.k);
+        // chunks start at j0's parity
+        const T fre = (t & 1) ? q.fb[0] : q.fa[0];
+        const T fim = (t & 1) ? q.fb[1] : q.fa[1];
+        acc[2 * t] = madd(lam, fre, acc[2 * t]);
+        acc[2 * t + 1] = madd(lam, fim, acc[2 * t + 1]);
+      }
+      const T a1x = Arith<T>::mul(a1, q.x);
+      const T dn = step<T>(a1x, a0, bb, q.dc, q.dp);
+      if (P == Path::kFull) {
+        advance<T>(dn, q.dp, q.dc, q.k);
+      } else {  // steady: no rescale is due; dead: it waits for the end
+        q.dp = q.dc;
+        q.dc = dn;
+      }
+    }
+  }
+  if (P == Path::kDead) {
+#pragma unroll
+    for (int r = 0; r < kRings; ++r) {
+      rescale_deferred<T>(rs[r].dp, rs[r].dc, rs[r].k);
+    }
+  }
+}
+
+template <typename T, int kOff, bool kCount>
+__device__ __forceinline__ void spin0_sub_any(const T* __restrict__ cf,
+                                              Ring<T> (&rs)[kRings],
+                                              T (&acc)[V],
+                                              PathCounts<kCount>& tally) {
+  bool steady = true, dead = true;
+#pragma unroll
+  for (int r = 0; r < kRings; ++r) {
+    steady = steady && sht_paths::is_steady(rs[r].k);
+    dead = dead && sht_paths::is_dead(rs[r].k);
+  }
+  const Path path = sht_paths::warp_path(steady, dead);
+  tally.add(path);
+  if (path == Path::kSteady) {
+    spin0_sub<T, Path::kSteady, kOff>(cf, rs, acc);
+  } else if (path == Path::kDead) {
+    spin0_sub<T, Path::kDead, kOff>(cf, rs, acc);
+  } else {
+    spin0_sub<T, Path::kFull, kOff>(cf, rs, acc);
+  }
+}
+
+template <typename T, bool kCount>
 __global__ void __launch_bounds__(kThreads)
     analysis_kernel(const T* __restrict__ f0, const T* __restrict__ f1,
                     const T* __restrict__ x, const double* __restrict__ logch,
                     const double* __restrict__ logsh,
-                    const double* __restrict__ seed, T* __restrict__ out0,
-                    int nhalf, int nm, int lmax) {
-  constexpr int V = AccValues<T>::n;
-  constexpr int LC = V / NC;  // multipoles per chunk
-  constexpr int FV = V / 32;
-  static_assert(LC % 2 == 0, "chunks must keep the parity of l");
+                    const double* __restrict__ seed, T* __restrict__ out,
+                    int nhalf, int nm, int lmax,
+                    unsigned long long* __restrict__ counts) {
+  static_assert(LC == 2 * kSub && kRows % LC == 0 && V == 32,
+                "two sub-chunks per chunk, chunks tile the section, one sum "
+                "per lane after the butterfly");
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* col = reinterpret_cast<T*>(smem_raw);  // [lmax+1][NC]
-  T* part = col + (lmax + 1) * NC;          // [2][kWarps][V]
-  T* coef = part + 2 * kWarps * V;          // [2][3][LC]: a1, a0, b
+  __shared__ __align__(16) T tab[2][kRows][4];  // a1, a0, b, (pad)
+  __shared__ __align__(16) T part[2][kWarps][kRows * NC];
 
   const int m = blockIdx.x;
   const int b = blockIdx.y;
@@ -113,144 +223,127 @@ __global__ void __launch_bounds__(kThreads)
   const int warp = tid >> 5;
   const int s = 0;
   const int j0 = m;
+  const int ntiles = (nhalf + kTile - 1) / kTile;
+  // output (b, l, m) at col + l rs, (re, im) adjacent
+  const size_t col = (size_t(b) * (lmax + 1) * nm + m) * 2;
+  const size_t rs = size_t(nm) * 2;
 
-  for (int i = tid; i < (lmax + 1) * NC; i += kThreads) col[i] = T(0);
+  // rows that no tile sums: l < j0, and every row of an empty column
+  const int lz = (j0 <= lmax && ntiles > 0) ? j0 : lmax + 1;
+  for (int l = tid; l < lz; l += kThreads) store2(out + col + l * rs, T(0), T(0));
+  if (lz > lmax) return;
 
-  if (j0 <= lmax) {
-    const int nchunks = (lmax - j0 + LC) / LC;
-    const int ntiles = (nhalf + kTile - 1) / kTile;
-    const double logc_p = seed[m];
-    const double sign_p = seed[nm + m];
-    // seed exponents of cos(t/2) and sin(t/2): both m
-    const double pc = double(m + s);
-    const double ps = fabs(double(m - s));
-    const bool odd = (j0 & 1) != 0;
+  const int n = lmax - j0 + 1;  // multipoles of the column
+  const int nsec = (n + kRows - 1) / kRows;
+  const double logc = seed[m];
+  const double sign = seed[nm + m];
+  // seed exponents of cos(t/2) and sin(t/2): both m
+  const double pc = double(m);
+  const double ps = double(m);
+  const T inv = Arith<T>::inv_scale();
+  const T* const fe = (j0 & 1) ? f1 : f0;  // F of j0's parity
+  const T* const fo = (j0 & 1) ? f0 : f1;
+  PathCounts<kCount> tally;
 
-    if (tid < LC) {
-      coef_row<T>(j0 + tid + 1, j0, m, s, lmax, &coef[tid], &coef[LC + tid],
-                  &coef[2 * LC + tid]);
-    }
-    __syncthreads();
+  coef_row<T>(j0 + tid + 1, j0, m, s, lmax, &tab[0][tid][0], &tab[0][tid][1],
+              &tab[0][tid][2]);
+  __syncthreads();
 
-    int g = 0;  // running chunk count: selects the double buffers
-    for (int tile = 0; tile < ntiles; ++tile) {
-      T xr[kRings], dp[kRings], dc[kRings];
-      int k[kRings];
-      // fa/fb = F of the parity of j0 / of j0+1 (re, im)
-      T fa[kRings][2], fb[kRings][2];
+  int q = 0;  // running section count: selects the table and slot buffers
+  for (int tile = 0; tile < ntiles; ++tile) {
+    Ring<T> rings[kRings];
 #pragma unroll
-      for (int r = 0; r < kRings; ++r) {
-        const int ring = tile * kTile + r * kThreads + tid;
-        dp[r] = T(0);
-        if (ring < nhalf) {
-          const size_t off = ((size_t(b) * nhalf + ring) * nm + m) * 2;
-          const double lch = logch[ring], lsh = logsh[ring];
-          xr[r] = x[ring];
-          const T* fe = odd ? f1 : f0;
-          const T* fo = odd ? f0 : f1;
-          fa[r][0] = fe[off];
-          fa[r][1] = fe[off + 1];
-          fb[r][0] = fo[off];
-          fb[r][1] = fo[off + 1];
-          seed_of<T>(logc_p, sign_p, pc, ps, lch, lsh, dc[r], k[r]);
-        } else {
-          xr[r] = T(0);
-          dc[r] = T(0);
-          k[r] = kNoSeed;
+    for (int r = 0; r < kRings; ++r) {
+      Ring<T>& p = rings[r];
+      const int ring = tile * kTile + (warp * kRings + r) * 32 + lane;
+      p.dp = T(0);
+      if (ring < nhalf) {
+        const size_t off = ((size_t(b) * nhalf + ring) * nm + m) * 2;
+        const double lch = logch[ring], lsh = logsh[ring];
+        p.x = x[ring];
+        load2(fe + off, p.fa[0], p.fa[1]);
+        load2(fo + off, p.fb[0], p.fb[1]);
 #pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            fa[r][c] = T(0);
-            fb[r][c] = T(0);
-          }
+        for (int c = 0; c < 2; ++c) {
+          p.fa[c] *= inv;
+          p.fb[c] *= inv;
         }
+        seed_of<T>(logc, sign, pc, ps, lch, lsh, p.dc, p.k);
+      } else {
+        p.x = T(0);
+        p.dc = T(0);
+        p.k = kNoSeed;
+        p.fa[0] = p.fa[1] = p.fb[0] = p.fb[1] = T(0);
       }
+    }
 
-      for (int c = 0; c < nchunks; ++c, ++g) {
-        const int buf = g & 1;
-        if (tid < LC) {
-          // the next chunk's coefficients (the next tile's first after the
-          // last chunk)
-          const int cn = (c + 1 < nchunks) ? c + 1 : 0;
-          T* cb = coef + (buf ^ 1) * 3 * LC;
-          coef_row<T>(j0 + cn * LC + tid + 1, j0, m, s, lmax, &cb[tid],
-                      &cb[LC + tid], &cb[2 * LC + tid]);
-        }
-        const T* cf = coef + buf * 3 * LC;
+    for (int sec = 0; sec < nsec; ++sec, ++q) {
+      const int tb = q & 1;
+      // the next section's rows (the next tile's first after the last)
+      const int sn = (sec + 1 < nsec) ? sec + 1 : 0;
+      coef_row<T>(j0 + sn * kRows + tid + 1, j0, m, s, lmax,
+                  &tab[tb ^ 1][tid][0], &tab[tb ^ 1][tid][1],
+                  &tab[tb ^ 1][tid][2]);
+      // the row this thread flushes, and its sum over the earlier tiles,
+      // read before the compute
+      const int lf = j0 + sec * kRows + tid;
+      const bool flush = lf <= lmax;
+      T* const fo_row = out + col + lf * rs;
+      T prev[2] = {T(0), T(0)};
+      if (flush && tile > 0) load2(fo_row, prev[0], prev[1]);
 
+      const int nch = (min(kRows, n - sec * kRows) + LC - 1) / LC;
+      for (int c = 0; c < nch; ++c) {
         T acc[V];
 #pragma unroll
         for (int i = 0; i < V; ++i) acc[i] = T(0);
-
-#pragma unroll
-        for (int t = 0; t < LC; ++t) {
-          const T a1 = cf[t];
-          const T a0 = cf[LC + t];
-          const T bb = cf[2 * LC + t];
-#pragma unroll
-          for (int r = 0; r < kRings; ++r) {
-            const T lam = dc[r] * emit_of<T>(k[r]);
-            const T fre = (t & 1) ? fb[r][0] : fa[r][0];
-            const T fim = (t & 1) ? fb[r][1] : fa[r][1];
-            acc[2 * t] += lam * fre;
-            acc[2 * t + 1] += lam * fim;
-            const T a1x = Arith<T>::mul(a1, xr[r]);
-            advance<T>(step<T>(a1x, a0, bb, dc[r], dp[r]), dp[r], dc[r], k[r]);
-          }
-        }
+        const T* cf = &tab[tb][c * LC][0];
+        spin0_sub_any<T, 0, kCount>(cf, rings, acc, tally);
+        spin0_sub_any<T, kSub, kCount>(cf, rings, acc, tally);
 
         // k never decreases: a warp whose every exponent is still below -1
         // emitted only zeros in this chunk and skips its reduction
         bool live = false;
 #pragma unroll
-        for (int r = 0; r < kRings; ++r) live = live || k[r] >= -1;
-        T* pw = part + (buf * kWarps + warp) * V;
+        for (int r = 0; r < kRings; ++r) live = live || rings[r].k >= -1;
+        T sum = T(0);
         if (__any_sync(0xffffffffu, live)) {
           reduce_scatter<T, V>(acc, lane);
-#pragma unroll
-          for (int j = 0; j < FV; ++j) pw[FV * lane + j] = acc[j];
-        } else {
-#pragma unroll
-          for (int j = 0; j < FV; ++j) pw[FV * lane + j] = T(0);
+          sum = acc[0];
         }
-        __syncthreads();
-        if (tid < V) {
-          const int l = j0 + c * LC + tid / NC;
-          if (l <= lmax) {
-            T sum = T(0);
+        // lane i holds value i of the chunk: row i / 2, component i % 2
+        part[tb][warp][c * V + lane] = sum;
+      }
+      __syncthreads();
+      if (flush) {
+        T re = T(0), im = T(0);
 #pragma unroll
-            for (int w = 0; w < kWarps; ++w) sum += part[(buf * kWarps + w) * V + tid];
-            const T norm = norm_of<T>(l);
-            col[l * NC + tid % NC] += sum * norm;
-          }
+        for (int w = 0; w < kWarps; ++w) {
+          T pr, pi;
+          load2(&part[tb][w][NC * tid], pr, pi);
+          re += pr;
+          im += pi;
         }
+        const T norm = norm_of<T>(lf);
+        store2(fo_row, prev[0] + re * norm, prev[1] + im * norm);
       }
     }
   }
-  __syncthreads();
-
-  // rows l < j0 (and every row of an order above lmax) stay zero
-  for (int i = tid; i < (lmax + 1) * NC; i += kThreads) {
-    const int l = i / NC;
-    const int c = i % NC;
-    out0[((size_t(b) * (lmax + 1) + l) * nm + m) * 2 + c] = col[i];
-  }
+  tally.flush(counts, lane);
 }
 
-template <typename T>
+template <typename T, bool kCount>
 int launch(const void* f0, const void* f1, const void* x, const void* logch,
-           const void* logsh, const void* seed, void* out0, int batch,
-           int nhalf, int nm, int lmax, void* stream) {
-  const size_t smem = smem_bytes<T>(lmax);
-  auto kern = analysis_kernel<T>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return int(err);
+           const void* logsh, const void* seed, void* out, int batch,
+           int nhalf, int nm, int lmax, void* counts, void* stream) {
   if (batch == 0 || nm == 0) return int(cudaSuccess);
-  kern<<<dim3(nm, batch), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(f0), static_cast<const T*>(f1),
-      static_cast<const T*>(x), static_cast<const double*>(logch),
-      static_cast<const double*>(logsh), static_cast<const double*>(seed),
-      static_cast<T*>(out0), nhalf, nm, lmax);
+  analysis_kernel<T, kCount>
+      <<<dim3(nm, batch), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const T*>(f0), static_cast<const T*>(f1),
+          static_cast<const T*>(x), static_cast<const double*>(logch),
+          static_cast<const double*>(logsh), static_cast<const double*>(seed),
+          static_cast<T*>(out), nhalf, nm, lmax,
+          static_cast<unsigned long long*>(counts));
   return int(cudaGetLastError());
 }
 
@@ -262,20 +355,38 @@ int heracles_analysis_spin0_f32(const void* fe, const void* fo, const void* x,
                                 const void* logch, const void* logsh,
                                 const void* seed, void* out, int batch,
                                 int nhalf, int nm, int lmax, void* stream) {
-  return launch<float>(fe, fo, x, logch, logsh, seed, out, batch, nhalf, nm,
-                       lmax, stream);
+  return launch<float, false>(fe, fo, x, logch, logsh, seed, out, batch, nhalf,
+                              nm, lmax, nullptr, stream);
 }
 
 int heracles_analysis_spin0_f64(const void* fe, const void* fo, const void* x,
                                 const void* logch, const void* logsh,
                                 const void* seed, void* out, int batch,
                                 int nhalf, int nm, int lmax, void* stream) {
-  return launch<double>(fe, fo, x, logch, logsh, seed, out, batch, nhalf, nm,
-                        lmax, stream);
+  return launch<double, false>(fe, fo, x, logch, logsh, seed, out, batch,
+                               nhalf, nm, lmax, nullptr, stream);
 }
 
-size_t heracles_analysis_spin0_smem_bytes(int is_double, int lmax) {
-  return is_double ? smem_bytes<double>(lmax) : smem_bytes<float>(lmax);
+// The float32 launch with ``counts`` (3 x uint64, zeroed by the caller)
+// taking the warps' sub-chunks on the steady, dead and full paths.
+int heracles_analysis_spin0_paths_f32(const void* fe, const void* fo,
+                                      const void* x, const void* logch,
+                                      const void* logsh, const void* seed,
+                                      void* out, void* counts, int batch,
+                                      int nhalf, int nm, int lmax,
+                                      void* stream) {
+  return launch<float, true>(fe, fo, x, logch, logsh, seed, out, batch, nhalf,
+                             nm, lmax, counts, stream);
+}
+
+// Resident blocks per SM of the spin-0 analysis (its shared memory does not
+// depend on lmax), written to *blocks; returns the CUDA error code.
+int heracles_analysis_spin0_blocks_per_sm(int is_double, void* blocks) {
+  int* n = static_cast<int*>(blocks);
+  return int(is_double ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                             n, analysis_kernel<double, false>, kThreads, 0)
+                       : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                             n, analysis_kernel<float, false>, kThreads, 0));
 }
 
 const char* heracles_cuda_error_string(int err) {

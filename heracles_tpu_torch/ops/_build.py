@@ -28,9 +28,11 @@ __all__ = ["KernelLibrary", "build", "find_nvcc", "load_library"]
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(_PKG / "csrc" / name
                 for name in ("sht_analysis.cu", "sht_analysis_pair.cu",
-                             "sht_synthesis.cu", "gram.cu", "fma_peak.cu"))
+                             "sht_synthesis.cu", "sht_synthesis_pair.cu",
+                             "gram.cu", "fma_peak.cu"))
 HEADERS = tuple(_PKG / "csrc" / name
-                for name in ("warp_reduce.cuh", "wigner_recurrence.cuh"))
+                for name in ("sht_paths.cuh", "warp_reduce.cuh",
+                             "wigner_recurrence.cuh"))
 BUILD_DIR = _PKG.parent / "build" / "heracles_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -45,7 +47,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "heracles_analysis_spin0_f32": (_I, [_P] * 7 + [_I] * 4 + [_P]),
     "heracles_analysis_spin0_f64": (_I, [_P] * 7 + [_I] * 4 + [_P]),
-    "heracles_analysis_spin0_smem_bytes": (ctypes.c_size_t, [_I, _I]),
+    "heracles_analysis_spin0_paths_f32": (_I, [_P] * 8 + [_I] * 4 + [_P]),
+    "heracles_analysis_spin0_blocks_per_sm": (_I, [_I, _P]),
     "heracles_cuda_error_string": (ctypes.c_char_p, [_I]),
     "heracles_analysis_pair_f32": (_I, [_P] * 10 + [_I] * 5 + [_P]),
     "heracles_analysis_pair_f64": (_I, [_P] * 10 + [_I] * 5 + [_P]),
@@ -54,6 +57,8 @@ _SIGNATURES = {
     "heracles_synthesis_spin0_f64": (_I, [_P] * 7 + [_I] * 4 + [_P]),
     "heracles_synthesis_pair_f32": (_I, [_P] * 10 + [_I] * 5 + [_P]),
     "heracles_synthesis_pair_f64": (_I, [_P] * 10 + [_I] * 5 + [_P]),
+    "heracles_synthesis_pair_paths_f32": (_I, [_P] * 11 + [_I] * 5 + [_P]),
+    "heracles_synthesis_pair_blocks_per_sm": (_I, [_I, _P]),
     "heracles_gram_f64": (_I, [_P] * 4 + [_I] * 3 + [_P]),
     "heracles_fma_peak_f32": (_I, [_P] * 3 + [_I] * 4 + [_P]),
     "heracles_fma_peak_f64": (_I, [_P] * 3 + [_I] * 4 + [_P]),
@@ -75,16 +80,12 @@ class KernelLibrary:
             msg = self.lib.heracles_cuda_error_string(err).decode()
             raise RuntimeError(f"CUDA kernel launch failed: {msg} ({err})")
 
-    def spin0_smem_bytes(self, is_double, lmax):
-        """Dynamic shared memory of one spin-0 analysis launch."""
-        return int(self.lib.heracles_analysis_spin0_smem_bytes(
-            int(is_double), int(lmax)))
-
-    def pair_blocks_per_sm(self, is_double):
-        """Resident blocks per SM of the pair analysis kernel."""
+    def blocks_per_sm(self, kernel, is_double):
+        """Resident blocks per SM of ``analysis_spin0``, ``analysis_pair``
+        or ``synthesis_pair`` (none's shared memory grows with lmax)."""
         n = ctypes.c_int(0)
-        self.check(self.lib.heracles_analysis_pair_blocks_per_sm(
-            int(is_double), ctypes.addressof(n)))
+        fn = getattr(self.lib, f"heracles_{kernel}_blocks_per_sm")
+        self.check(fn(int(is_double), ctypes.addressof(n)))
         return n.value
 
 

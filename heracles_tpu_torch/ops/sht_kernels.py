@@ -12,10 +12,15 @@ The tensor decides the path:
 * a CPU tensor takes the plain version (:mod:`.wigner`);
 * a CUDA tensor launches the hand-written kernel
   (``heracles_tpu_torch/csrc/sht_analysis.cu``, ``sht_analysis_pair.cu``,
-  ``sht_synthesis.cu``, built at first use by :mod:`._build`), or raises;
+  ``sht_synthesis.cu``, ``sht_synthesis_pair.cu``, built at first use by
+  :mod:`._build`), or raises;
 * complex64 input runs the float32 kernel, complex128 the float64 one.
 
-``LAUNCHES`` counts kernel launches per kernel name.
+No kernel's shared memory grows with lmax; the one bound on it is
+``LMAX_LIMIT``.  ``LAUNCHES`` counts kernel launches per kernel name.
+:func:`path_counts` is a diagnostic launch of the spin-0 analysis or the
+spin-pair synthesis that tells which share of the work ran on each of the
+kernel's paths.
 """
 
 from __future__ import annotations
@@ -33,16 +38,18 @@ __all__ = [
     "analysis_pair_folded",
     "synthesis_spin0_folded",
     "synthesis_pair_folded",
+    "path_counts",
     "LAUNCHES",
+    "LMAX_LIMIT",
     "reset_counts",
 ]
 
 LAUNCHES = collections.Counter()
 
-# the largest dynamic shared memory a Hopper block may use: it bounds the
-# lmax of the spin-0 analysis, whose block holds the order's whole column
-# (the other kernels' shared memory does not grow with lmax)
-_SMEM_LIMIT = 232448
+# the kernels' dead path (csrc/sht_paths.cuh) rests on a step of the
+# recurrence growing a value by less than sqrt(2 lmax) + 2 < 2^8.1: 8 steps
+# without a rescale then stay clear of float32's overflow
+LMAX_LIMIT = 32767
 
 _REAL = {torch.complex64: torch.float32, torch.complex128: torch.float64}
 
@@ -86,15 +93,20 @@ def _check(name, what, arrays, rows, rings, nhalf):
         raise ValueError(f"{name}: unsupported device {F0.device}")
 
 
-def _launch(name, inputs, x, logch, logsh, lmax, spin, out_rows, nout):
+def _launch(name, inputs, x, logch, logsh, lmax, spin, out_rows, nout,
+            paths=False):
     """Launch one kernel on CUDA tensors; returns its ``nout`` outputs.
 
     ``name`` is ``{analysis,synthesis}_{spin0,pair}_folded``; ``inputs``
     are its (..., rows, nm) complex operands and each output is
-    (..., out_rows, nm).
+    (..., out_rows, nm).  ``paths=True`` launches the kernel's diagnostic
+    twin instead (float32 only, not counted in ``LAUNCHES``) and returns
+    its three path counts as an int64 tensor.
     """
     from . import _build
 
+    if lmax > LMAX_LIMIT:
+        raise ValueError(f"{name}: lmax={lmax} is above {LMAX_LIMIT}")
     kl = _build.load_library()
     direction = name.split("_")[0]
     pair = spin is not None
@@ -102,12 +114,8 @@ def _launch(name, inputs, x, logch, logsh, lmax, spin, out_rows, nout):
     dev = A.device
     real = _REAL[A.dtype]
     is_double = real == torch.float64
-    if name == "analysis_spin0_folded":
-        smem = kl.spin0_smem_bytes(is_double, lmax)
-        if smem > _SMEM_LIMIT:
-            raise ValueError(f"{name}: lmax={lmax} needs {smem} bytes of "
-                             f"shared memory per block, more than "
-                             f"{_SMEM_LIMIT}")
+    if paths and is_double:
+        raise TypeError(f"{name}: the path counts are a float32 launch")
     batch = A.shape[:-2]
     rows, nm = A.shape[-2:]
     B = int(np.prod(batch, dtype=np.int64))
@@ -120,16 +128,48 @@ def _launch(name, inputs, x, logch, logsh, lmax, spin, out_rows, nout):
     outs = [torch.empty((B, out_rows, nm), dtype=A.dtype, device=dev)
             for _ in range(nout)]
     fn = getattr(kl.lib, f"heracles_{direction}_{'pair' if pair else 'spin0'}_"
+                         f"{'paths_' if paths else ''}"
                          f"{'f64' if is_double else 'f32'}")
+    counts = [torch.zeros(3, dtype=torch.int64, device=dev)] if paths else []
     ints = (B, x.shape[0], nm, lmax) + ((int(spin),) if pair else ())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(*(t.data_ptr() for t in flat), xv.data_ptr(), lch.data_ptr(),
                  lsh.data_ptr(), seed.data_ptr(),
-                 *(o.data_ptr() for o in outs), *ints, stream)
+                 *(o.data_ptr() for o in outs + counts), *ints, stream)
     kl.check(err)
+    if paths:
+        return counts[0]
     LAUNCHES[name] += 1
     return [o.reshape(batch + (out_rows, nm)) for o in outs]
+
+
+def path_counts(name, *args):
+    """Sub-chunks of 8 multipoles that the warps of one launch ran on the
+    steady, the dead and the full path: a dict of three ints.
+
+    ``name`` is ``"analysis_spin0_folded"`` or ``"synthesis_pair_folded"``
+    and ``args`` are that function's own, complex64 tensors on the card.
+    A diagnostic twin of the kernel runs (the same code with three
+    counters); its outputs are dropped and ``LAUNCHES`` does not count it.
+    """
+    if args[0].device.type != "cuda":
+        raise ValueError("path_counts: the tensors must lie on the card")
+    if name == "analysis_spin0_folded":
+        Fe, Fo, x, logch, logsh, lmax = args
+        nhalf = x.shape[0]
+        _check(name, "spectra", (Fe, Fo), nhalf, (x, logch, logsh), nhalf)
+        counts = _launch(name, (Fe, Fo), x, logch, logsh, int(lmax), None,
+                         int(lmax) + 1, 1, paths=True)
+    elif name == "synthesis_pair_folded":
+        alm_p, alm_m, x, logch, logsh, lmax, spin = args
+        _check(name, "alms", (alm_p, alm_m), int(lmax) + 1, (x, logch, logsh),
+               x.shape[0])
+        counts = _launch(name, (alm_p, alm_m), x, logch, logsh, int(lmax),
+                         abs(int(spin)), x.shape[0], 4, paths=True)
+    else:
+        raise ValueError(f"path_counts: {name} has no path counts")
+    return dict(zip(("steady", "dead", "full"), counts.tolist()))
 
 
 def analysis_spin0_folded(Fe, Fo, x, logch, logsh, lmax):

@@ -214,14 +214,15 @@ def _sorted_lanes(ms, ns):
     return ms[order], ns[order], j0[order], order
 
 
-def _lambda_rows(ms, ns, j0, x, logch, logsh, lmax, dtype, device):
-    """The loop over l shared by every plain analysis and synthesis.
+def _recurrence_rows(ms, ns, j0, x, logch, logsh, lmax, dtype, device):
+    """The scaled recurrence in l that every plain version runs.
 
     Lanes (ms[i], ns[i]) must be in order of j0 (:func:`_sorted_lanes`).
-    Yields ``(ell, lam)`` for each l with a live lane, ``lam`` (nr, n)
-    being the emitted functions of the first n lanes (those with
-    j0 <= l; the rest are skipped).  The seed is evaluated in float64 and
-    the coefficients computed in float64, then both are rounded to
+    Yields ``(ell, mant, k)`` for each l with a live lane: the state of the
+    first n lanes (those with j0 <= l; the rest are skipped), value =
+    ``mant`` (nr, n) times 2^(60 ``k``), ``k`` (nr, n) int32.  Both are
+    views that the next step overwrites.  The seed is evaluated in float64
+    and the coefficients computed in float64, then both are rounded to
     ``dtype``, as the kernels do.
     """
     mant, kseed = _lane_seeds(ms, ns, logch, logsh, dtype)
@@ -245,9 +246,7 @@ def _lambda_rows(ms, ns, j0, x, logch, logsh, lmax, dtype, device):
             dc[:, s0:n] = mant[:, s0:n]
             dp[:, s0:n] = 0.0
             k[:, s0:n] = kseed[:, s0:n]
-        kl = k[:, :n]
-        emit = torch.where(kl == 0, one, torch.where(kl == -1, inv_scale, 0.0))
-        yield ell, dc[:, :n] * emit
+        yield ell, dc[:, :n], k[:, :n]
         if ell == lmax:
             break
         dcl, dpl = dc[:, :n], dp[:, :n]
@@ -257,6 +256,21 @@ def _lambda_rows(ms, ns, j0, x, logch, logsh, lmax, dtype, device):
         dp[:, :n] = dcl * sc
         dc[:, :n] = dn * sc
         k[:, :n] += over.to(torch.int32)
+
+
+def _lambda_rows(ms, ns, j0, x, logch, logsh, lmax, dtype, device):
+    """The loop over l shared by every plain analysis and synthesis.
+
+    Yields ``(ell, lam)`` for each row of :func:`_recurrence_rows`, ``lam``
+    (nr, n) being the emitted functions: the mantissa at k = 0, times 2^-60
+    at k = -1, zero below.
+    """
+    one = torch.ones((), dtype=dtype, device=device)
+    inv_scale = torch.full((), _INV_SCALE, dtype=dtype, device=device)
+    for ell, mant, k in _recurrence_rows(ms, ns, j0, x, logch, logsh, lmax,
+                                         dtype, device):
+        emit = torch.where(k == 0, one, torch.where(k == -1, inv_scale, 0.0))
+        yield ell, mant * emit
 
 
 def _unsort(outs, order, device):

@@ -40,10 +40,10 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(nside, lmax, batch, nspec, cdtype, device, seed):
+def _inputs(nside, lmax, batch, nspec, cdtype, device, seed, nm=None):
     rng = np.random.default_rng(seed)
     nhalf = 2 * nside
-    shape = (batch, nhalf, lmax + 1)
+    shape = (batch, nhalf, lmax + 1 if nm is None else nm)
     spectra = [
         torch.as_tensor(rng.normal(size=shape) + 1j * rng.normal(size=shape),
                         dtype=cdtype, device=device)
@@ -66,9 +66,9 @@ def _assert_close(got, want, cdtype, tol32=(2e-5, 2e-4)):
         np.testing.assert_allclose(got, want, atol=1e-11 * scale, rtol=0)
 
 
-def _alms(nside, lmax, batch, nalm, cdtype, device, seed):
+def _alms(nside, lmax, batch, nalm, cdtype, device, seed, nm=None):
     rng = np.random.default_rng(seed)
-    shape = (batch, lmax + 1, lmax + 1)
+    shape = (batch, lmax + 1, lmax + 1 if nm is None else nm)
     alms = [torch.as_tensor(rng.normal(size=shape) + 1j * rng.normal(size=shape),
                             dtype=cdtype, device=device) for _ in range(nalm)]
     return alms, _inputs(nside, lmax, 1, 0, cdtype, device, seed)[1]
@@ -84,6 +84,10 @@ def test_spin0_kernel_matches_plain(cuda, nside, lmax, batch, cdtype):
     torch.cuda.synchronize()
     assert sht_kernels.LAUNCHES["analysis_spin0_folded"] == before + 1
     _assert_close(got, want, cdtype)
+    # each row summed over warps and ring tiles in a fixed order, no
+    # atomics: the kernel repeats bit for bit
+    assert torch.equal(got, sht_kernels.analysis_spin0_folded(Fe, Fo, *geom,
+                                                              lmax))
 
 
 @pytest.mark.parametrize("cdtype", [torch.complex64, torch.complex128])
@@ -133,6 +137,119 @@ def test_synthesis_pair_kernel_matches_plain(cuda, nside, lmax, batch, cdtype):
     assert sht_kernels.LAUNCHES["synthesis_pair_folded"] == before + 1
     for g, w in zip(got, want):
         _assert_close(g, w, cdtype, tol32=(3e-5, 3e-4))
+    # each output written once, no atomics: the kernel repeats bit for bit
+    again = sht_kernels.synthesis_pair_folded(*alms, *geom, lmax, 2)
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+
+
+# two ring tiles of 512, the second ragged (nhalf = 600), more orders than
+# lmax + 1 (the orders above lmax come out zero), a batch
+TILED = (300, 70, 2, 76)
+
+
+@pytest.mark.parametrize("cdtype", [torch.complex64, torch.complex128])
+def test_spin0_kernel_over_ring_tiles(cuda, cdtype):
+    nside, lmax, batch, nm = TILED
+    (Fe, Fo), geom = _inputs(nside, lmax, batch, 2, cdtype, cuda, 8, nm=nm)
+    want = wigner.analysis_spin0_folded_plain(Fe, Fo, *geom, lmax)
+    got = sht_kernels.analysis_spin0_folded(Fe, Fo, *geom, lmax)
+    torch.cuda.synchronize()
+    assert got.shape == (batch, lmax + 1, nm)
+    _assert_close(got, want, cdtype)
+    assert torch.all(got[..., lmax + 1:] == 0)
+    assert torch.equal(got, sht_kernels.analysis_spin0_folded(Fe, Fo, *geom,
+                                                              lmax))
+
+
+@pytest.mark.parametrize("cdtype", [torch.complex64, torch.complex128])
+def test_synthesis_pair_kernel_over_ring_tiles(cuda, cdtype):
+    nside, lmax, batch, nm = TILED
+    alms, geom = _alms(nside, lmax, batch, 2, cdtype, cuda, 9, nm=nm)
+    want = wigner.synthesis_pair_folded_plain(*alms, *geom, lmax, 2)
+    got = sht_kernels.synthesis_pair_folded(*alms, *geom, lmax, 2)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.shape == (batch, 2 * nside, nm)
+        _assert_close(g, w, cdtype, tol32=(3e-5, 3e-4))
+        assert torch.all(g[..., lmax + 1:] == 0)
+    again = sht_kernels.synthesis_pair_folded(*alms, *geom, lmax, 2)
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+
+
+def test_synthesis_pair_kernel_on_tiny_alms(cuda):
+    """The float32 kernel holds the alms times 2^-60 in its table: alms of
+    1e-12 (the Jacobi residuals of a float32 round trip are larger) must
+    stay clear of the subnormals and keep the full-size agreement."""
+    nside, lmax, batch = CASES[2]
+    alms, geom = _alms(nside, lmax, batch, 2, torch.complex64, cuda, 10)
+    alms = [a * 1e-12 for a in alms]
+    want = wigner.synthesis_pair_folded_plain(*alms, *geom, lmax, 2)
+    got = sht_kernels.synthesis_pair_folded(*alms, *geom, lmax, 2)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        _assert_close(g, w, torch.complex64, tol32=(3e-5, 3e-4))
+
+
+@pytest.mark.parametrize("name", ["analysis_spin0_folded",
+                                  "synthesis_pair_folded"])
+def test_path_counts(cuda, name):
+    """The diagnostic launch counts every warp's sub-chunks of 8
+    multipoles, by path: at nside 256 the warp nearest the pole is dead at
+    the highest orders, and belt rings emit from their seed on."""
+    nside, lmax, batch = 256, 191, 2
+    nhalf, nm = 2 * nside, lmax + 1
+    if name == "analysis_spin0_folded":
+        args, geom = _inputs(nside, lmax, batch, 2, torch.complex64, cuda, 12)
+        spin, extra = 0, ()
+    else:
+        args, geom = _alms(nside, lmax, batch, 2, torch.complex64, cuda, 12)
+        spin, extra = 2, (2,)
+    before = dict(sht_kernels.LAUNCHES)
+    counts = sht_kernels.path_counts(name, *args, *geom, lmax, *extra)
+    assert dict(sht_kernels.LAUNCHES) == before
+    assert set(counts) == {"steady", "dead", "full"}
+    # one tile of 4 warps per block; per order the synthesis takes its
+    # column's multipoles in eights, the analysis in chunks of two eights
+    j0 = np.maximum(np.arange(nm), spin)
+    per = 16 if name == "analysis_spin0_folded" else 8
+    subs = int((np.ceil((lmax + 1 - j0) / per) * (per // 8)).sum())
+    assert sum(counts.values()) == batch * 4 * -(-nhalf // 512) * subs
+    assert counts["steady"] > 0 and counts["dead"] > 0 and counts["full"] > 0
+    with pytest.raises(TypeError, match="float32"):
+        sht_kernels.path_counts(name, *(a.to(torch.complex128) for a in args),
+                                *geom, lmax, *extra)
+
+
+@pytest.mark.parametrize("cdtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("lmax", [6200, 7400, 30000])
+def test_spin0_kernel_at_high_lmax(cuda, lmax, cdtype):
+    """lmax 6200 (HealpixMapper's default at nside 4096 is 6144), 7400 and
+    30000: the rows go to the output section by section, so no lmax is
+    refused for the block's shared memory (a whole column at lmax 30000
+    would not fit it in either type).  Few orders keep the plain version
+    cheap."""
+    nside, nm = 8, 16 if lmax < 10000 else 4
+    rng = np.random.default_rng(lmax)
+    F = [torch.as_tensor(rng.normal(size=(2 * nside, nm))
+                         + 1j * rng.normal(size=(2 * nside, nm)),
+                         dtype=cdtype, device=cuda) for _ in range(2)]
+    geom = _inputs(nside, lmax, 1, 0, cdtype, cuda, 7)[1]
+    want = wigner.analysis_spin0_folded_plain(*F, *geom, lmax)
+    got = sht_kernels.analysis_spin0_folded(*F, *geom, lmax)
+    torch.cuda.synchronize()
+    assert got.shape == (lmax + 1, nm)
+    _assert_close(got, want, cdtype)
+
+
+def test_lmax_limit(cuda):
+    """The one bound on lmax is the dead path's (csrc/sht_paths.cuh)."""
+    lmax = sht_kernels.LMAX_LIMIT + 1
+    F = torch.zeros((4, 2), dtype=torch.complex64, device=cuda)
+    geom = _inputs(2, lmax, 1, 0, torch.complex64, cuda, 0)[1]
+    with pytest.raises(ValueError, match="is above"):
+        sht_kernels.analysis_spin0_folded(F, F, *geom, lmax)
 
 
 @pytest.mark.parametrize("cdtype", [torch.complex64, torch.complex128])

@@ -282,7 +282,8 @@ def test_build_without_nvcc(tmp_path, monkeypatch):
     # one library from every kernel source, each of which is in the checkout
     names = [src.name for src in _build.SOURCES]
     assert names == ["sht_analysis.cu", "sht_analysis_pair.cu",
-                     "sht_synthesis.cu", "gram.cu", "fma_peak.cu"]
+                     "sht_synthesis.cu", "sht_synthesis_pair.cu", "gram.cu",
+                     "fma_peak.cu"]
     assert all(src.is_file() for src in _build.SOURCES + _build.HEADERS)
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
@@ -333,3 +334,99 @@ def test_c_interface_matches_signatures():
         assert restype is ctype[ret], name
         assert len(argtypes) == len(params), name
         assert all(a is ctype[p] for a, p in zip(argtypes, params)), name
+
+
+def _recurrence_history(nside, spin, dtype):
+    """(k, mant)[l, ring, lane] of the plain recurrence for every order
+    m <= lmax (lanes [+spin | -spin] for a spin pair), lmax = 3 nside - 1;
+    entries below a lane's j0 hold the padding exponent and zero."""
+    lmax = 3 * nside - 1
+    x, lch, lsh = (torch.as_tensor(a) for a in _geometry(nside))
+    nm = lmax + 1
+    if spin:
+        ms, ns = np.tile(np.arange(nm), 2), np.repeat([spin, -spin], nm)
+    else:
+        ms, ns = np.arange(nm), np.zeros(nm, np.int64)
+    ms, ns, j0, _ = wigner._sorted_lanes(ms, ns)
+    hist = np.full((lmax + 1, 2 * nside, ms.size), wigner._NO_SEED, np.int64)
+    mants = np.zeros(hist.shape)
+    for ell, mant, k in wigner._recurrence_rows(ms, ns, j0, x, lch, lsh, lmax,
+                                                dtype, "cpu"):
+        hist[ell, :, :k.shape[1]] = k.numpy()
+        mants[ell, :, :k.shape[1]] = mant.numpy()
+    return hist, mants, ms, ns
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("spin", [0, 2])
+@pytest.mark.parametrize("nside", [16, 32])
+def test_recurrence_exponents_settle(nside, spin, dtype):
+    """What the kernels' steady and dead paths rest on (csrc/sht_paths.cuh):
+    an exponent never falls; a ring that has reached k = -1 stays there,
+    except where a value rounds past 1 at m = s on the rings nearest the
+    pole (sht_analysis_pair.cu); an exponent rises at most once in any 8
+    consecutive multipoles; and while a ring does not emit yet (k <= -2)
+    its |d| never falls and grows by less than sqrt(2 lmax) + 2 a step."""
+    hist, mants, ms, ns = _recurrence_history(nside, spin, dtype)
+    step = np.diff(hist, axis=0)
+    seeded = hist[:-1] != wigner._NO_SEED
+    assert np.all(step[seeded] >= 0) and np.all(step[seeded] <= 1)
+    left = seeded & (hist[:-1] == -1) & (step != 0)
+    _, rings, lanes = np.nonzero(left)
+    assert np.all(ms[lanes] == np.abs(ns[lanes]))
+    assert np.all(rings < 2)
+    assert hist.max() <= 0
+    rises = np.where(seeded, step, 0)
+    window = sum(rises[i:rises.shape[0] - 7 + i] for i in range(8))
+    assert window.max() <= 1
+    quiet = seeded & (hist[:-1] <= -2)
+    with np.errstate(all="ignore"):  # the padding entries
+        growth = np.abs(mants[1:] / mants[:-1]) * 2.0 ** (60.0 * step)
+    assert quiet.any()
+    assert np.all(growth[quiet] >= 1.0)
+    assert growth[quiet].max() < np.sqrt(2.0 * (hist.shape[0] - 1)) + 2.0
+
+
+def _bulk_equal(got, want):
+    """Bit for bit on the outputs within 1e-3 of the largest."""
+    bulk = want.abs() >= 1e-3 * want.abs().max()
+    return bool(bulk.any()) and torch.equal(got[bulk], want[bulk])
+
+
+@pytest.mark.parametrize("cdtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("kernel", ["synthesis_pair", "analysis_spin0"])
+def test_plain_versions_commute_with_power_of_two_scale(kernel, cdtype):
+    """The kernels hold one factor of every product times 2^-60
+    (csrc/sht_paths.cuh).  A power-of-two scale commutes with every
+    rounding while nothing underflows: the plain versions on inputs times
+    2^-60 return their outputs times 2^-60 bit for bit, for inputs of
+    magnitude 1 down to 1e-36, except that float32 first fails at inputs of
+    1e-16 (the scaled outputs, ~1e-34, then have terms among the
+    subnormals; the kernels' own products are not scaled down, so only
+    their table entries, below ~1e-20, can get there)."""
+    nside, lmax = 16, 32
+    rng = np.random.default_rng(11)
+    x, lch, lsh = (torch.as_tensor(a) for a in _geometry(nside))
+    shape = (lmax + 1, lmax + 1) if kernel == "synthesis_pair" \
+        else (2 * nside, lmax + 1)
+    ins = [_cplx(rng, shape) for _ in range(2)]
+
+    def run(arrays):
+        if kernel == "synthesis_pair":
+            return wigner.synthesis_pair_folded_plain(*arrays, x, lch, lsh,
+                                                      lmax, 2)
+        return (wigner.analysis_spin0_folded_plain(*arrays, x, lch, lsh,
+                                                   lmax),)
+
+    failed = None
+    for exp10 in range(0, -38, -2):
+        base = [torch.as_tensor(a * 10.0**exp10, dtype=cdtype) for a in ins]
+        want = [w * 2.0**-60 for w in run(base)]
+        got = run([a * 2.0**-60 for a in base])
+        if not all(_bulk_equal(g, w) for g, w in zip(got, want)):
+            failed = exp10
+            break
+    if cdtype == torch.complex128:
+        assert failed is None
+    else:
+        assert failed is not None and -20 <= failed <= -14, failed
