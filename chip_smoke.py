@@ -8,15 +8,16 @@ with its seconds:
 
 0. the card (``nvidia-smi`` name and power limit), torch and CUDA;
 1. build the Hopper kernels from ``heracles_tpu_torch/csrc`` (ptxas'
-   registers and spills, the Gram kernel's DMMA instruction count from
-   its SASS, the resident blocks per SM of both analysis kernels and the
-   pair synthesis);
+   registers and spills, none allowed in the spin-0 synthesis; the Gram
+   kernel's DMMA instruction count from its SASS, the resident blocks per
+   SM of the analysis and synthesis kernels);
 2. each kernel against its plain PyTorch version on the same CUDA
    tensors: the analysis and synthesis kernels in float32 and float64 at
-   three shapes (both analyses, the pair synthesis and the Gram kernel
-   also repeated bit for bit), the pair synthesis on alms of 1e-12, the
-   spin-0 analysis at lmax 15000 (above what a whole column in shared
-   memory would allow in float64), the Gram kernel at three ragged shapes
+   three shapes (all four and the Gram kernel also repeated bit for bit),
+   the syntheses on alms of 1e-12, the spin-0 synthesis on a number of
+   rings that is no multiple of a tile, the spin-0 analysis and synthesis
+   at lmax 15000 (above what a whole column in shared memory would allow
+   in float64), the Gram kernel at three ragged shapes
    weighted and unweighted, the probe kernels in float32 and float64 at
    full occupancy;
 3. the ``pipeline_n4096_l3000`` configuration: positions + shear +
@@ -41,9 +42,15 @@ with its seconds:
    spectra and their change against phase 3's) and ``synthesize`` of bin
    0's alms, each through the synthesis kernels; bin 0's synthesis through
    each kernel and its plain version (times, agreement) and the share of
-   the pair synthesis' work on each of its paths; a round trip of
+   either synthesis' work on each of its paths; a round trip of
    random band-limited alms, ``alm2map`` -> ``map2alm`` with 0 and 3
-   iterations, in float64 and float32.
+   iterations, in float64 and float32;
+8. the mapper's other entry points at full size: bin 0's float32 POS map
+   through ``HealpixMapper(dd=True).transform`` (the float64 kernel must
+   launch, the alms come back complex64 and lie closer to the float64
+   transform's than the float32 ones, per l-band), ``resample`` from nside
+   4096 to 2048 (a map of the pixels' z against the coarse pixels' z, the
+   POS map's sum), ``map_values`` of one page against ``add``.
 
 Then a JSON line of the kernels (with each one's bound: the least time
 the card could take for the same work), the card line, and the result
@@ -70,6 +77,8 @@ TOL = {torch.complex64: (2e-5, 2e-4), torch.complex128: (1e-11, 0.0)}
 PAIR_SYNTH_TOL32 = (3e-5, 3e-4)
 # Jacobi iterations of the synthesis phase
 ITERATIONS = 3
+# rows of the page that phase 8 scatters
+PAGE_ROWS = 1_000_000
 
 # kernel name: (source, the TPU kernel it replaces)
 KERNELS = {
@@ -97,9 +106,7 @@ PROBE_STEPS_CHECK, PROBE_STEPS_RATE, PROBE_NCHAIN = 256, 4096, 4
 # count of the sources.  Per column the recurrence step is 4 (+ a0, x d,
 # b d', -), the emit factor ~5 (two compares, two selects, a multiply), the
 # rescale ~6 (compare, select, two multiplies, the exponent's add); a1 x
-# is 1 per triple.  The spin-0 synthesis (sht_synthesis.cu) has one path:
-# 1 + 4 + 5 + 6, 2 FMAs and 5 scalar reads of the row per 4 rings, ~19.
-# The pair analysis (sht_analysis_pair.cu) has two paths, (steady, full):
+# is 1 per triple.  The pair analysis (sht_analysis_pair.cu) has two paths, (steady, full):
 # ~21 on a warp whose rings all sit at k = -1 (a1 x, two steps, 8 FMAs, a
 # quarter of the coefficient row read, and 124 instructions of warp
 # butterfly per 32 triples of a chunk) and ~43 on the full step.  The
@@ -109,10 +116,15 @@ PROBE_STEPS_CHECK, PROBE_STEPS_RATE, PROBE_NCHAIN = 256, 4096, 4
 # (124 + 32 per 64 triples of a chunk) and a quarter of a row read, ~10;
 # 1 + 4 and a rescale of ~8 per 8 steps, ~6, where nothing emits yet; ~21
 # on the full step.  The pair synthesis 1 + 8 + 8 FMAs, the negated a0 and
-# two vector reads of the row per 4 rings, ~18; 1 + 8 + 2, ~11; ~40.
+# two vector reads of the row per 4 rings, ~18; 1 + 8 + 2, ~11; ~40.  The
+# spin-0 synthesis (sht_synthesis.cu), read from its SASS (every
+# instruction of a sub-chunk's body over its 32 triples, plus the path
+# choice and loop, ~1.1, or ~0.3 once the warp has settled on the steady
+# path): 4 of recurrence (no a0) + 2 FMAs + a quarter of a row read, ~6.5;
+# 4 + 0.25 and a rescale per 8 steps, ~6.9; ~18.4.
 INSTR_PER_TRIPLE = {"analysis_spin0_folded": (10, 6, 21),
                     "analysis_pair_folded": (21, 43),
-                    "synthesis_spin0_folded": 19,
+                    "synthesis_spin0_folded": (6.5, 6.9, 18.4),
                     "synthesis_pair_folded": (18, 11, 40)}
 PATHS = ("steady", "dead", "full")
 # the FP64 tensor-core peak (H100 SXM data sheet, dense), the Gram
@@ -124,15 +136,16 @@ FP64_TENSOR_PEAK = 67e12
 # operations over the peak for their type: 67 TFLOP/s FP32 outside the
 # tensor cores, 67 TFLOP/s FP64 on the tensor cores (H100 SXM data sheet,
 # dense).  Operations per (ring, l, m) triple of the SHT kernels, counted
-# from the sources: the recurrence a1 x, + a0, x d, b d', - (5; the pair's
-# two columns share a1 x: 9), the emit multiply (1 per column) and the
-# contraction: 2 FMAs (4) for either spin-0 kernel, 8 FMAs (16) for either
-# pair (the synthesis sums even and odd l apart, so its (-1)^l costs
-# nothing per triple).
+# from the sources: the recurrence a1 x, + a0, x d, b d', - (the pair's
+# two columns share a1 x: 9; at spin 0 a0 is zero in every row, so the
+# function needs 4, whether or not a kernel spends the addition), the emit
+# multiply (1 per column) and the contraction: 2 FMAs (4) for either
+# spin-0 kernel, 8 FMAs (16) for either pair (the synthesis sums even and
+# odd l apart, so its (-1)^l costs nothing per triple).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOP_PER_S = {torch.float32: 67e12, torch.float64: 67e12}
-FLOP_PER_TRIPLE = {"analysis_spin0_folded": 10, "analysis_pair_folded": 27,
-                   "synthesis_spin0_folded": 10, "synthesis_pair_folded": 27}
+FLOP_PER_TRIPLE = {"analysis_spin0_folded": 9, "analysis_pair_folded": 27,
+                   "synthesis_spin0_folded": 9, "synthesis_pair_folded": 27}
 
 
 def check(ok, msg):
@@ -202,9 +215,10 @@ def kernel_label(entry):
     if m:
         return f"analy/spin0/{prec(m.group(1))}" \
                f"{'/paths' if m.group(2) == '1' else ''}"
-    m = re.search(r"synthesis_kernelI([fd])E", entry)
+    m = re.search(r"synthesis_kernelI([fd])Lb([01])E", entry)
     if m:
-        return f"synth/spin0/{prec(m.group(1))}"
+        return f"synth/spin0/{prec(m.group(1))}" \
+               f"{'/paths' if m.group(2) == '1' else ''}"
     m = re.search(r"probe_kernelI([fd])Li([01])ELi(\d)E", entry)
     if m:
         return f"{'rec3' if m.group(2) == '1' else 'fma'}/" \
@@ -285,17 +299,23 @@ def counts():
     return launches, plain
 
 
-def phase2(dev):
+def ring_tensors(nside, dev):
+    """cos(theta), log cos(theta/2), log sin(theta/2) of the northern rings."""
     from heracles_tpu_torch.healpix import ring_geometry
+
+    z = ring_geometry(nside)["z"][:2 * nside]
+    return [torch.as_tensor(a, device=dev) for a in (
+        z, 0.5 * np.log((1.0 + z) / 2.0), 0.5 * np.log((1.0 - z) / 2.0))]
+
+
+def phase2(dev):
     from heracles_tpu_torch.ops import fma_peak, gram, sht_kernels, wigner
 
     rows = []
     # batched, lmax > 2 nside at high order (seeds near the poles), odd nside
     for nside, lmax, batch in [(256, 384, 3), (64, 191, 1), (33, 80, 1)]:
         nhalf = 2 * nside
-        z = ring_geometry(nside)["z"][:nhalf]
-        geom = [torch.as_tensor(a, device=dev) for a in (
-            z, 0.5 * np.log((1.0 + z) / 2.0), 0.5 * np.log((1.0 - z) / 2.0))]
+        geom = ring_tensors(nside, dev)
         rng = np.random.default_rng(nside)
         shape = (batch, nhalf, lmax + 1)
         F64 = [rng.normal(size=shape) + 1j * rng.normal(size=shape)
@@ -325,6 +345,10 @@ def phase2(dev):
             got = sht_kernels.synthesis_spin0_folded(A[0], *geom, lmax)
             rel = max(compare(g, w, *TOL[cdtype], what="spin-0 synthesis")[1]
                       for g, w in zip(got, want))
+            again = sht_kernels.synthesis_spin0_folded(A[0], *geom, lmax)
+            check(all(torch.equal(g, a) for g, a in zip(got, again)),
+                  f"spin-0 synthesis n{nside} l{lmax} does not repeat bit "
+                  "for bit")
             rows.append(f"synth0/{tag}/n{nside}l{lmax} {rel:.2e}")
             tol = PAIR_SYNTH_TOL32 if cdtype == torch.complex64 else TOL[cdtype]
             want = wigner.synthesis_pair_folded_plain(*A, *geom, lmax, 2)
@@ -339,22 +363,43 @@ def phase2(dev):
                 # the kernel holds the alms times 2^-60: tiny ones (Jacobi
                 # residuals) must stay clear of the subnormals
                 tiny = [a * 1e-12 for a in A]
+                want = wigner.synthesis_spin0_folded_plain(tiny[0], *geom, lmax)
+                got = sht_kernels.synthesis_spin0_folded(tiny[0], *geom, lmax)
+                rel = max(compare(g, w, *TOL[cdtype],
+                                  what="spin-0 synthesis of 1e-12")[1]
+                          for g, w in zip(got, want))
+                rows.append(f"synth0/{tag}/n{nside}l{lmax}x1e-12 {rel:.2e}")
                 want = wigner.synthesis_pair_folded_plain(*tiny, *geom, lmax, 2)
                 got = sht_kernels.synthesis_pair_folded(*tiny, *geom, lmax, 2)
                 rel = max(compare(g, w, *tol, what="pair synthesis of 1e-12")[1]
                           for g, w in zip(got, want))
                 rows.append(f"synthpair/{tag}/n{nside}l{lmax}x1e-12 {rel:.2e}")
 
-    # the spin-0 analysis' shared memory does not grow with lmax: a whole
-    # column at lmax 15000 would pass a block's 227 KB in float64
+    # the spin-0 synthesis where the rings are no multiple of a tile of 512
+    # (padding rings beside seeded ones in a warp), batched
+    nside, lmax, batch = 300, 200, 2
+    geom = ring_tensors(nside, dev)
+    rng = np.random.default_rng(nside)
+    ashape = (batch, lmax + 1, lmax + 1)
+    a64 = rng.normal(size=ashape) + 1j * rng.normal(size=ashape)
+    for cdtype in (torch.complex64, torch.complex128):
+        A = torch.as_tensor(a64, dtype=cdtype, device=dev)
+        want = wigner.synthesis_spin0_folded_plain(A, *geom, lmax)
+        got = sht_kernels.synthesis_spin0_folded(A, *geom, lmax)
+        rel = max(compare(g, w, *TOL[cdtype], what="spin-0 synthesis")[1]
+                  for g, w in zip(got, want))
+        tag = "f32" if cdtype == torch.complex64 else "f64"
+        rows.append(f"synth0/{tag}/n{nside}l{lmax}b{batch} {rel:.2e}")
+
+    # no kernel's shared memory grows with lmax: a whole column at lmax
+    # 15000 would pass a block's 227 KB in float64
     nside, lmax, nm = 8, 15000, 8
     nhalf = 2 * nside
-    z = ring_geometry(nside)["z"][:nhalf]
-    geom = [torch.as_tensor(a, device=dev) for a in (
-        z, 0.5 * np.log((1.0 + z) / 2.0), 0.5 * np.log((1.0 - z) / 2.0))]
+    geom = ring_tensors(nside, dev)
     rng = np.random.default_rng(lmax)
     F64 = [rng.normal(size=(nhalf, nm)) + 1j * rng.normal(size=(nhalf, nm))
            for _ in range(2)]
+    a64 = rng.normal(size=(lmax + 1, nm)) + 1j * rng.normal(size=(lmax + 1, nm))
     for cdtype in (torch.complex64, torch.complex128):
         F = [torch.as_tensor(a, dtype=cdtype, device=dev) for a in F64]
         want = wigner.analysis_spin0_folded_plain(*F, *geom, lmax)
@@ -362,6 +407,12 @@ def phase2(dev):
         _, rel = compare(got, want, *TOL[cdtype])
         tag = "f32" if cdtype == torch.complex64 else "f64"
         rows.append(f"spin0/{tag}/n{nside}l{lmax}m{nm} {rel:.2e}")
+        A = torch.as_tensor(a64, dtype=cdtype, device=dev)
+        want = wigner.synthesis_spin0_folded_plain(A, *geom, lmax)
+        got = sht_kernels.synthesis_spin0_folded(A, *geom, lmax)
+        rel = max(compare(g, w, *TOL[cdtype], what="spin-0 synthesis")[1]
+                  for g, w in zip(got, want))
+        rows.append(f"synth0/{tag}/n{nside}l{lmax}m{nm} {rel:.2e}")
 
     # ragged: K not a multiple of the chunk, L1 = 1, L2 not of the tile
     for K, L1, L2 in [(37, 1, 70), (500, 65, 129), (4501, 130, 3)]:
@@ -565,9 +616,12 @@ def phase7(dev, maps, cls, fma32, smi):
                             plain_ms=plain_ms, dims=dims, bound_ms=bound_ms,
                             bound_by=bound_by)
         del got, want_g
+    spin0_paths, spin0_paths_txt = path_shares(
+        "synthesis_spin0_folded", a0, x, lch, lsh, LMAX)
     pair_paths, pair_paths_txt = path_shares(
         "synthesis_pair_folded", a_p, a_m, x, lch, lsh, LMAX, 2)
-    paths = {"synthesis_pair_folded": pair_paths}
+    paths = {"synthesis_spin0_folded": spin0_paths,
+             "synthesis_pair_folded": pair_paths}
     del a0, eb, a_p, a_m
 
     # round trip of random band-limited alms
@@ -593,7 +647,7 @@ def phase7(dev, maps, cls, fma32, smi):
              f"bound {r['bound_ms']:.2f} ms ({r['bound_by']}), max|d| "
              f"{r['max_abs_err']:.3e} ({r['rel']:.2e} of max); "
              f"{issue_share(n, r['dims'], r['ms'], fma32, paths.get(n))}"
-             for n, r in report.items()] + [pair_paths_txt]
+             for n, r in report.items()] + [spin0_paths_txt, pair_paths_txt]
     trip_txt = "; ".join(
         f"{'f64' if c == torch.complex128 else 'f32'} iter {it} "
         f"({sec:.2f} s): " + " ".join(f"{v:.1e}" for v in rel)
@@ -608,6 +662,103 @@ def phase7(dev, maps, cls, fma32, smi):
           f"max|da|/max|a| per l-band (10 bands): {trip_txt}; card {smi} "
           f"({time.perf_counter() - t:.1f} s)", flush=True)
     return report, launches
+
+
+def phase8(dev, maps, page, a32, a64, smi):
+    """The mapper's ``dd=``, ``resample`` and ``map_values`` at full size.
+
+    ``maps``: phase 3's maps; ``page``: rows of bin 0's catalogue; ``a32``,
+    ``a64``: phase 4's float32 and float64 alms of bin 0's POS map.
+    """
+    import heracles_tpu_torch as th
+    from heracles_tpu_torch.healpix import ring_geometry
+    from heracles_tpu_torch.ops import sht, sht_kernels
+
+    t = time.perf_counter()
+    pos = maps["POS", 0]
+    check(pos.array.dtype == torch.float32, f"POS map {pos.array.dtype}")
+
+    # dd=True: the float64 kernel on a float32 map, complex64 alms back
+    plain32 = th.HealpixMapper(NSIDE, LMAX, dtype=torch.float32, device=dev,
+                               deconvolve=False)
+    wide = th.HealpixMapper(NSIDE, LMAX, dtype=torch.float32, device=dev,
+                            deconvolve=False, dd=True)
+    _, t32 = sync_time(lambda: plain32.transform(pos))
+    reset_counts()
+    alm_dd, t_dd = sync_time(lambda: wide.transform(pos))
+    by_precision = dict(sht_kernels.LAUNCHES_BY_PRECISION)
+    _, plain_runs = counts()
+    check(by_precision == {("analysis_spin0_folded", "f64"): 1},
+          f"dd=True transform launched {by_precision}")
+    check(sum(plain_runs.values()) == 0, f"plain versions ran: {plain_runs}")
+    check(alm_dd.array.dtype == torch.complex64,
+          f"dd=True alms are {alm_dd.array.dtype}")
+    ls, _ = sht._pack_index(LMAX, LMAX, dev)
+    rel32 = l_band_rel(a32, a64, ls)
+    rel_dd = l_band_rel(alm_dd.array, a64, ls)
+    # the lowest band is the float32 ring FFT's error in both: the worst
+    # band and the bands together must be lower with dd
+    check(max(rel_dd) < max(rel32) and sum(rel_dd) < sum(rel32),
+          f"dd=True alms are no closer to float64's: {rel_dd} against {rel32}")
+    del alm_dd
+
+    # resample 4096 -> 2048: the pixels' own z must land on the coarse
+    # pixels' z (any misordering of the children shows as O(1)), and the
+    # mean of children keeps the map's sum
+    coarse = th.HealpixMapper(NSIDE // 2, dtype=torch.float32, device=dev)
+    t0 = time.perf_counter()
+    th.healpix._udgrade_gather(NSIDE, NSIDE // 2)
+    t_table = time.perf_counter() - t0
+
+    def z_map(nside):
+        g = ring_geometry(nside)
+        return torch.repeat_interleave(
+            torch.as_tensor(g["z"], dtype=torch.float32, device=dev),
+            torch.as_tensor(g["npix"], device=dev))
+
+    got_z, t_resample = sync_time(lambda: coarse.resample(z_map(NSIDE)))
+    z_err = (got_z.array - z_map(NSIDE // 2)).abs().max().item()
+    # a coarse pixel spans less than 2 rings of its own resolution in z
+    check(z_err < 4.0 / (3.0 * (NSIDE // 2)), f"resample moved z by {z_err:.3e}")
+    low = coarse.resample(pos)
+    npix_low = 12 * (NSIDE // 2) ** 2
+    check(tuple(low.shape) == (npix_low,) and low.array.dtype == torch.float32,
+          f"resampled map {tuple(low.shape)} {low.array.dtype}")
+    check(low.metadata == {**pos.metadata, "nside": NSIDE // 2},
+          f"resampled metadata {low.metadata}")
+    sums = (4.0 * low.array.double().sum().item(), pos.array.double().sum().item())
+    check(abs(sums[0] - sums[1]) <= 1e-6 * abs(sums[1]),
+          f"resample changed the map's sum: {sums}")
+    del got_z, low
+
+    # map_values against add: one page, one row and two
+    mapper = th.HealpixMapper(NSIDE, LMAX, dtype=torch.float32, device=dev)
+    lon, lat, w = page["RA"], page["DEC"], page["W"]
+    scatter = {}
+    for label, dims, values in (("(npix)", (), w),
+                                ("(2, npix)", (2,), np.stack([w, -2.0 * w]))):
+        want = mapper.add(mapper.begin(*dims), lon, lat, values)
+        data = mapper.create(*dims)
+        _, sec = sync_time(lambda: mapper.map_values(lon, lat, data, values))
+        # float32 atomics: a pixel's few values may add in another order
+        err = (data.array - want).abs().max().item()
+        check(err <= 1e-6 * want.abs().max().item() and
+              bool(data.array.abs().sum() > 0),
+              f"map_values {label} differs from add by {err:.3e}")
+        scatter[label] = (err, sec)
+    scatter_txt = ", ".join(f"{k} max|d| {e:.1e} ({sec * 1e3:.1f} ms)"
+                            for k, (e, sec) in scatter.items())
+    print(f"phase 8 dd=True transform of bin 0's f32 POS map: {t_dd:.3f} s "
+          f"against {t32:.3f} s without, launches {by_precision}, alms "
+          f"complex64; max|da|/max|a| per l-band (10 "
+          f"bands) against the float64 transform: f32 "
+          f"{' '.join(f'{v:.1e}' for v in rel32)}; dd "
+          f"{' '.join(f'{v:.1e}' for v in rel_dd)}; resample n{NSIDE} -> "
+          f"n{NSIDE // 2}: host table {t_table:.1f} s, z map {t_resample:.2f} s, "
+          f"max |dz| {z_err:.2e}, sum kept to "
+          f"{abs(sums[0] - sums[1]) / abs(sums[1]):.1e}; map_values against add, "
+          f"{len(lon)} rows: {scatter_txt}; card {smi} "
+          f"({time.perf_counter() - t:.1f} s)", flush=True)
 
 
 def main():
@@ -637,9 +788,16 @@ def main():
     blocks = "; ".join(
         f"{kernel} {kl.blocks_per_sm(kernel, False)} (f32), "
         f"{kl.blocks_per_sm(kernel, True)} (f64)"
-        for kernel in ("analysis_spin0", "analysis_pair", "synthesis_pair"))
+        for kernel in ("analysis_spin0", "analysis_pair", "synthesis_spin0",
+                       "synthesis_pair"))
+    # an existing build has no compiler log to read
+    ptxas = ptxas_summary(kl.log) if kl.seconds else "ptxas: no log, built before"
+    synth0 = [row for row in ptxas.split("; ") if row.startswith("synth/spin0/")]
+    check(not kl.seconds or (len(synth0) == 3 and all(
+        row.endswith(", 0 B stack, 0 B spill") for row in synth0)),
+          f"the spin-0 synthesis spills, or an instantiation is missing: {synth0}")
     print(f"phase 1 build: nvcc {kl.seconds:.1f} s -> {kl.path.name}; "
-          f"{ptxas_summary(kl.log)}; gram DMMA instructions {dmma}; blocks "
+          f"{ptxas}; gram DMMA instructions {dmma}; blocks "
           f"per SM at any lmax: {blocks} ({time.perf_counter() - t:.1f} s)",
           flush=True)
 
@@ -662,9 +820,14 @@ def main():
     vis = ((ring > npix // 5) & (ring < 4 * npix // 5)).to(torch.float32)
     del ring
     catalogs = {}
-    for i, arr in enumerate(catalog_arrays()):
+    arrays = catalog_arrays()
+    for i, arr in enumerate(arrays):
         catalogs[i] = th.ArrayCatalog(arr)
         catalogs[i].visibility = vis
+    # one page of bin 0's rows, for phase 8
+    page = {name: np.ascontiguousarray(arrays[0][name][:PAGE_ROWS])
+            for name in ("RA", "DEC", "W")}
+    del arrays
     setup = time.perf_counter() - t
 
     reset_counts()
@@ -740,9 +903,12 @@ def main():
     del spin0_args, pair_args
 
     bands = {}
+    pos_alms = None  # bin 0's float32 and float64 POS alms, for phase 8
     for key, spin, m32 in (("POS", 0, pos), ("SHE", 2, she)):
         a32 = sht.map2alm(m32, LMAX, spin=spin)
         a64 = sht.map2alm(m32.double(), LMAX, spin=spin)
+        if key == "POS":
+            pos_alms = (a32, a64)
         comps = [(key, a32, a64)] if spin == 0 else [
             (key + "_E", a32[0], a64[0]), (key + "_B", a32[1], a64[1])]
         for label, b32, b64 in comps:
@@ -862,6 +1028,9 @@ def main():
     # -- phase 7: synthesis, its own path --------------------------------
     synth_report, synth_launches = phase7(dev, maps, cls, fma32, smi)
     report.update(synth_report)
+
+    # -- phase 8: dd=, resample, map_values --------------------------------
+    phase8(dev, maps, page, *pos_alms, smi)
 
     def mean(key):
         return float(np.mean([c[key] for c in contractions.values()]))

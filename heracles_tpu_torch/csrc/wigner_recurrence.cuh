@@ -102,6 +102,15 @@ __device__ __forceinline__ T step(T a1x, T a0, T b, T dc, T dp) {
   return R::sub(R::mul(R::add(a1x, a0), dc), R::mul(b, dp));
 }
 
+// The same step for a column with m s = 0 (spin 0).  Its a0 is -0.0 in
+// every row that coef_row fills, and x + (-0.0) = x for every x, so
+// (a1 x + a0) is a1 x itself: the same value without the addition.
+template <typename T>
+__device__ __forceinline__ T step_a0_zero(T a1x, T b, T dc, T dp) {
+  using R = Arith<T>;
+  return R::sub(R::mul(a1x, dc), R::mul(b, dp));
+}
+
 // Take the new value with the 2^60 block rescale.
 template <typename T>
 __device__ __forceinline__ void advance(T dn, T& dp, T& dc, int& k) {

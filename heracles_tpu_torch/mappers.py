@@ -5,7 +5,8 @@ points are scatter-added into a map on the mapper's device
 (``index_add_``), ``transform`` runs the spin-0/2 ``map2alm`` of
 :mod:`heracles_tpu_torch.ops.sht` with quadrature ring weights, optional
 Jacobi iterations and optional pixel-window deconvolution, and
-``synthesize`` runs ``alm2map``.  The map dtype and the device (the CUDA
+``synthesize`` runs ``alm2map``, ``resample`` changes a map's resolution
+(``ud_grade``) on its device.  The map dtype and the device (the CUDA
 card unless the caller names another) are constructor arguments.
 """
 
@@ -17,7 +18,7 @@ import numpy as np
 import torch
 
 from .devicemap import DeviceMap
-from .healpix import ang2pix_ring, nside2npix, nside2pixarea
+from .healpix import ang2pix_ring, nside2npix, nside2pixarea, ud_grade
 from .ops import sht
 
 __all__ = ["HealpixMapper"]
@@ -31,22 +32,38 @@ class HealpixMapper:
     Jacobi refinement steps of every analysis (healpy's ``iter=``).
     ``dtype`` (torch.float32 or torch.float64) is the map precision; the
     alms are complex of the same precision.  Maps and alms live on
-    ``device``, by default the CUDA card.
+    ``device``, by default the CUDA card.  ``dd`` goes to every
+    ``map2alm`` and ``alm2map`` the mapper runs (``transform`` with its
+    Jacobi iterations, ``synthesize``): True or ``"comp"`` run the Wigner
+    recurrence of float32 transforms in float64 and still return
+    complex64 alms and float32 maps; it is ignored for float64 maps.
+    ``device_maps`` is the reference's switch between host maps and
+    device-resident ones: this mapper always returns a :class:`DeviceMap`
+    (the reference's ``device_maps=True``), so True and None are accepted
+    and False raises a ValueError.
     """
 
     # transform() accepts leading batch axes
     batched_transform = True
 
     def __init__(self, nside, lmax=None, *, deconvolve=None, iterations=0,
-                 dtype=torch.float64, device="cuda"):
+                 dtype=torch.float64, device="cuda", dd=None,
+                 device_maps=None):
         if dtype not in (torch.float32, torch.float64):
             raise TypeError(f"map dtype must be float32 or float64, got {dtype}")
+        if device_maps is not None and not device_maps:
+            raise ValueError(
+                "device_maps=False (maps as host numpy arrays) is not "
+                "supported: this mapper always returns a DeviceMap; copy one "
+                "to the host with np.asarray"
+            )
         self._nside = int(nside)
         self._lmax = sht.resolve_lmax(nside, lmax)
         self._deconv = True if deconvolve is None else bool(deconvolve)
         self._iterations = int(iterations)
         self._dtype = dtype
         self._device = torch.device(device)
+        self._dd = dd
 
     @property
     def nside(self):
@@ -71,6 +88,10 @@ class HealpixMapper:
     @property
     def device(self):
         return self._device
+
+    @property
+    def dd(self):
+        return self._dd
 
     @cached_property
     def area(self):
@@ -99,8 +120,12 @@ class HealpixMapper:
                            device=self._device)
 
     def add(self, state, lon, lat, values):
-        """Scatter-add one page of points (lon/lat in degrees) into ``state``."""
-        dev = self._device
+        """Scatter-add one page of points (lon/lat in degrees) into ``state``.
+
+        ``state``: (..., npix) tensor; ``values``: (..., npoints), one row
+        per leading index.  Runs on the state's device and in its dtype.
+        """
+        dev = state.device
         # torch.tensor copies: catalogue pages are read-only numpy arrays
         ipix = ang2pix_ring(
             self._nside,
@@ -108,11 +133,25 @@ class HealpixMapper:
             torch.tensor(lat, dtype=torch.float64, device=dev),
             lonlat=True,
         )
-        values = torch.tensor(values, dtype=self._dtype, device=dev)
+        values = torch.tensor(values, dtype=state.dtype, device=dev)
         # in place: the accumulator belongs to the mapping loop that
         # created it with begin()
         state.index_add_(-1, ipix, values)
         return state
+
+    def map_values(self, lon, lat, data, values, spin=0):
+        """Add ``values`` at (lon, lat) [degrees] into ``data`` in place.
+
+        The ``Mapper`` protocol's scatter: ``data`` is a (..., npix) tensor
+        or :class:`DeviceMap`, ``values`` (..., npoints) with one row per
+        leading index of ``data``.  The same scatter as :meth:`add`, on the
+        device of ``data``.
+        """
+        state = data.array if isinstance(data, DeviceMap) else data
+        if not isinstance(state, torch.Tensor):
+            raise TypeError("map_values adds in place into a tensor or a "
+                            f"DeviceMap, got {type(data).__name__}")
+        self.add(state, lon, lat, values)
 
     def finish(self, state, spin=0):
         return DeviceMap(state, metadata=self._metadata(spin))
@@ -159,7 +198,7 @@ class HealpixMapper:
         """
         arr, md = self._unwrap(data, metadata)
         alm = sht.map2alm(arr, lmax=self._lmax, spin=spin, weights="ring",
-                          iterations=self._iterations)
+                          iterations=self._iterations, dd=self._dd)
         if self._deconv:
             alm = alm * self._fl_packed(spin, alm.real.dtype)
         return DeviceMap(alm, metadata={**md, "deconv": self._deconv})
@@ -174,11 +213,18 @@ class HealpixMapper:
         metadata.
         """
         arr, _ = self._unwrap(alm, None)
-        out = sht.alm2map(arr, self._nside, lmax=self._lmax, spin=spin)
+        out = sht.alm2map(arr, self._nside, lmax=self._lmax, spin=spin,
+                          dd=self._dd)
         return DeviceMap(out.to(self._dtype), metadata=self._metadata(spin))
 
     def resample(self, data):
-        raise NotImplementedError(
-            "resampling HEALPix maps (ud_grade) is not ported yet "
-            "(ROADMAP A9)"
-        )
+        """``data`` at the mapper's resolution: a DeviceMap of the mapper's
+        dtype, degraded by the mean of the child pixels or upgraded by
+        repeating the parent's value, with the input's metadata and the new
+        ``nside``.  ``data`` is a DeviceMap, a tensor or a numpy map (moved
+        to the mapper's device)."""
+        arr, md = self._unwrap(data, None)
+        out = ud_grade(arr, self._nside, dtype=self._dtype)
+        if out is arr:  # same resolution and dtype: the result owns its data
+            out = arr.clone()
+        return DeviceMap(out, metadata={**md, "nside": self._nside})

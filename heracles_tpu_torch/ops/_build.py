@@ -55,6 +55,8 @@ _SIGNATURES = {
     "heracles_analysis_pair_blocks_per_sm": (_I, [_I, _P]),
     "heracles_synthesis_spin0_f32": (_I, [_P] * 7 + [_I] * 4 + [_P]),
     "heracles_synthesis_spin0_f64": (_I, [_P] * 7 + [_I] * 4 + [_P]),
+    "heracles_synthesis_spin0_paths_f32": (_I, [_P] * 8 + [_I] * 4 + [_P]),
+    "heracles_synthesis_spin0_blocks_per_sm": (_I, [_I, _P]),
     "heracles_synthesis_pair_f32": (_I, [_P] * 10 + [_I] * 5 + [_P]),
     "heracles_synthesis_pair_f64": (_I, [_P] * 10 + [_I] * 5 + [_P]),
     "heracles_synthesis_pair_paths_f32": (_I, [_P] * 11 + [_I] * 5 + [_P]),
@@ -81,8 +83,9 @@ class KernelLibrary:
             raise RuntimeError(f"CUDA kernel launch failed: {msg} ({err})")
 
     def blocks_per_sm(self, kernel, is_double):
-        """Resident blocks per SM of ``analysis_spin0``, ``analysis_pair``
-        or ``synthesis_pair`` (none's shared memory grows with lmax)."""
+        """Resident blocks per SM of ``analysis_spin0``, ``analysis_pair``,
+        ``synthesis_spin0`` or ``synthesis_pair`` (none's shared memory
+        grows with lmax)."""
         n = ctypes.c_int(0)
         fn = getattr(self.lib, f"heracles_{kernel}_blocks_per_sm")
         self.check(fn(int(is_double), ctypes.addressof(n)))

@@ -8,7 +8,10 @@ Counterpart of :mod:`heracles_tpu.ops.sht`:
 * quadrature: per-ring weights such that the analysis of band-limited
   maps is exact (shipped tables, else a host least-squares solve);
 * synthesis (:func:`alm2map`) runs the two phases in reverse, and
-  ``map2alm(iterations=N)`` refines the analysis by N Jacobi steps.
+  ``map2alm(iterations=N)`` refines the analysis by N Jacobi steps;
+* ``dd=True`` runs the colatitude phase of a float32 transform in float64
+  (the float64 instantiation of the kernels); the ring FFTs, the weights
+  and the Jacobi residual stay in float32, as do the results.
 
 Conventions (HEALPix/healpy): alms are healpy-packed at the API boundary
 (index = m*(2*lmax+1-m)//2 + l) and rectangular (lmax+1, mmax+1)
@@ -196,15 +199,37 @@ def _folded_inputs(Fw, ns):
     return FNp, FSp * msign, FNm, FSm * msign
 
 
-def _analysis_rect(Fw, lmax, ns):
-    """Folded Wigner analysis of full-ring spectra; tuple of rect alms."""
+def _widen(arrays, dd):
+    """(arrays, dtype to return to): complex64 operands widened for ``dd``.
+
+    ``dd`` only matters for complex64 operands; complex128 ones pass as
+    they are and nothing is cast back (the second value is None).
+    """
+    if dd and arrays[0].dtype == torch.complex64:
+        return tuple(a.to(torch.complex128) for a in arrays), torch.complex64
+    return arrays, None
+
+
+def _narrow(arrays, dtype):
+    return arrays if dtype is None else tuple(a.to(dtype) for a in arrays)
+
+
+def _analysis_rect(Fw, lmax, ns, dd=False):
+    """Folded Wigner analysis of full-ring spectra; tuple of rect alms.
+
+    With ``dd`` the folded complex64 spectra are widened to complex128, so
+    the recurrence and the ring sums run in float64, and the alms come
+    back as complex64.
+    """
     nside = (Fw[0].shape[-2] + 1) // 4
     x, logch, logsh = _geometry(nside, Fw[0].device)
-    args = _folded_inputs(Fw, ns)
+    args, back = _widen(_folded_inputs(Fw, ns), dd)
     if len(ns) == 1:
-        return (sht_kernels.analysis_spin0_folded(*args, x, logch, logsh, lmax),)
-    return sht_kernels.analysis_pair_folded(*args, x, logch, logsh, lmax,
-                                            abs(int(ns[0])))
+        out = (sht_kernels.analysis_spin0_folded(*args, x, logch, logsh, lmax),)
+    else:
+        out = sht_kernels.analysis_pair_folded(*args, x, logch, logsh, lmax,
+                                               abs(int(ns[0])))
+    return _narrow(out, back)
 
 
 def _unfold_rings(GN, GS):
@@ -216,24 +241,27 @@ def _unfold_rings(GN, GS):
     return torch.cat([GN, torch.flip(GS[..., :-1, :], dims=(-2,))], dim=-2)
 
 
-def _synthesis_rect(alms, lmax, ns, nside):
+def _synthesis_rect(alms, lmax, ns, nside, dd=False):
     """Folded Wigner synthesis of rect alms; tuple of full-ring spectra.
 
     ``alms``: one (..., lmax+1, nm) array per spin column n in ``ns``;
-    returns one (..., nrings, nm) array each.
+    returns one (..., nrings, nm) array each.  With ``dd`` complex64 alms
+    are widened to complex128 for the recurrence and its sums, and the
+    ring spectra come back as complex64.
     """
     x, logch, logsh = _geometry(nside, alms[0].device)
+    alms, back = _widen(tuple(alms), dd)
     if len(ns) == 1:
-        GN, GS = sht_kernels.synthesis_spin0_folded(alms[0], x, logch, logsh,
-                                                    lmax)
+        GN, GS = _narrow(sht_kernels.synthesis_spin0_folded(
+            alms[0], x, logch, logsh, lmax), back)
         return (_unfold_rings(GN, GS),)
-    GNp, GSp, GNm, GSm = sht_kernels.synthesis_pair_folded(
-        alms[0], alms[1], x, logch, logsh, lmax, abs(int(ns[0])))
+    GNp, GSp, GNm, GSm = _narrow(sht_kernels.synthesis_pair_folded(
+        alms[0], alms[1], x, logch, logsh, lmax, abs(int(ns[0]))), back)
     return _unfold_rings(GNp, GSp), _unfold_rings(GNm, GSm)
 
 
 def map2alm(maps, lmax=None, mmax=None, *, spin=0, weights="ring",
-            iterations=0, packed=True):
+            iterations=0, packed=True, dd=None):
     """Spin-0/2 spherical harmonic analysis of HEALPix RING maps.
 
     ``maps``: (..., npix) real tensor for spin 0; (..., 2, npix) [Q, U]
@@ -243,6 +271,12 @@ def map2alm(maps, lmax=None, mmax=None, *, spin=0, weights="ring",
     costs one synthesis and one analysis, with the residual formed on the
     maps' device and in their dtype.  Runs on the maps' device and in
     their precision (float32 -> complex64 alms, float64 -> complex128).
+    ``dd``: True runs the Wigner recurrence and its ring sums of a float32
+    transform in float64 (the kernels' float64 instantiation) while the
+    ring FFTs, the weights and the residual stay in float32 and the alms
+    come back as complex64; ``"comp"`` runs as True; None and False run
+    in float32.  It is ignored for float64 maps.  (The reference's
+    ``HERACLES_TPU_SHT_DD`` environment switch is not carried over.)
     Returns packed alms (..., nlm) for spin 0, or (..., 2, nlm) (E, B) for
     spin 2 (``packed=False``: rectangular (..., lmax+1, mmax+1)).
     """
@@ -250,39 +284,45 @@ def map2alm(maps, lmax=None, mmax=None, *, spin=0, weights="ring",
     nside = npix2nside(maps.shape[-1])
     lmax = resolve_lmax(nside, lmax)
     mmax = lmax if mmax is None else int(mmax)
-    out = _map2alm_once(maps, nside, lmax, mmax, spin, weights)
+    dd = bool(dd)  # None is False, "comp" runs as True
+    out = _map2alm_once(maps, nside, lmax, mmax, spin, weights, dd)
     for _ in range(int(iterations)):
-        resid = maps - alm2map(out, nside, lmax, mmax, spin=spin, packed=False)
-        out = out + _map2alm_once(resid, nside, lmax, mmax, spin, weights)
+        resid = maps - alm2map(out, nside, lmax, mmax, spin=spin, packed=False,
+                               dd=dd)
+        out = out + _map2alm_once(resid, nside, lmax, mmax, spin, weights, dd)
     if packed:
         return pack_alm(out, lmax, mmax)
     return out
 
 
-def _map2alm_once(maps, nside, lmax, mmax, spin, weights):
+def _map2alm_once(maps, nside, lmax, mmax, spin, weights, dd=False):
     """One analysis pass; rectangular alms (E, B stacked for spin 2)."""
     w = _weights_arr(nside, weights)
     if spin == 0:
         F, _ = ringfft.ring_analysis(maps, nside, mmax + 1, weight=w)
-        (out,) = _analysis_rect((F,), lmax, (0,))
+        (out,) = _analysis_rect((F,), lmax, (0,), dd)
         return out
     u = torch.complex(maps[..., 0, :], maps[..., 1, :])
     F, Fneg = ringfft.ring_analysis(u, nside, mmax + 1, weight=w)
     # a_{+s,lm} = sum_r w slm(l,m,+s) F_m(r): column +s;
     # a_{-s,lm} = sum_r w slm(l,m,-s) conj(F_{-m}(r)): column -s
-    a_p, a_m = _analysis_rect((F, Fneg.conj()), lmax, (spin, -spin))
+    a_p, a_m = _analysis_rect((F, Fneg.conj()), lmax, (spin, -spin), dd)
     return torch.stack([-(a_p + a_m) / 2, 1j * (a_p - a_m) / 2], dim=-3)
 
 
-def alm2map(alm, nside, lmax=None, mmax=None, *, spin=0, packed=True):
+def alm2map(alm, nside, lmax=None, mmax=None, *, spin=0, packed=True,
+            dd=None):
     """Spin-0/2 spherical harmonic synthesis onto HEALPix RING maps.
 
     ``alm``: packed (..., nlm) complex for spin 0, (..., 2, nlm) (E, B)
     for spin 2; rectangular (..., lmax+1, mmax+1) with ``packed=False``.
     Runs on the alms' device and in their precision (complex64 -> float32
-    maps, complex128 -> float64).  Returns (..., npix) or (..., 2, npix)
-    [Q, U].
+    maps, complex128 -> float64).  ``dd``: as for :func:`map2alm`, the
+    recurrence of a complex64 synthesis in float64 with float32 maps
+    returned; ignored for complex128 alms.  Returns (..., npix) or
+    (..., 2, npix) [Q, U].
     """
+    dd = bool(dd)  # None is False, "comp" runs as True
     spin = abs(int(spin))
     nside = int(nside)
     if lmax is None:
@@ -297,7 +337,7 @@ def alm2map(alm, nside, lmax=None, mmax=None, *, spin=0, packed=True):
     if packed:
         alm = unpack_alm(alm, lmax, mmax)
     if spin == 0:
-        (G,) = _synthesis_rect((alm,), lmax, (0,), nside)
+        (G,) = _synthesis_rect((alm,), lmax, (0,), nside, dd)
         return ringfft.ring_synthesis(G, None, nside)
     alm_e = alm[..., 0, :, :]
     alm_b = alm[..., 1, :, :]
@@ -306,7 +346,8 @@ def alm2map(alm, nside, lmax=None, mmax=None, *, spin=0, packed=True):
     # u = sum_{m>=0} G+_m e^{im phi} + sum_{m>0} G-_m e^{-im phi} with
     # G+_m = sum_l a_{+s,lm} slm(l,m,+s) and
     # G-_m = sum_l conj(a_{-s,lm}) slm(l,m,-s) (reality relations)
-    Gp, Gm = _synthesis_rect((a_p, a_m.conj()), lmax, (spin, -spin), nside)
+    Gp, Gm = _synthesis_rect((a_p, a_m.conj()), lmax, (spin, -spin), nside,
+                             dd)
     u = ringfft.ring_synthesis(Gp, Gm, nside, real_output=False)
     return torch.stack([u.real, u.imag], dim=-2)
 

@@ -17,9 +17,10 @@ The tensor decides the path:
 * complex64 input runs the float32 kernel, complex128 the float64 one.
 
 No kernel's shared memory grows with lmax; the one bound on it is
-``LMAX_LIMIT``.  ``LAUNCHES`` counts kernel launches per kernel name.
-:func:`path_counts` is a diagnostic launch of the spin-0 analysis or the
-spin-pair synthesis that tells which share of the work ran on each of the
+``LMAX_LIMIT``.  ``LAUNCHES`` counts kernel launches per kernel name,
+``LAUNCHES_BY_PRECISION`` the same launches per (name, "f32" or "f64").
+:func:`path_counts` is a diagnostic launch of the spin-0 analysis or of
+either synthesis that tells which share of the work ran on each of the
 kernel's paths.
 """
 
@@ -40,11 +41,13 @@ __all__ = [
     "synthesis_pair_folded",
     "path_counts",
     "LAUNCHES",
+    "LAUNCHES_BY_PRECISION",
     "LMAX_LIMIT",
     "reset_counts",
 ]
 
 LAUNCHES = collections.Counter()
+LAUNCHES_BY_PRECISION = collections.Counter()
 
 # the kernels' dead path (csrc/sht_paths.cuh) rests on a step of the
 # recurrence growing a value by less than sqrt(2 lmax) + 2 < 2^8.1: 8 steps
@@ -57,6 +60,7 @@ _REAL = {torch.complex64: torch.float32, torch.complex128: torch.float64}
 def reset_counts():
     """Zero the kernel launch counts and the plain-version run counts."""
     LAUNCHES.clear()
+    LAUNCHES_BY_PRECISION.clear()
     wigner.PLAIN_RUNS.clear()
 
 
@@ -141,6 +145,7 @@ def _launch(name, inputs, x, logch, logsh, lmax, spin, out_rows, nout,
     if paths:
         return counts[0]
     LAUNCHES[name] += 1
+    LAUNCHES_BY_PRECISION[name, "f64" if is_double else "f32"] += 1
     return [o.reshape(batch + (out_rows, nm)) for o in outs]
 
 
@@ -148,8 +153,9 @@ def path_counts(name, *args):
     """Sub-chunks of 8 multipoles that the warps of one launch ran on the
     steady, the dead and the full path: a dict of three ints.
 
-    ``name`` is ``"analysis_spin0_folded"`` or ``"synthesis_pair_folded"``
-    and ``args`` are that function's own, complex64 tensors on the card.
+    ``name`` is ``"analysis_spin0_folded"``, ``"synthesis_spin0_folded"``
+    or ``"synthesis_pair_folded"`` and ``args`` are that function's own,
+    complex64 tensors on the card.
     A diagnostic twin of the kernel runs (the same code with three
     counters); its outputs are dropped and ``LAUNCHES`` does not count it.
     """
@@ -161,6 +167,12 @@ def path_counts(name, *args):
         _check(name, "spectra", (Fe, Fo), nhalf, (x, logch, logsh), nhalf)
         counts = _launch(name, (Fe, Fo), x, logch, logsh, int(lmax), None,
                          int(lmax) + 1, 1, paths=True)
+    elif name == "synthesis_spin0_folded":
+        alm, x, logch, logsh, lmax = args
+        _check(name, "alms", (alm,), int(lmax) + 1, (x, logch, logsh),
+               x.shape[0])
+        counts = _launch(name, (alm,), x, logch, logsh, int(lmax), None,
+                         x.shape[0], 2, paths=True)
     elif name == "synthesis_pair_folded":
         alm_p, alm_m, x, logch, logsh, lmax, spin = args
         _check(name, "alms", (alm_p, alm_m), int(lmax) + 1, (x, logch, logsh),

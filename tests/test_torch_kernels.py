@@ -163,6 +163,23 @@ def test_spin0_kernel_over_ring_tiles(cuda, cdtype):
 
 
 @pytest.mark.parametrize("cdtype", [torch.complex64, torch.complex128])
+def test_synthesis_spin0_kernel_over_ring_tiles(cuda, cdtype):
+    """The second tile's last warps hold padding rings beside seeded ones."""
+    nside, lmax, batch, nm = TILED
+    (alm,), geom = _alms(nside, lmax, batch, 1, cdtype, cuda, 13, nm=nm)
+    want = wigner.synthesis_spin0_folded_plain(alm, *geom, lmax)
+    got = sht_kernels.synthesis_spin0_folded(alm, *geom, lmax)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.shape == (batch, 2 * nside, nm)
+        _assert_close(g, w, cdtype)
+        assert torch.all(g[..., lmax + 1:] == 0)
+    again = sht_kernels.synthesis_spin0_folded(alm, *geom, lmax)
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+
+
+@pytest.mark.parametrize("cdtype", [torch.complex64, torch.complex128])
 def test_synthesis_pair_kernel_over_ring_tiles(cuda, cdtype):
     nside, lmax, batch, nm = TILED
     alms, geom = _alms(nside, lmax, batch, 2, cdtype, cuda, 9, nm=nm)
@@ -178,21 +195,29 @@ def test_synthesis_pair_kernel_over_ring_tiles(cuda, cdtype):
         assert torch.equal(g, a)
 
 
-def test_synthesis_pair_kernel_on_tiny_alms(cuda):
-    """The float32 kernel holds the alms times 2^-60 in its table: alms of
-    1e-12 (the Jacobi residuals of a float32 round trip are larger) must
+@pytest.mark.parametrize("pair", [False, True])
+def test_synthesis_kernels_on_tiny_alms(cuda, pair):
+    """The float32 kernels hold the alms times 2^-60 in their tables: alms
+    of 1e-12 (the Jacobi residuals of a float32 round trip are larger) must
     stay clear of the subnormals and keep the full-size agreement."""
     nside, lmax, batch = CASES[2]
-    alms, geom = _alms(nside, lmax, batch, 2, torch.complex64, cuda, 10)
+    alms, geom = _alms(nside, lmax, batch, 2 if pair else 1, torch.complex64,
+                       cuda, 10)
     alms = [a * 1e-12 for a in alms]
-    want = wigner.synthesis_pair_folded_plain(*alms, *geom, lmax, 2)
-    got = sht_kernels.synthesis_pair_folded(*alms, *geom, lmax, 2)
+    if pair:
+        want = wigner.synthesis_pair_folded_plain(*alms, *geom, lmax, 2)
+        got = sht_kernels.synthesis_pair_folded(*alms, *geom, lmax, 2)
+    else:
+        want = wigner.synthesis_spin0_folded_plain(*alms, *geom, lmax)
+        got = sht_kernels.synthesis_spin0_folded(*alms, *geom, lmax)
     torch.cuda.synchronize()
     for g, w in zip(got, want):
-        _assert_close(g, w, torch.complex64, tol32=(3e-5, 3e-4))
+        _assert_close(g, w, torch.complex64,
+                      tol32=(3e-5, 3e-4) if pair else (2e-5, 2e-4))
 
 
 @pytest.mark.parametrize("name", ["analysis_spin0_folded",
+                                  "synthesis_spin0_folded",
                                   "synthesis_pair_folded"])
 def test_path_counts(cuda, name):
     """The diagnostic launch counts every warp's sub-chunks of 8
@@ -203,6 +228,9 @@ def test_path_counts(cuda, name):
     if name == "analysis_spin0_folded":
         args, geom = _inputs(nside, lmax, batch, 2, torch.complex64, cuda, 12)
         spin, extra = 0, ()
+    elif name == "synthesis_spin0_folded":
+        args, geom = _alms(nside, lmax, batch, 1, torch.complex64, cuda, 12)
+        spin, extra = 0, ()
     else:
         args, geom = _alms(nside, lmax, batch, 2, torch.complex64, cuda, 12)
         spin, extra = 2, (2,)
@@ -210,7 +238,7 @@ def test_path_counts(cuda, name):
     counts = sht_kernels.path_counts(name, *args, *geom, lmax, *extra)
     assert dict(sht_kernels.LAUNCHES) == before
     assert set(counts) == {"steady", "dead", "full"}
-    # one tile of 4 warps per block; per order the synthesis takes its
+    # one tile of 4 warps per block; per order a synthesis takes its
     # column's multipoles in eights, the analysis in chunks of two eights
     j0 = np.maximum(np.arange(nm), spin)
     per = 16 if name == "analysis_spin0_folded" else 8
@@ -275,6 +303,26 @@ def test_synthesis_kernels_at_high_lmax(cuda, pair, cdtype):
     for g, w in zip(got, want):
         assert g.shape == (2 * nside, nm)
         _assert_close(g, w, cdtype, tol32=(3e-5, 3e-4) if pair else (2e-5, 2e-4))
+
+
+@pytest.mark.parametrize("cdtype", [torch.complex64, torch.complex128])
+def test_synthesis_spin0_kernel_at_lmax_30000(cuda, cdtype):
+    """As the spin-0 analysis: the table streams in chunks of 128
+    multipoles at any lmax up to the dead path's limit, and a ring's steady
+    path lasts for thousands of sub-chunks.  4 orders keep the plain
+    version cheap."""
+    nside, lmax, nm = 8, 30000, 4
+    rng = np.random.default_rng(lmax)
+    alm = torch.as_tensor(rng.normal(size=(lmax + 1, nm))
+                          + 1j * rng.normal(size=(lmax + 1, nm)),
+                          dtype=cdtype, device=cuda)
+    geom = _inputs(nside, lmax, 1, 0, cdtype, cuda, 7)[1]
+    want = wigner.synthesis_spin0_folded_plain(alm, *geom, lmax)
+    got = sht_kernels.synthesis_spin0_folded(alm, *geom, lmax)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.shape == (2 * nside, nm)
+        _assert_close(g, w, cdtype)
 
 
 @pytest.mark.parametrize("cdtype", [torch.complex64, torch.complex128])
@@ -363,3 +411,26 @@ def test_probe_run_reports_a_rate(cuda):
     seconds, n_ops = fma_peak.run("fma", 64, 256, 2, dtype=torch.float32,
                                   device=cuda)
     assert seconds > 0 and n_ops == 64 * 128 * 256 * 2 * 2
+
+
+def test_dd_transform_launches_the_float64_kernels(cuda):
+    """``dd=True`` on a float32 map: the float64 instantiations run, the
+    alms come back complex64 and closer to the float64 transform's."""
+    from heracles_tpu_torch.ops import sht
+
+    nside, lmax = 32, 48
+    rng = np.random.default_rng(14)
+    maps = torch.as_tensor(rng.normal(size=(2, 12 * nside**2)),
+                           dtype=torch.float32, device=cuda)
+    for spin, name in ((0, "spin0"), (2, "pair")):
+        sht_kernels.reset_counts()
+        got = sht.map2alm(maps, lmax, spin=spin, iterations=1, dd=True)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.complex64
+        assert dict(sht_kernels.LAUNCHES_BY_PRECISION) == {
+            (f"analysis_{name}_folded", "f64"): 2,
+            (f"synthesis_{name}_folded", "f64"): 1}
+        want = sht.map2alm(maps.double(), lmax, spin=spin, iterations=1)
+        plain = sht.map2alm(maps, lmax, spin=spin, iterations=1)
+        err = [float((a.to(want.dtype) - want).abs().max()) for a in (got, plain)]
+        assert err[0] < err[1]

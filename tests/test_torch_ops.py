@@ -394,7 +394,8 @@ def _bulk_equal(got, want):
 
 
 @pytest.mark.parametrize("cdtype", [torch.complex64, torch.complex128])
-@pytest.mark.parametrize("kernel", ["synthesis_pair", "analysis_spin0"])
+@pytest.mark.parametrize("kernel", ["synthesis_pair", "synthesis_spin0",
+                                    "analysis_spin0"])
 def test_plain_versions_commute_with_power_of_two_scale(kernel, cdtype):
     """The kernels hold one factor of every product times 2^-60
     (csrc/sht_paths.cuh).  A power-of-two scale commutes with every
@@ -407,14 +408,18 @@ def test_plain_versions_commute_with_power_of_two_scale(kernel, cdtype):
     nside, lmax = 16, 32
     rng = np.random.default_rng(11)
     x, lch, lsh = (torch.as_tensor(a) for a in _geometry(nside))
-    shape = (lmax + 1, lmax + 1) if kernel == "synthesis_pair" \
-        else (2 * nside, lmax + 1)
-    ins = [_cplx(rng, shape) for _ in range(2)]
+    shape = (2 * nside, lmax + 1) if kernel == "analysis_spin0" \
+        else (lmax + 1, lmax + 1)
+    ins = [_cplx(rng, shape) for _ in range(1 if kernel == "synthesis_spin0"
+                                            else 2)]
 
     def run(arrays):
         if kernel == "synthesis_pair":
             return wigner.synthesis_pair_folded_plain(*arrays, x, lch, lsh,
                                                       lmax, 2)
+        if kernel == "synthesis_spin0":
+            return wigner.synthesis_spin0_folded_plain(*arrays, x, lch, lsh,
+                                                       lmax)
         return (wigner.analysis_spin0_folded_plain(*arrays, x, lch, lsh,
                                                    lmax),)
 

@@ -218,13 +218,14 @@ def test_alm2map(nside, lmax, spin):
 
 @pytest.mark.parametrize("spin", [0, 2])
 def test_map2alm_iterations(spin):
-    nside, lmax = 16, 32
+    nside, lmax = 8, 16
     rng = np.random.default_rng(30 + spin)
     npix = 12 * nside * nside
     # spin 0: a batch of two maps; spin 2: one [Q, U] pair
     maps = rng.normal(size=(2, npix))
-    want = jsht.map2alm(jnp.asarray(maps), lmax, spin=spin, iterations=3)
-    got = sht.map2alm(T(maps), lmax, spin=spin, iterations=3)
+    # the reference compiles every pass anew: two steps keep the test short
+    want = jsht.map2alm(jnp.asarray(maps), lmax, spin=spin, iterations=2)
+    got = sht.map2alm(T(maps), lmax, spin=spin, iterations=2)
     _close64(got, want)
     # the refinement moves the alms
     once = sht.map2alm(T(maps), lmax, spin=spin)
@@ -233,7 +234,7 @@ def test_map2alm_iterations(spin):
 
 def test_alm2map_and_iterations_float32():
     """One float32 case: the spin-2 path, through both pair plain versions."""
-    spin, nside, lmax = 2, 16, 24
+    spin, nside, lmax = 2, 8, 16
     rng = np.random.default_rng(40 + spin)
     alm = _cplx(rng, (2, sht.alm_size(lmax)) if spin
                 else sht.alm_size(lmax)).astype(np.complex64)
@@ -244,8 +245,8 @@ def test_alm2map_and_iterations_float32():
                                atol=2e-5 * np.abs(want).max())
     maps = want.astype(np.float32)
     want = np.asarray(jsht.map2alm(jnp.asarray(maps), lmax, spin=spin,
-                                   iterations=3))
-    got = sht.map2alm(T(maps), lmax, spin=spin, iterations=3)
+                                   iterations=2))
+    got = sht.map2alm(T(maps), lmax, spin=spin, iterations=2)
     assert got.dtype == torch.complex64
     np.testing.assert_allclose(got.numpy(), want, rtol=2e-4,
                                atol=2e-5 * np.abs(want).max())

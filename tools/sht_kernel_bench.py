@@ -13,7 +13,7 @@ lines that start with ``--label``:
 * per kernel the times of three launches after a warm-up (ms, CUDA
   events) and a digest of its outputs;
 * where the package has them, the path counts of the spin-0 analysis and
-  the pair synthesis and the resident blocks per SM.
+  of the syntheses and the resident blocks per SM.
 
 Two checkouts given the same seed get the same inputs, so equal digests
 mean that two versions of a kernel agree bit for bit.  To compare two
@@ -110,11 +110,18 @@ def main():
     print(label, json.dumps(result), flush=True)
 
     if hasattr(sht_kernels, "path_counts") and not args.double:
+        # the spin-0 synthesis has paths only in later versions of the package
+        synth0 = "heracles_synthesis_spin0_paths_f32" in _build._SIGNATURES
         print(label, "paths analysis_spin0_folded", sht_kernels.path_counts(
             "analysis_spin0_folded", F[0], F[1], x, lch, lsh, lmax))
+        if synth0:
+            print(label, "paths synthesis_spin0_folded", sht_kernels.path_counts(
+                "synthesis_spin0_folded", A[0], x, lch, lsh, lmax))
         print(label, "paths synthesis_pair_folded", sht_kernels.path_counts(
             "synthesis_pair_folded", *A, x, lch, lsh, lmax, 2))
-        for kernel in ("analysis_spin0", "analysis_pair", "synthesis_pair"):
+        for kernel in ("analysis_spin0", "analysis_pair",
+                       *(("synthesis_spin0",) if synth0 else ()),
+                       "synthesis_pair"):
             print(label, kernel, "blocks per SM (f32, f64):",
                   kl.blocks_per_sm(kernel, False), kl.blocks_per_sm(kernel, True))
 
