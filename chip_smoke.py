@@ -50,7 +50,20 @@ with its seconds:
    launch, the alms come back complex64 and lie closer to the float64
    transform's than the float32 ones, per l-band), ``resample`` from nside
    4096 to 2048 (a map of the pixels' z against the coarse pixels' z, the
-   POS map's sum), ``map_values`` of one page against ``add``.
+   POS map's sum), ``map_values`` of one page against ``add``;
+9. DICES at the configuration of ``dices_njk50_n1024`` (``bench.py``,
+   ``build_dices_real``): POS, SHE and VIS float32 maps at nside 1024,
+   lmax 1536, 50 regions of contiguous pixels, through
+   ``compute_jk_alms`` in device mode (exact launch counts of the spin-0
+   and spin-pair analyses over batches of 8 regions, no plain run),
+   ``compute_jk_cls_from_alms`` and ``jackknife_covariance`` (one key
+   against ``np.cov``), SHT linearity (full - region alms against the
+   alms of the complement-masked map), two delete-1 samples against
+   ``angular_power_spectra`` of alms subtracted by hand; then 8 regions in
+   file mode twice (the second call launches no SHT kernel and returns the
+   same spectra), delete-2 debiasing and shrinkage towards the Gaussian
+   covariance; the two analysis kernels at the DICES batch against their
+   plain versions, with their bounds.
 
 Then a JSON line of the kernels (with each one's bound: the least time
 the card could take for the same work), the card line, and the result
@@ -79,6 +92,13 @@ PAIR_SYNTH_TOL32 = (3e-5, 3e-4)
 ITERATIONS = 3
 # rows of the page that phase 8 scatters
 PAGE_ROWS = 1_000_000
+# phase 9: DICES at dices_njk50_n1024's configuration (bench.py), and the
+# regions of its file-mode run
+DICES_NSIDE, DICES_LMAX, DICES_NJK, DICES_FILE_NJK = 1024, 1536, 50, 8
+DICES_BATCH = 8  # compute_jk_alms' region_batch
+DICES_KERNELS = ("analysis_spin0_folded", "analysis_pair_folded")
+# float64 host algebra on the same float32 alms: sums in another order
+DICES_RTOL = 1e-10
 
 # kernel name: (source, the TPU kernel it replaces)
 KERNELS = {
@@ -761,6 +781,297 @@ def phase8(dev, maps, page, a32, a64, smi):
           f"({time.perf_counter() - t:.1f} s)", flush=True)
 
 
+def _dices_inputs(dev):
+    """bench.py's ``build_dices_real`` maps (seed 9) as float32 DeviceMaps
+    on the card, its fields, and a function of the region map."""
+    import heracles_tpu_torch as th
+
+    nside, lmax = DICES_NSIDE, DICES_LMAX
+    npix = 12 * nside**2
+    rng = np.random.default_rng(9)
+    mapper = th.HealpixMapper(nside, lmax, deconvolve=False,
+                              dtype=torch.float32, device=dev)
+    fields = {
+        "POS": th.Positions(mapper, "RA", "DEC", mask="VIS"),
+        "SHE": th.Spin2Field(mapper, "RA", "DEC", "G1", "G2", mask="VIS"),
+        "VIS": th.Visibility(mapper),
+    }
+    pos = mapper.create(spin=0)
+    pos[:] = rng.normal(size=npix)
+    th.update_metadata(pos, fsky=1.0, musq=1.0, dens=100.0)
+    she = mapper.create(2, spin=2)
+    she[:] = rng.normal(size=(2, npix))
+    th.update_metadata(she, fsky=1.0, musq=1.0, dens=100.0)
+    vis = mapper.create(spin=0)
+    vis[:] = 1.0
+    th.update_metadata(vis, fsky=1.0)
+
+    def regions(njk):
+        jk = np.zeros(npix)
+        edges = np.linspace(0, npix, njk + 1).astype(int)
+        for k in range(njk):
+            jk[edges[k] : edges[k + 1]] = k + 1
+        return jk
+
+    return mapper, fields, {("POS", 0): pos, ("SHE", 0): she}, \
+        {("VIS", 0): vis}, regions
+
+
+def _same_cls(got, want, what, rtol=DICES_RTOL):
+    """Largest |got - want| / max |want| over two spectra dicts; raises
+    above ``rtol``."""
+    check(set(got) == set(want), f"{what}: keys {set(got)} != {set(want)}")
+    worst = 0.0
+    for key, w in want.items():
+        g = np.asarray(got[key], np.float64)
+        w = np.asarray(w, np.float64)
+        check(bool(np.all(np.isfinite(g))), f"{what} {key} not finite")
+        worst = max(worst, float(np.abs(g - w).max() / np.abs(w).max()))
+    check(worst <= rtol, f"{what}: {worst:.2e} of max")
+    return worst
+
+
+def phase9(dev, smi):
+    """DICES at full width: the path, its checks, and the two analysis
+    kernels at the DICES batch against their plain versions."""
+    import shutil
+
+    import heracles_tpu_torch as th
+    from heracles_tpu_torch import dices
+    from heracles_tpu_torch.dices import jackknife as jk_mod
+    from heracles_tpu_torch.ops import ringfft, sht, sht_kernels, wigner
+
+    t = time.perf_counter()
+    nside, lmax, njk = DICES_NSIDE, DICES_LMAX, DICES_NJK
+    mapper, fields, data, vmaps, regions = _dices_inputs(dev)
+    jk = regions(njk)
+    setup = time.perf_counter() - t
+    need = jk_mod._estimate_alm_bytes(data, vmaps, fields, njk)
+    budget = jk_mod._device_cache_budget()
+    check(need <= budget, f"alm cache {need} B over the budget {budget} B")
+    secs = {}
+
+    # device mode: the cache on the card, the samples assembled there
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    cache, secs["alms"] = sync_time(lambda: dices.compute_jk_alms(
+        data, vmaps, jk, fields, dir=None, region_batch=DICES_BATCH))
+    launches, plain_runs = counts()
+    nbatch = -(-njk // DICES_BATCH)
+    # k = 0: one launch per map; then one per map key and batch of regions
+    want = {"analysis_spin0_folded": 2 + 2 * nbatch,
+            "analysis_pair_folded": 1 + nbatch}
+    check(dict(launches) == want, f"DICES alms launches {dict(launches)}, "
+          f"expected {want}")
+    check(sum(plain_runs.values()) == 0, f"plain versions ran: {plain_runs}")
+    check(len(cache) == 2 * (njk + 1) and all(
+        isinstance(a, th.DeviceMap) and a.device.type == dev.type
+        for alms in cache.values() for a in alms.values()),
+        "the alm cache is not resident on the card")
+    cls1, secs["cls"] = sync_time(lambda: jk_mod.compute_jk_cls_from_alms(
+        jk, fields, nd=1, dir=None, alms_cache=cache))
+    after, plain_runs = counts()
+    check(dict(after) == want, f"the spectra stage launched {dict(after)}")
+    check(sum(plain_runs.values()) == 0, f"plain versions ran: {plain_runs}")
+    peak = torch.cuda.max_memory_allocated()
+    check(len(cls1) == njk, f"{len(cls1)} delete-1 samples")
+    for regions_k, cls in cls1.items():
+        for key, cl in cls.items():
+            check(bool(np.all(np.isfinite(np.asarray(cl)))),
+                  f"sample {regions_k} {key} not finite")
+    cov, secs["covariance"] = sync_time(
+        lambda: dices.jackknife_covariance(cls1, nd=1))
+    check(len(cov) == 6, f"{len(cov)} covariance blocks")
+    key = ("POS", "POS", "POS", "POS", 0, 0, 0, 0)
+    samples = np.stack([np.asarray(c["POS", "POS", 0, 0]) for c in cls1.values()])
+    oracle = np.cov(samples.T, bias=False) * (njk - 1) ** 2 / njk
+    cov_err = float(np.abs(np.asarray(cov[key]) - oracle).max()
+                    / np.abs(oracle).max())
+    check(cov_err <= DICES_RTOL, f"covariance against np.cov: {cov_err:.2e}")
+
+    # SHT linearity: full - region k against the complement-masked map
+    jk_t = torch.as_tensor(jk, dtype=torch.float32, device=dev)
+    lin = []
+    for (name, k), maps in ((("data", 1), data), (("data", njk), data),
+                            (("vis", 7), vmaps)):
+        for mkey, m in maps.items():
+            spin = fields[mkey[0]].spin
+            full, part = cache[name, 0][mkey].array, cache[name, k][mkey].array
+            direct = mapper.transform(m.array * (jk_t != k), spin=spin).array
+            lin.append(compare(full - part, direct, *TOL[torch.complex64],
+                               what=f"SHT linearity {mkey} region {k}")[1])
+            del direct
+
+    # where the spectra stage's seconds go: one batch of sample grids (the
+    # device contraction and the host Results), and the host scans of the
+    # region map (jackknife_fsky twice a sample, _n_regions once a call)
+    from heracles_tpu_torch.twopoint import angular_power_spectra_sample_stacks
+
+    R = {mkey: torch.stack([cache["data", r][mkey].array
+                            for r in range(1, njk + 1)])
+         for mkey in cache["data", 0]}
+    nsample = min(16, njk)  # compute_jk_cls_from_alms' sample_batch
+    idx = torch.arange(nsample, device=dev)[:, None]
+    stacks = {mkey: jk_mod._assemble_deletek(cache["data", 0][mkey].array,
+                                             R[mkey], idx) for mkey in R}
+    md = {mkey: cache["data", 0][mkey].metadata for mkey in R}
+    _, t_grids = sync_time(lambda: angular_power_spectra_sample_stacks(
+        stacks, md, nsample))
+    del R, stacks
+    t0 = time.perf_counter()
+    jk_mod.jackknife_fsky(jk, 1)
+    t_fsky = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    jk_mod._n_regions(jk)
+    t_unique = time.perf_counter() - t0
+
+    # two delete-1 samples against alms subtracted by hand
+    by_hand = []
+    for k in (1, njk):
+        alms = {mkey: th.DeviceMap(a.array - cache["data", k][mkey].array,
+                                   dtype=a.dtype)
+                for mkey, a in cache["data", 0].items()}
+        cls = dices.correct_footprint_fsky(
+            dices.correct_bias(th.angular_power_spectra(alms), jk, fields, k),
+            jk, k)
+        by_hand.append(_same_cls(cls, cls1[(k,)], f"delete-1 sample {k}"))
+    del cache
+
+    # file mode at 8 regions, then the same directory again
+    fdir = Path(__file__).resolve().parent / "build" / "dices_phase9"
+    shutil.rmtree(fdir, ignore_errors=True)
+    jk8 = regions(DICES_FILE_NJK)
+    reset_counts()
+    _, secs["file alms"] = sync_time(lambda: dices.compute_jk_alms(
+        data, vmaps, jk8, fields, dir=str(fdir), region_batch=DICES_BATCH))
+    file_launches, plain_runs = counts()
+    nbatch8 = -(-DICES_FILE_NJK // DICES_BATCH)
+    want8 = {"analysis_spin0_folded": 2 + 2 * nbatch8,
+             "analysis_pair_folded": 1 + nbatch8}
+    check(dict(file_launches) == want8, f"file-mode launches "
+          f"{dict(file_launches)}, expected {want8}")
+    check(sum(plain_runs.values()) == 0, f"plain versions ran: {plain_runs}")
+    cls8, secs["file cls"] = sync_time(lambda: jk_mod.compute_jk_cls_from_alms(
+        jk8, fields, nd=1, dir=str(fdir)))
+    reset_counts()
+    again, secs["file alms again"] = sync_time(lambda: dices.compute_jk_alms(
+        data, vmaps, jk8, fields, dir=str(fdir), region_batch=DICES_BATCH))
+    cls8_again, secs["file cls again"] = sync_time(
+        lambda: jk_mod.compute_jk_cls_from_alms(jk8, fields, nd=1,
+                                                dir=str(fdir)))
+    relaunch, _ = counts()
+    check(not again and sum(relaunch.values()) == 0,
+          f"the second call launched {dict(relaunch)}")
+    for k, cls in cls8.items():
+        _same_cls(cls8_again[k], cls, f"file-mode sample {k} read back",
+                  rtol=0.0)
+    # delete-2 debiasing and shrinkage at 8 regions
+    cls8_0 = jk_mod.compute_jk_cls_from_alms(jk8, fields, nd=0,
+                                             dir=str(fdir))[()]
+    cls8_2, secs["file delete-2 cls"] = sync_time(
+        lambda: jk_mod.compute_jk_cls_from_alms(jk8, fields, nd=2,
+                                                dir=str(fdir)))
+    check(len(cls8_2) == DICES_FILE_NJK * (DICES_FILE_NJK - 1) // 2,
+          f"{len(cls8_2)} delete-2 samples")
+    shutil.rmtree(fdir, ignore_errors=True)
+    t0 = time.perf_counter()
+    cov8 = dices.jackknife_covariance(cls8)
+    q = dices.delete2_correction(cls8_0, cls8, cls8_2)
+    deb = dices.debias_covariance(cov8, cls8_0, cls8, cls8_2)
+    secs["delete-2 debiasing"] = time.perf_counter() - t0
+    for ckey, block in q.items():
+        arr = np.asarray(block)
+        off = ~np.eye(arr.shape[-1], dtype=bool)
+        check(not arr[..., off].any(), f"delete-2 correction {ckey} is not "
+              "diagonal")
+        check(bool(np.isfinite(arr).all()), f"delete-2 correction {ckey}")
+        check(np.array_equal(np.asarray(deb[ckey]),
+                             np.asarray(cov8[ckey]) - arr),
+              f"debias_covariance {ckey}")
+    # shrinkage of the POS auto-covariance from l = 2 towards the Gaussian
+    t0 = time.perf_counter()
+    target_all = dices.gaussian_covariance(cls8_0)
+    check(all(bool(np.isfinite(np.asarray(b)).all()) for b in
+              target_all.values()), "gaussian covariance not finite")
+    pp = ("POS", "POS", 0, 0)
+
+    def cut(cl):
+        return th.Result(np.asarray(cl.array)[..., 2:], spin=cl.spin,
+                         ell=np.arange(2, lmax + 1))
+
+    samples8 = {r: {pp: cut(c[pp])} for r, c in cls8.items()}
+    target = dices.gaussian_covariance({pp: cut(cls8_0[pp])})
+    lam = dices.shrinkage_factor(samples8, target)
+    cov_pp = dices.jackknife_covariance(samples8)
+    shrunk = dices.shrink(cov_pp, target, lam)
+    secs["shrinkage"] = time.perf_counter() - t0
+    check(bool(np.isfinite(lam)), f"shrinkage factor {lam}")
+    dg = [np.diag(np.asarray(b)) for b in (shrunk[key], cov_pp[key])]
+    shrink_err = float(np.abs(dg[0] - dg[1]).max() / np.abs(dg[1]).max())
+    check(shrink_err <= DICES_RTOL, f"shrink moved the variances by "
+          f"{shrink_err:.2e}")
+
+    # the two analysis kernels at the DICES batch against their plain
+    # versions: bin 0's maps masked to regions 1..8, as the path builds them
+    x, lch, lsh = sht._geometry(nside, dev)
+    w = sht.ring_weights(nside)
+    ks = torch.arange(1, DICES_BATCH + 1, dtype=torch.float32, device=dev)
+    pos = jk_mod._masked_stack(data["POS", 0].array, jk_t, ks)
+    F, _ = ringfft.ring_analysis(pos, nside, lmax + 1, weight=w)
+    spin0_args = sht._folded_inputs((F,), (0,))
+    she = jk_mod._masked_stack(data["SHE", 0].array, jk_t, ks)
+    Fp, Fn = ringfft.ring_analysis(torch.complex(she[:, 0], she[:, 1]), nside,
+                                   lmax + 1, weight=w)
+    pair_args = sht._folded_inputs((Fp, Fn.conj()), (2, -2))
+    del F, Fp, Fn, pos, she
+    report = {}
+    for name, args, extra in (("analysis_spin0_folded", spin0_args, ()),
+                              ("analysis_pair_folded", pair_args, (2,))):
+        kernel = getattr(sht_kernels, name)
+        plain = getattr(wigner, name + "_plain")
+        event_ms(lambda: kernel(*args, x, lch, lsh, lmax, *extra))  # warm
+        got, ms = event_ms(lambda: kernel(*args, x, lch, lsh, lmax, *extra))
+        want_k, plain_ms = event_ms(lambda: plain(*args, x, lch, lsh, lmax,
+                                                  *extra))
+        if name == "analysis_spin0_folded":
+            got, want_k = (got,), (want_k,)
+        errs = [compare(g, p, *TOL[torch.complex64], what=f"{name} DICES batch")
+                for g, p in zip(got, want_k)]
+        dims = (DICES_BATCH, x.shape[0], lmax + 1)
+        bound_ms, bound_by = sht_bound(name, *dims, lmax, torch.complex64)
+        report[name] = dict(max_abs_err=max(e[0] for e in errs),
+                            rel=max(e[1] for e in errs), ms=ms,
+                            plain_ms=plain_ms, bound_ms=bound_ms,
+                            bound_by=bound_by)
+        del got, want_k
+
+    stage_txt = ", ".join(f"{k} {v:.2f} s" for k, v in secs.items())
+    kern_txt = "; ".join(
+        f"{n} at batch {DICES_BATCH}: kernel {r['ms']:.2f} ms, plain "
+        f"{r['plain_ms']:.1f} ms, bound {r['bound_ms']:.2f} ms "
+        f"({r['bound_by']}), max|d| {r['max_abs_err']:.2e} "
+        f"({r['rel']:.1e} of max)" for n, r in report.items())
+    print(f"phase 9 DICES n{nside} l{lmax} f32, {njk} regions in batches of "
+          f"{DICES_BATCH}, device mode (alm cache {need / 1e9:.2f} GB <= "
+          f"budget {budget / 2**30:.0f} GiB, so dir=None keeps it on the "
+          f"card): {stage_txt}; setup {setup:.1f} s; launches {dict(launches)} "
+          f"(k = 0 and {nbatch} batches), none in the spectra stage, no plain "
+          f"run; peak {peak / 2**30:.2f} GiB; spectra stage split: one batch "
+          f"of {nsample} samples' grids and Results {t_grids:.2f} s, one "
+          f"jackknife_fsky on the host {t_fsky * 1e3:.0f} ms (2 a sample), "
+          f"one _n_regions {t_unique:.2f} s (1 a call); {len(cls1)} finite delete-1 "
+          f"samples, {len(cov)} covariance blocks, POS auto against np.cov "
+          f"{cov_err:.1e}; SHT linearity max|d|/max "
+          f"{' '.join(f'{v:.1e}' for v in lin)}; samples 1 and {njk} against "
+          f"alms subtracted by hand {' '.join(f'{v:.1e}' for v in by_hand)}; "
+          f"file mode at {DICES_FILE_NJK} regions: launches "
+          f"{dict(file_launches)}, the second call none, the same spectra; "
+          f"delete-2: {len(cls8_2)} samples, diagonal correction; shrinkage "
+          f"factor {lam:.4f}, variances kept to {shrink_err:.1e}; {kern_txt}; "
+          f"card {smi} ({time.perf_counter() - t:.1f} s)", flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch sees no CUDA device; this script "
@@ -1031,6 +1342,10 @@ def main():
 
     # -- phase 8: dd=, resample, map_values --------------------------------
     phase8(dev, maps, page, *pos_alms, smi)
+    del maps, cls, mms, inv, mixed, pos_alms, page
+
+    # -- phase 9: DICES, its own path --------------------------------------
+    phase9(dev, smi)
 
     def mean(key):
         return float(np.mean([c[key] for c in contractions.values()]))

@@ -8,17 +8,26 @@ Counterpart of :mod:`heracles_tpu.catalog` for in-memory catalogues
 * :class:`Catalog` protocol / :class:`CatalogBase` / :class:`CatalogView`
   — selections, per-view visibility and fsky (maps, alms, or tensors on
   the device);
-* :class:`ArrayCatalog` — in-memory structured array source.
+* :class:`ArrayCatalog` — in-memory structured array source;
+* :class:`FitsCatalog` — paged FITS table source (the port's own reader,
+  :mod:`heracles_tpu_torch.fits`) with cached page reads and row
+  selection by boolean expressions over columns;
+* :class:`InvalidValueFilter`, :class:`FootprintFilter` — page filters.
 """
 
 from __future__ import annotations
 
+import warnings
+import weakref
 from abc import ABCMeta, abstractmethod
+from functools import lru_cache
 from types import MappingProxyType
 from typing import Protocol, runtime_checkable
 
 import numpy as np
 import torch
+
+from .healpix import ang2pix_ring, npix2nside
 
 __all__ = [
     "Catalog",
@@ -26,6 +35,9 @@ __all__ = [
     "CatalogPage",
     "CatalogView",
     "ArrayCatalog",
+    "FitsCatalog",
+    "InvalidValueFilter",
+    "FootprintFilter",
     "fsky_from_visibility",
 ]
 
@@ -395,3 +407,187 @@ class ArrayCatalog(CatalogBase):
         for start in range(0, len(arr), size):
             chunk = arr[start : start + size]
             yield CatalogPage({name: chunk[name] for name in names})
+
+
+def rowfilter(expr, table):
+    """Evaluate a boolean expression string over the columns of a table."""
+    return eval(expr, None, {name: table[name] for name in table.dtype.names})
+
+
+class FitsCatalog(CatalogBase):
+    """Paged catalogue over a FITS binary table.
+
+    Selections are boolean expression strings evaluated per page (joined
+    with ``&``); page reads are LRU-cached so interleaved fields re-reading
+    the same rows hit memory, and page k+1 is read on a worker thread while
+    page k is consumed.
+    """
+
+    @staticmethod
+    def _page_cache(catalog):
+        """LRU page reader bound through a weakref.
+
+        A ``lru_cache`` over the bound method would create an instance ->
+        cache -> bound-method -> instance cycle, and dead catalogues (with
+        their page buffers and file maps) would wait for the cycle
+        collector; the weakref keeps collection refcount-driven.
+        """
+        ref = weakref.ref(catalog)
+
+        @lru_cache(maxsize=8)
+        def read_page(start, stop):
+            return ref()._read_page_impl(start, stop)
+
+        return read_page
+
+    def __init__(self, path, columns=None, *, ext=None):
+        super().__init__()
+        self._path = path
+        self._columns = columns
+        self._ext = ext
+        self._hdu_cached = None
+        self._read_page = self._page_cache(self)
+
+    def __copy__(self):
+        other = super().__copy__()
+        other._path = self._path
+        other._columns = self._columns
+        other._ext = self._ext
+        other._hdu_cached = self._hdu_cached  # read-only; safe to share
+        other._read_page = self._page_cache(other)
+        return other
+
+    def __repr__(self):
+        return f"FitsCatalog({self._path!r})"
+
+    @property
+    def path(self):
+        return self._path
+
+    def _hdu(self):
+        if self._hdu_cached is not None:
+            return self._hdu_cached
+        from .fits import FitsFile
+
+        fits = FitsFile(self._path)
+        if self._ext is not None:
+            hdu = fits[self._ext]
+        else:
+            # first extension with rows
+            for hdu in list(fits)[1:]:
+                if hdu.get_nrows() > 0:
+                    break
+            else:
+                raise OSError(f"no table data in {self._path}")
+        self._hdu_cached = hdu
+        return hdu
+
+    def _names(self):
+        if self._columns is not None:
+            return list(self._columns)
+        return list(self._hdu()._row_dtype()[0].names)
+
+    def _size(self, selection):
+        if selection is None:
+            return self._hdu().get_nrows()
+        return None
+
+    def _join(self, *where):
+        exprs = [w for w in where if w is not None]
+        if not exprs:
+            return None
+        return "(" + ") & (".join(map(str, exprs)) + ")"
+
+    def _read_page_impl(self, start, stop):
+        # only the requested columns are decoded
+        return CatalogPage(self._hdu().read_columns(self._names(),
+                                                    rows=(start, stop)))
+
+    def _pages(self, selection):
+        from concurrent.futures import ThreadPoolExecutor
+
+        nrows = self._hdu().get_nrows()
+        size = self.page_size
+        spans = [(start, min(start + size, nrows))
+                 for start in range(0, nrows, size)]
+        if not spans:
+            return
+        # double-buffer: read page k+1 on a worker thread while the
+        # caller (device scatter, SHT) consumes page k
+        with ThreadPoolExecutor(1) as pool:
+            future = pool.submit(self._read_page, *spans[0])
+            for i, _ in enumerate(spans):
+                page = future.result()
+                if i + 1 < len(spans):
+                    future = pool.submit(self._read_page, *spans[i + 1])
+                if selection is not None:
+                    table = np.rec.fromarrays(
+                        [page[n] for n in page.names], names=page.names
+                    )
+                    mask = rowfilter(selection, table)
+                    page = CatalogPage({n: page[n][mask] for n in page.names})
+                else:
+                    page = page.copy()
+                yield page
+
+
+class InvalidValueFilter:
+    """Delete rows with NaN in the given columns (those of zero ``weight``
+    are kept)."""
+
+    def __init__(self, *columns, weight=None, warn=True):
+        self.columns = columns
+        self.weight = weight
+        self.warn = warn
+
+    def __repr__(self):
+        args = [repr(c) for c in self.columns]
+        args += [f"weight={self.weight!r}", f"warn={self.warn!r}"]
+        return f"{self.__class__.__name__}({', '.join(args)})"
+
+    def __call__(self, page):
+        bad = np.zeros(page.size, dtype=bool)
+        for col in self.columns:
+            bad |= np.isnan(page[col])
+        if self.weight is not None:
+            bad &= page[self.weight] != 0
+        index = np.flatnonzero(bad)
+        if index.size:
+            if self.warn:
+                warnings.warn("WARNING: catalog contains invalid values")
+            page.delete(index)
+
+
+class FootprintFilter:
+    """Keep only rows inside a HEALPix footprint (a RING map, nonzero
+    inside); the pixel lookup runs on the host."""
+
+    def __init__(self, footprint, lon, lat):
+        self._footprint = np.asanyarray(footprint)
+        self._nside = npix2nside(self._footprint.shape[-1])
+        self._lonlat = (lon, lat)
+
+    @property
+    def footprint(self):
+        return self._footprint
+
+    @property
+    def lonlat(self):
+        return self._lonlat
+
+    def __repr__(self):
+        lon, lat = self._lonlat
+        return f"{self.__class__.__name__}(..., {lon!r}, {lat!r})"
+
+    def __call__(self, page):
+        lon, lat = self._lonlat
+        # torch.tensor copies: page columns are read-only numpy arrays
+        ipix = ang2pix_ring(
+            self._nside,
+            torch.tensor(page[lon], dtype=torch.float64),
+            torch.tensor(page[lat], dtype=torch.float64),
+            lonlat=True,
+        ).numpy()
+        outside = np.flatnonzero(self._footprint[ipix] == 0)
+        if outside.size:
+            page.delete(outside)

@@ -7,6 +7,8 @@ normalises the map and attaches the noise-bias ingredients as metadata:
 
 * :class:`Positions` — number counts / overdensity, nbar normalisation,
   bias ingredients ``musq=1``, ``dens=(nbar/area)^2 / (ngal/4 pi fsky) / <w^2>``;
+* :class:`ScalarField` — weighted scalar values (magnification,
+  convergence), ``musq = <|w v|^2> / <w^2>``;
 * :class:`ComplexField` (spin 0) and :class:`Spin2Field` (= ``Shears`` =
   ``Ellipticities``) — two-component values;
 * :class:`Visibility` — copy the catalogue's visibility map;
@@ -33,6 +35,7 @@ from .core import toc_match, update_metadata
 __all__ = [
     "Field",
     "Positions",
+    "ScalarField",
     "ComplexField",
     "Visibility",
     "Weights",
@@ -300,6 +303,21 @@ class Positions(_PagedField, spin=0):
         ) / mom.w2mean
         update_metadata(pos, catalog, nbar=nbar, musq=1.0, dens=dens, fsky=fsky)
         return pos
+
+
+class ScalarField(_PagedField, spin=0):
+    """Weighted scalar values (e.g. magnification, convergence)."""
+
+    uses = "longitude", "latitude", "value", "[weight]"
+
+    def _page_values(self, page, value_columns, w):
+        wv = w * page.get(value_columns[0])
+        return wv, wv**2
+
+    def _finalise(self, val, mom, catalog, mapper):
+        return self._mean_weight_normalise(
+            val, mom, catalog, mapper, musq=mom.vsqmean / mom.w2mean
+        )
 
 
 class ComplexField(_PagedField, spin=0):

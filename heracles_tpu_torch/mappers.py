@@ -6,13 +6,16 @@ points are scatter-added into a map on the mapper's device
 :mod:`heracles_tpu_torch.ops.sht` with quadrature ring weights, optional
 Jacobi iterations and optional pixel-window deconvolution, and
 ``synthesize`` runs ``alm2map``, ``resample`` changes a map's resolution
-(``ud_grade``) on its device.  The map dtype and the device (the CUDA
+(``ud_grade``) on its device.  ``transform_resident`` and
+``transform_async`` are the two variants of ``transform`` that the DICES
+jackknife uses: alms kept on the device, and alms copied to the host on a
+side stream while the next analysis runs.  The map dtype and the device (the CUDA
 card unless the caller names another) are constructor arguments.
 """
 
 from __future__ import annotations
 
-from functools import cached_property
+from functools import cache, cached_property
 
 import numpy as np
 import torch
@@ -203,6 +206,51 @@ class HealpixMapper:
             alm = alm * self._fl_packed(spin, alm.real.dtype)
         return DeviceMap(alm, metadata={**md, "deconv": self._deconv})
 
+    def transform_resident(self, data, spin=0, *, metadata=None):
+        """Analysis with device-resident output: a DeviceMap of packed alms
+        on the data's device (the mapper's for numpy input).
+
+        :meth:`transform` always returns such a DeviceMap; this is that
+        call under the name the DICES device cache uses.
+        """
+        return self.transform(data, spin, metadata=metadata)
+
+    def transform_async(self, data, spin=0, *, metadata=None):
+        """Dispatch the analysis and start the copy of its alms to the host.
+
+        Returns a zero-argument callable that gives the same alms as
+        :meth:`transform`, as a host numpy array with the metadata on its
+        dtype.  On a card the analysis is queued on the current stream and
+        the alms are copied on a side stream, into pinned host memory,
+        after an event of the current stream; the caller may dispatch more
+        work before it calls the handle, which waits for the copy alone.
+        The source tensor is recorded on the side stream, so the caching
+        allocator does not hand its memory out before the copy is done.
+        """
+        alm = self.transform(data, spin, metadata=metadata)
+        arr = alm.array
+        if arr.device.type != "cuda":
+            return lambda: np.asarray(alm)
+        computed = torch.cuda.Event()
+        computed.record(torch.cuda.current_stream(arr.device))
+        side = _copy_stream(arr.device)
+        side.wait_event(computed)
+        host = torch.empty(arr.shape, dtype=arr.dtype, pin_memory=True)
+        with torch.cuda.stream(side):
+            host.copy_(arr, non_blocking=True)
+            copied = torch.cuda.Event()
+            copied.record(side)
+        arr.record_stream(side)
+        dtype = alm.dtype
+
+        def finish():
+            copied.synchronize()
+            out = host.numpy()
+            out.dtype = dtype
+            return out
+
+        return finish
+
     def synthesize(self, alm, spin=0):
         """Inverse transform: packed alms -> a DeviceMap of maps.
 
@@ -228,3 +276,9 @@ class HealpixMapper:
         if out is arr:  # same resolution and dtype: the result owns its data
             out = arr.clone()
         return DeviceMap(out, metadata={**md, "nside": self._nside})
+
+
+@cache
+def _copy_stream(device):
+    """The side stream of a card on which alms are copied to the host."""
+    return torch.cuda.Stream(device)

@@ -9,6 +9,10 @@ Counterpart of the spectra half of :mod:`heracles_tpu.twopoint`:
   ``_1``/``_2`` suffixes, noise bias ``bias = (1/2 if spin2 x spin2) *
   fsky * musq / dens``, optional debias and binning; the whole pair grid
   is one float64 contraction per group of alms on their device;
+* :func:`angular_power_spectra_samples`,
+  :func:`angular_power_spectra_sample_stacks` — the same for many alm sets
+  (jackknife samples) stacked on a leading sample axis: sample s's planes
+  pair only with sample s's, in one batched contraction;
 * :func:`debias_cls` — additive bias removal for l >= max(|s1|, |s2|),
   EE/BB only for spin2 x spin2, divided by the pixel window when the maps
   were deconvolved.
@@ -53,6 +57,8 @@ __all__ = [
     "alm2cl",
     "alm2lmax",
     "angular_power_spectra",
+    "angular_power_spectra_samples",
+    "angular_power_spectra_sample_stacks",
     "apply_mixing_matrix",
     "debias_cls",
     "invert_mixing_matrix",
@@ -89,15 +95,18 @@ def _tensor(a):
 def rect_pair_grid(a1, a2, ms):
     """All-pairs spectra of rectangular alm plane stacks.
 
-    ``a1``: (nA, nl, nm) complex, ``a2``: (nB, nl, nm) complex, ``ms``:
-    (nm,) orders of the m axis.  Returns (nA, nB, nl) float64: the
-    (2 - delta_m0)-weighted sum over the orders divided by (2l+1),
-    accumulated in float64.
+    ``a1``: (..., nA, nl, nm) complex, ``a2``: (..., nB, nl, nm) complex,
+    ``ms``: (nm,) orders of the m axis.  Returns (..., nA, nB, nl)
+    float64: the (2 - delta_m0)-weighted sum over the orders divided by
+    (2l+1), accumulated in float64.  Leading axes (a sample axis) are
+    batched, not paired: sample s's planes pair only with sample s's.
     """
     f64 = torch.float64
     eps = torch.where(torch.as_tensor(ms, device=a1.device) == 0, 1.0, 2.0).to(f64)
-    grid = torch.einsum("alm,blm->abl", a1.real.to(f64) * eps, a2.real.to(f64))
-    grid += torch.einsum("alm,blm->abl", a1.imag.to(f64) * eps, a2.imag.to(f64))
+    grid = torch.einsum("...alm,...blm->...abl", a1.real.to(f64) * eps,
+                        a2.real.to(f64))
+    grid += torch.einsum("...alm,...blm->...abl", a1.imag.to(f64) * eps,
+                         a2.imag.to(f64))
     ells = torch.arange(a1.shape[-2], dtype=f64, device=a1.device)
     return grid / (2 * ells + 1)
 
@@ -119,72 +128,68 @@ def alm2cl(alm, alm2=None, *, lmax=None):
     return grid.reshape(a.shape[:-1] + b.shape[:-1] + (lout + 1,))
 
 
-def _stack_planes(arrays):
-    """Group packed alm arrays by nlm and stack their component planes.
+def _cross_grids(plan, nsamples, lmax):
+    """Every needed (nlm1 x nlm2) spectra grid of sample-stacked alms.
 
-    Returns ``(stacks, slot)`` where ``stacks[nlm]`` is the (nplanes, nlm)
-    tensor of every distinct input with that packed length (on the device
-    of the device-resident inputs), and ``slot[id(arr)]`` locates an
-    array as ``(nlm, first_row, leading_shape)``.
+    ``plan`` items are (key, alm1, alm2) where each alm is an
+    (S, ..., nlm) stack over S = ``nsamples`` samples (tensor or numpy).
+    The distinct stacks are grouped by nlm and their component planes
+    concatenated, on the device of the first one that is not on the host.
+    Returns ``(grids, slot)``: ``grids[nlm1, nlm2]`` is the (S, nA, nB,
+    lout+1) host float64 array, one batched contraction per group (sample
+    s's planes pair only with sample s's), chunked over the planes so that
+    the unpacked float64 planes of all samples stay within
+    ``_GRID_BUDGET``; ``slot[id(alm)]`` locates a stack as ``(nlm,
+    first_row, leading_shape)``.
     """
     rows, slot = {}, {}
-    for arr in arrays:
+    for arr in (a for _, a1, a2 in plan for a in (a1, a2)):
         if id(arr) in slot:
             continue
         a = _tensor(arr)
         nlm = a.shape[-1]
         group = rows.setdefault(nlm, [])
-        slot[id(arr)] = (nlm, sum(p.shape[0] for p in group), tuple(a.shape[:-1]))
-        group.append(a.reshape(-1, nlm))
+        slot[id(arr)] = (nlm, sum(p.shape[1] for p in group),
+                         tuple(a.shape[1:-1]))
+        group.append(a.reshape(nsamples, -1, nlm))
     stacks = {}
     for nlm, group in rows.items():
         dev = next((p.device for p in group if p.device.type != "cpu"),
                    group[0].device)
         cdt = torch.promote_types(group[0].dtype, torch.complex64)
-        stacks[nlm] = torch.cat([p.to(device=dev, dtype=cdt) for p in group])
-    return stacks, slot
-
-
-def _cross_grids(plan, lmax):
-    """Every needed (nlm1 x nlm2) spectra grid as host float64 arrays.
-
-    ``plan``: list of (key, alm1, alm2).  Returns ``(grids, slot)`` with
-    ``grids[nlm1, nlm2]`` the (nA, nB, lout+1) array and ``slot`` from
-    :func:`_stack_planes`.  The plane stacks are unpacked and contracted
-    in chunks that keep the float64 planes within ``_GRID_BUDGET``.
-    """
-    stacks, slot = _stack_planes([a for _, a1, a2 in plan for a in (a1, a2)])
+        stacks[nlm] = torch.cat([p.to(device=dev, dtype=cdt) for p in group], 1)
     wanted = {(np.shape(a1)[-1], np.shape(a2)[-1]) for _, a1, a2 in plan}
     grids = {}
     for n1, n2 in wanted:
         if (n2, n1) in grids:
-            grids[n1, n2] = grids[n2, n1].transpose(1, 0, 2)
+            grids[n1, n2] = grids[n2, n1].transpose(0, 2, 1, 3)
             continue
         s1, s2 = stacks[n1], stacks[n2].to(stacks[n1].device)
         l1, l2 = _nlm2lmax(n1), _nlm2lmax(n2)
         lout = min(l1, l2) if lmax is None else min(lmax, l1, l2)
-        per = max(1, _GRID_BUDGET // (16 * (max(l1, l2) + 1) ** 2))
+        per = max(1, _GRID_BUDGET // (16 * (max(l1, l2) + 1) ** 2 * nsamples))
         ms = torch.arange(lout + 1)
-        grid = np.empty((s1.shape[0], s2.shape[0], lout + 1))
-        for i0 in range(0, s1.shape[0], per):
-            r1 = sht.unpack_alm(s1[i0 : i0 + per], l1)[..., : lout + 1, : lout + 1]
-            for j0 in range(0, s2.shape[0], per):
-                r2 = sht.unpack_alm(s2[j0 : j0 + per], l2)[..., : lout + 1, : lout + 1]
+        grid = np.empty((nsamples, s1.shape[1], s2.shape[1], lout + 1))
+        for i0 in range(0, s1.shape[1], per):
+            r1 = sht.unpack_alm(s1[:, i0 : i0 + per], l1)[..., : lout + 1, : lout + 1]
+            for j0 in range(0, s2.shape[1], per):
+                r2 = sht.unpack_alm(s2[:, j0 : j0 + per], l2)[..., : lout + 1, : lout + 1]
                 block = rect_pair_grid(r1, r2, ms)
-                grid[i0 : i0 + per, j0 : j0 + per] = block.cpu().numpy()
+                grid[:, i0 : i0 + per, j0 : j0 + per] = block.cpu().numpy()
         grids[n1, n2] = grid
     return grids, slot
 
 
 def _grid_block(grids, slot, alm1, alm2):
-    """One pair's cl block, with the outer-product leading shape."""
+    """One pair's (S, ...) cl blocks, with the outer-product leading shape
+    of the two stacks."""
     n1, row, shape1 = slot[id(alm1)]
     n2, col, shape2 = slot[id(alm2)]
     g = grids[n1, n2]
     nc1 = int(np.prod(shape1, dtype=int))
     nc2 = int(np.prod(shape2, dtype=int))
-    block = g[row : row + nc1, col : col + nc2]
-    return np.array(block.reshape(shape1 + shape2 + (g.shape[-1],)))
+    block = g[:, row : row + nc1, col : col + nc2]
+    return block.reshape(g.shape[:1] + shape1 + shape2 + g.shape[-1:])
 
 
 def _debias_cl(cl, bias=None, md=None, *, inplace=False):
@@ -281,38 +286,20 @@ def angular_power_spectra(
         plan.append(((k1, k2, i1, i2), alm1, alm2))
         twopoint_names.add((k1, k2))
 
-    # pass 2 (device): the whole pair grid in a few contractions
-    grids, slot = _cross_grids(plan, lmax)
+    # pass 2 (device): the whole pair grid in a few contractions, the alms
+    # as stacks of one sample
+    one = {}
+    for _, alm1, alm2 in plan:
+        for alm in (alm1, alm2):
+            one.setdefault(id(alm), _tensor(alm)[None])
+    grids, slot = _cross_grids(
+        [(key, one[id(a1)], one[id(a2)]) for key, a1, a2 in plan], 1, lmax)
 
     # pass 3 (host): metadata, noise bias, Result assembly
-    for (k1, k2, i1, i2), alm1, alm2 in plan:
-        cl = _grid_block(grids, slot, alm1, alm2)
-
-        md1 = alm1.dtype.metadata or {}
-        md2 = alm2.dtype.metadata or {}
-        s1, s2 = md1.get("spin"), md2.get("spin")
-        if s1 is None or s2 is None:
-            raise ValueError(f"missing spin metadata for {k1} or {k2}")
-        md = {f"{key}_1": value for key, value in md1.items()}
-        md.update({f"{key}_2": value for key, value in md2.items()})
-        bias = None
-        if k1 == k2 and i1 == i2:
-            fsky = md1.get("fsky")
-            musq = md1.get("musq")
-            dens = md1.get("dens")
-            if fsky is not None and musq is not None and dens is not None:
-                factor = 0.5 if s1 == s2 == 2 else 1.0
-                bias = factor * fsky * musq / dens
-        if bias is not None:
-            md["bias"] = bias
-        if debias and bias is not None:
-            _debias_cl(cl, bias, md, inplace=True)
-        update_metadata(cl, **md)
-
-        result = Result(cl, spin=(s1, s2), axis=-1)
-        if bins is not None:
-            result = binned(result, bins, weights)
-        cls[k1, k2, i1, i2] = result
+    for key, alm1, alm2 in plan:
+        cl = np.array(_grid_block(grids, slot, one[id(alm1)], one[id(alm2)])[0])
+        cls[key] = _pair_result(key, cl, _metadata(alm1), _metadata(alm2),
+                                debias, bins, weights)
 
     logger.info(
         "computed %d cl(s) in %s",
@@ -320,6 +307,142 @@ def angular_power_spectra(
         timedelta(seconds=(time.monotonic() - t)),
     )
     return cls
+
+
+def _pair_result(key, cl, md1, md2, debias, bins, weights):
+    """The Result of one pair's host cl block: merged ``_1``/``_2``
+    metadata, the noise bias of an auto-spectrum, optional debias and
+    binning."""
+    k1, k2, i1, i2 = key
+    md1, md2 = md1 or {}, md2 or {}
+    s1, s2 = md1.get("spin"), md2.get("spin")
+    if s1 is None or s2 is None:
+        raise ValueError(f"missing spin metadata for {k1} or {k2}")
+    md = {f"{name}_1": value for name, value in md1.items()}
+    md.update({f"{name}_2": value for name, value in md2.items()})
+    bias = None
+    if k1 == k2 and i1 == i2:
+        fsky = md1.get("fsky")
+        musq = md1.get("musq")
+        dens = md1.get("dens")
+        if fsky is not None and musq is not None and dens is not None:
+            factor = 0.5 if s1 == s2 == 2 else 1.0
+            bias = factor * fsky * musq / dens
+    if bias is not None:
+        md["bias"] = bias
+    if debias and bias is not None:
+        _debias_cl(cl, bias, md, inplace=True)
+    update_metadata(cl, **md)
+    result = Result(cl, spin=(s1, s2), axis=-1)
+    if bins is not None:
+        result = binned(result, bins, weights)
+    return result
+
+
+def _sample_pair_plan(keys, include, exclude):
+    """Canonical pair plan over a shared key structure (host pass)."""
+    twopoint_names = set()
+    plan_keys = []
+    for (k1, i1), (k2, i2) in combinations_with_replacement(keys, 2):
+        if (k1, k2) not in twopoint_names and (k2, k1) in twopoint_names:
+            k1, k2, i1, i2 = k2, k1, i2, i1
+        if not toc_match((k1, k2, i1, i2), include, exclude):
+            continue
+        plan_keys.append((k1, k2, i1, i2))
+        twopoint_names.add((k1, k2))
+    return plan_keys
+
+
+def _metadata(value):
+    """The science metadata of an alm value (a bare tensor has none)."""
+    if isinstance(value, DeviceMap):
+        return value.metadata
+    return dict(getattr(value.dtype, "metadata", None) or {})
+
+
+def angular_power_spectra_samples(
+    alms_list,
+    *,
+    lmax=None,
+    debias=True,
+    bins=None,
+    weights=None,
+    include=None,
+    exclude=None,
+):
+    """:func:`angular_power_spectra` for many alm sets in one device pass.
+
+    ``alms_list``: a sequence of alm dicts sharing the same keys (the
+    delete-k jackknife samples).  Each key's alms are stacked over a
+    leading sample axis and the whole (sample x pair x ell) grid is
+    computed batched.  Returns a list of cls dicts, one per input, equal
+    to mapping :func:`angular_power_spectra` over the list.  Values are
+    DeviceMaps, tensors or numpy arrays; the metadata is the first
+    sample's.  The grids run on the device of the values (the host for
+    numpy).
+    """
+    if not alms_list:
+        return []
+    nsamples = len(alms_list)
+    plan_keys = _sample_pair_plan(alms_list[0], include, exclude)
+
+    stacks, metadata = {}, {}
+    for k1, k2, i1, i2 in plan_keys:
+        for k, i in ((k1, i1), (k2, i2)):
+            if (k, i) in stacks:
+                continue
+            vals = [al[k, i] for al in alms_list]
+            if any(isinstance(v, (DeviceMap, torch.Tensor)) for v in vals):
+                stacks[k, i] = torch.stack([_tensor(v) for v in vals])
+            else:
+                stacks[k, i] = np.stack([np.asarray(v) for v in vals])
+            metadata[k, i] = _metadata(vals[0])
+    return angular_power_spectra_sample_stacks(
+        stacks, metadata, nsamples, lmax=lmax, debias=debias, bins=bins,
+        weights=weights, plan_keys=plan_keys,
+    )
+
+
+def angular_power_spectra_sample_stacks(
+    stacks,
+    metadata,
+    nsamples,
+    *,
+    lmax=None,
+    debias=True,
+    bins=None,
+    weights=None,
+    include=None,
+    exclude=None,
+    plan_keys=None,
+):
+    """Sample spectra from pre-stacked alms.
+
+    ``stacks``: {(name, bin): (nsamples, ..., nlm)} tensors (on any
+    device) or numpy arrays; the DICES device cache feeds the delete-k
+    stacks it assembles on the card straight through here, and only the
+    small float64 grids cross to the host.  ``metadata``: {(name, bin):
+    dict} science metadata per key, shared by all samples (sample-specific
+    bias corrections are applied downstream, as in the jackknife flow).
+    """
+    if plan_keys is None:
+        plan_keys = _sample_pair_plan(list(stacks), include, exclude)
+    plan = [((k1, k2, i1, i2), stacks[k1, i1], stacks[k2, i2])
+            for k1, k2, i1, i2 in plan_keys]
+
+    # pass 2 (device): every sample's pair grid, batched
+    grids, slot = _cross_grids(plan, nsamples, lmax)
+
+    # pass 3 (host): per-sample metadata, bias, Result assembly
+    outs = [TocDict() for _ in range(nsamples)]
+    for key, a1, a2 in plan:
+        k1, k2, i1, i2 = key
+        block = _grid_block(grids, slot, a1, a2)
+        for s in range(nsamples):
+            outs[s][key] = _pair_result(key, np.array(block[s]),
+                                        metadata[k1, i1], metadata[k2, i2],
+                                        debias, bins, weights)
+    return outs
 
 
 def debias_cls(cls, bias=None, *, inplace=False):

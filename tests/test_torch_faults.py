@@ -350,8 +350,8 @@ def test_mapper_resample(nside_in):
 
 
 def test_new_entry_points_import_no_jax():
-    """``dd=``, ``map_values`` and ``resample`` run without jax or
-    heracles_tpu in the process."""
+    """``dd=``, ``map_values`` and ``resample`` run, and DICES and the file
+    layer import, without jax or heracles_tpu in the process."""
     code = (
         "import sys, numpy as np, torch, heracles_tpu_torch as th\n"
         "m = th.HealpixMapper(8, 12, dtype=torch.float32, device='cpu',\n"
@@ -365,6 +365,9 @@ def test_new_entry_points_import_no_jax():
         "low = th.HealpixMapper(4, device='cpu').resample(data)\n"
         "assert low.shape == (192,) and low.metadata['nside'] == 4\n"
         "assert th.healpix.ring2nest(4, np.arange(192)).max() == 191\n"
+        "import heracles_tpu_torch.dices, heracles_tpu_torch.io\n"
+        "from heracles_tpu_torch import fits, transforms, unmixing, utils\n"
+        "assert callable(heracles_tpu_torch.dices.jackknife_cls)\n"
         "bad = [m for m in ('jax', 'heracles_tpu') if m in sys.modules]\n"
         "assert not bad, bad\n"
     )

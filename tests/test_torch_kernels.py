@@ -434,3 +434,86 @@ def test_dd_transform_launches_the_float64_kernels(cuda):
         plain = sht.map2alm(maps, lmax, spin=spin, iterations=1)
         err = [float((a.to(want.dtype) - want).abs().max()) for a in (got, plain)]
         assert err[0] < err[1]
+
+
+@pytest.mark.parametrize("spin", [0, 2])
+def test_transform_async_matches_transform(cuda, spin):
+    """``transform_async``'s host alms equal ``transform``'s bit for bit,
+    for a batch whose next batch was dispatched before the handle was
+    called (its source tensor dropped meanwhile), with the metadata."""
+    import heracles_tpu_torch as th
+
+    nside, lmax = 32, 48
+    mapper = th.HealpixMapper(nside, lmax, dtype=torch.float32, device=cuda,
+                              deconvolve=False)
+    rng = np.random.default_rng(15 + spin)
+    shape = (4,) + ((2,) if spin else ()) + (12 * nside**2,)
+    batches = [torch.as_tensor(rng.normal(size=shape), dtype=torch.float32,
+                               device=cuda) for _ in range(3)]
+    md = {"spin": spin, "fsky": 0.25}
+    want = [np.asarray(mapper.transform(b, spin=spin, metadata=md))
+            for b in batches]
+    sht_kernels.reset_counts()
+    handles = [mapper.transform_async(batches[0].clone(), spin=spin,
+                                      metadata=md)]
+    for b in batches[1:]:
+        handles.append(mapper.transform_async(b, spin=spin, metadata=md))
+        # work of the next batch on the compute stream, and the caller's
+        # reference to the source gone, before the handle is called
+        torch.empty(1 << 26, device=cuda).normal_()
+    got = [h() for h in handles]
+    name = "analysis_pair_folded" if spin else "analysis_spin0_folded"
+    assert sht_kernels.LAUNCHES[name] == 3
+    for g, w in zip(got, want):
+        assert isinstance(g, np.ndarray) and g.dtype == np.complex64
+        np.testing.assert_array_equal(g, w)
+        assert dict(g.dtype.metadata) == {**md, "deconv": False}
+
+
+def test_deletek_on_the_card_matches_the_host(cuda):
+    """Device-mode DICES (alms resident on the card, delete-k samples
+    assembled there) against memory mode (host numpy alms, samples
+    assembled on the host), float64 maps of 3 regions."""
+    import heracles_tpu_torch as th
+    from heracles_tpu_torch.dices import jackknife as jk_mod
+
+    nside, lmax, njk = 16, 24, 5
+    mapper = th.HealpixMapper(nside, lmax, device=cuda, deconvolve=False)
+    fields = {"POS": th.Positions(mapper, "RA", "DEC", mask="VIS"),
+              "SHE": th.Spin2Field(mapper, "RA", "DEC", "G1", "G2", mask="VIS"),
+              "VIS": th.Visibility(mapper)}
+    rng = np.random.default_rng(16)
+    npix = 12 * nside**2
+    pos = mapper.create(spin=0)
+    pos[:] = rng.normal(size=npix)
+    th.update_metadata(pos, fsky=1.0, musq=1.0, dens=100.0)
+    she = mapper.create(2, spin=2)
+    she[:] = rng.normal(size=(2, npix))
+    th.update_metadata(she, fsky=1.0, musq=1.0, dens=100.0)
+    vis = mapper.create(spin=0)
+    vis[:] = 1.0
+    th.update_metadata(vis, fsky=1.0)
+    labels = np.repeat(np.arange(1, njk + 1), -(-npix // njk))[:npix]
+    data, vmaps = {("POS", 0): pos, ("SHE", 0): she}, {("VIS", 0): vis}
+    out = {}
+    for mode, cache_mode in (("device", True), ("memory", False)):
+        alms = jk_mod.compute_jk_alms(data, vmaps, labels, fields, dir=None,
+                                      region_batch=3, device_cache=cache_mode)
+        first = alms["data", 1]["POS", 0]
+        assert isinstance(first, th.DeviceMap) == cache_mode
+        for nd in (1, 2):
+            for mc in ("Fast", "Full"):
+                out[mode, nd, mc] = jk_mod.compute_jk_cls_from_alms(
+                    labels, fields, mask_correction=mc, nd=nd, dir=None,
+                    alms_cache=alms, sample_batch=4)
+    for nd in (1, 2):
+        for mc in ("Fast", "Full"):
+            dev, host = out["device", nd, mc], out["memory", nd, mc]
+            assert set(dev) == set(host)
+            for regions, cls in host.items():
+                for key, want in cls.items():
+                    got = dev[regions][key]
+                    w = np.asarray(want)
+                    np.testing.assert_allclose(np.asarray(got), w, rtol=1e-12,
+                                               atol=1e-12 * np.abs(w).max())
+                    assert got.dtype.metadata == want.dtype.metadata
