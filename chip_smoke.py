@@ -63,7 +63,22 @@ with its seconds:
    file mode twice (the second call launches no SHT kernel and returns the
    same spectra), delete-2 debiasing and shrinkage towards the Gaussian
    covariance; the two analysis kernels at the DICES batch against their
-   plain versions, with their bounds.
+   plain versions, with their bounds;
+10. pixel-free alms (``DiscreteMapper``, ``ops.nufft``) at the
+   configurations of ``discrete_alm_l1000`` (65536 points, lmax 1000,
+   float32: the exact spin-0 and spin-2 paths through the analysis kernels
+   with the points in place of rings) and ``discrete_gridded_1e7_l1000``
+   (1e7 points, epsilon 1e-5, float32: the spreading kernel and the
+   coarse-grid reduce), then a paged ``map_catalogs`` of 1e7 rows (POS and
+   SHE through the gridded mapper), with exact launch counts and no plain
+   run; the analysis kernels at point shapes against their plain versions
+   (8192 points) and the spin-0 kernel's path shares on sorted and
+   unsorted points; the spreader against its plain version (1e7 points,
+   and 1e6 points at w 6 and 13) and against ``index_add_`` of the
+   precomputed stencil; gridded against exact in float64 at epsilon
+   1e-12 and in float32 at 1e-5; the exact pixel window at nside 32 on
+   the card against the CPU; ``python -m heracles_tpu_torch`` on a small
+   FITS catalogue on the card against the same stages on the CPU.
 
 Then a JSON line of the kernels (with each one's bound: the least time
 the card could take for the same work), the card line, and the result
@@ -99,6 +114,28 @@ DICES_BATCH = 8  # compute_jk_alms' region_batch
 DICES_KERNELS = ("analysis_spin0_folded", "analysis_pair_folded")
 # float64 host algebra on the same float32 alms: sums in another order
 DICES_RTOL = 1e-10
+# phase 10: the configurations of discrete_alm_l1000 (bench.py:231-248,
+# seed 3) and discrete_gridded_1e7_l1000 (bench.py:251-269, seed 4); the
+# plain versions of the analysis kernels at the bench's CPU size, and of
+# the spreader at 1e6 points for two widths; a paged catalogue of 1e7 rows
+DISCRETE_LMAX, DISCRETE_NPTS, DISCRETE_PLAIN_NPTS = 1000, 65536, 8192
+GRIDDED_NPTS, GRIDDED_EPS = 10_000_000, 1e-5
+SPREAD_CHECK_NPTS, SPREAD_CHECK_WIDTHS = 1_000_000, (6, 13)
+PAGED_ROWS = 10_000_000
+# the spreader against its plain version: float64 atomics add in an order
+# that varies from run to run, so 1e-12 of the grid's max, not bit for bit
+SPREAD_TOL = 1e-12
+# gridded against exact in float64 at epsilon 1e-12: the bound of
+# tests/test_nufft.py:34; the float32 paths (exact, and gridded at 1e-5)
+# against the float64 exact alms: the float32 recurrence's own error, at
+# phase 4's float32-against-float64 bar
+GRIDDED_TOL, F32_TOL = 1e-11, 1e-3
+# the exact pixel window on the card and on the CPU: float64 sums in
+# another order; the CLI on the card and on the CPU: float64 throughout
+PIXWIN_TOL, CLI_TOL = 1e-12, 1e-10
+# FP64 outside the tensor cores (H100 SXM data sheet, dense): the
+# spreader's arithmetic
+FP64_VECTOR_PEAK = 34e12
 
 # kernel name: (source, the TPU kernel it replaces)
 KERNELS = {
@@ -112,6 +149,8 @@ KERNELS = {
                               "heracles_tpu/ops/pallas_sht.py:2161"),
     "gram": ("heracles_tpu_torch/csrc/gram.cu", "heracles_tpu/ops/df32.py:93"),
     "fma_peak": ("heracles_tpu_torch/csrc/fma_peak.cu", "tools/vpu_peak.py:31"),
+    "spread": ("heracles_tpu_torch/csrc/spread.cu",
+               "heracles_tpu/ops/_spread.cpp:42"),
 }
 # the kernels of the pipeline path (phase 3); the probe has its own path
 # (phase 6), synthesis its own (phase 7)
@@ -246,6 +285,10 @@ def kernel_label(entry):
     m = re.search(r"gram_kernelILb([01])E", entry)
     if m:
         return f"gram/f64/{'u' if m.group(1) == '1' else '1'}"
+    # the spreader at the two widths of phase 10 (26 instantiations in all)
+    m = re.search(r"spread_kernelILi(6|13)ELi([12])E", entry)
+    if m:
+        return f"spread/w{m.group(1)}/{'real' if m.group(2) == '1' else 'cplx'}"
     return None
 
 
@@ -303,19 +346,23 @@ def catalog_arrays():
 
 def reset_counts():
     """Zero every kernel's launch count and every plain-version run count."""
-    from heracles_tpu_torch.ops import fma_peak, gram, sht_kernels
+    from heracles_tpu_torch.ops import fma_peak, gram, nufft, sht_kernels
 
     sht_kernels.reset_counts()
     gram.reset_counts()
     fma_peak.reset_counts()
+    nufft.reset_counts()
 
 
 def counts():
     """(kernel launches, plain-version runs), each by kernel name."""
-    from heracles_tpu_torch.ops import fma_peak, gram, sht_kernels, wigner
+    from heracles_tpu_torch.ops import (
+        fma_peak, gram, nufft, sht_kernels, wigner)
 
-    launches = {**sht_kernels.LAUNCHES, **gram.LAUNCHES, **fma_peak.LAUNCHES}
-    plain = {**wigner.PLAIN_RUNS, **gram.PLAIN_RUNS, **fma_peak.PLAIN_RUNS}
+    launches = {**sht_kernels.LAUNCHES, **gram.LAUNCHES, **fma_peak.LAUNCHES,
+                **nufft.LAUNCHES}
+    plain = {**wigner.PLAIN_RUNS, **gram.PLAIN_RUNS, **fma_peak.PLAIN_RUNS,
+             **nufft.PLAIN_RUNS}
     return launches, plain
 
 
@@ -482,10 +529,11 @@ def band_max_rel(cl32, cl64, lmin, nbands=10):
     return [float(rel[a:b].max()) for a, b in zip(edges[:-1], edges[1:])]
 
 
-def bound(nbytes, flops, dtype):
-    """(bound_ms, bound_by): the larger of bytes / HBM rate, flops / peak."""
+def bound(nbytes, flops, dtype, peak=None):
+    """(bound_ms, bound_by): the larger of bytes / HBM rate, flops / peak
+    (by default the peak of ``dtype``'s operations)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOP_PER_S[dtype] * 1e3
+    t_ops = flops / (PEAK_FLOP_PER_S[dtype] if peak is None else peak) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1072,6 +1120,423 @@ def phase9(dev, smi):
           f"card {smi} ({time.perf_counter() - t:.1f} s)", flush=True)
 
 
+def point_bound(name, npts, lmax, cdtype):
+    """The bound of one analysis launch over points: the spectra read once
+    (F; F and conj-F for the pair: the zero southern operands carry no
+    data), the alms written once; per triple the recurrence, the emit and
+    the contraction of the columns that have data (spin 0: 4 + 1 + 4; the
+    pair: 9 + 2 + 2 x 4, its southern FMAs multiply zeros)."""
+    pair = name.endswith("pair_folded")
+    nin, nalm, flop = (2, 2, 19) if pair else (1, 1, 9)
+    nm = lmax + 1
+    item = torch.empty((), dtype=cdtype).element_size()
+    nbytes = (float(npts) * nm * item * nin + nalm * (lmax + 1) * nm * item
+              + npts * (item // 2 + 16))
+    triples = sht_triples(1, npts, nm, lmax, 2 if pair else 0)
+    real = torch.float32 if cdtype == torch.complex64 else torch.float64
+    return bound(nbytes, flop * triples, real)
+
+
+def spread_bound(npts, nrows, ncomp, w, grid_cells):
+    """The spreader's bound: angles and values read once, the padded grid
+    written once; per (point, row) 2 w weights of ~8 operations (offset,
+    scale, square, subtract, sqrt, subtract, scale, exp) and per stencil
+    cell the weight product, the value product and the addition per
+    component, in FP64 outside the tensor cores."""
+    nbytes = 8.0 * (2 * npts + nrows * npts * ncomp + nrows * grid_cells * ncomp)
+    flops = float(npts) * nrows * (16 * w + (1 + 2 * ncomp) * w * w)
+    return bound(nbytes, flops, torch.float64, peak=FP64_VECTOR_PEAK)
+
+
+def _restore_env(name, value):
+    import os
+
+    if value is None:
+        os.environ.pop(name, None)
+    else:
+        os.environ[name] = value
+
+
+def _phase10_cli(root, rows):
+    """``python -m heracles_tpu_torch`` alms and spectra on the card, the
+    spectra stage again in this process to see its pair grid run on the
+    card, and the same stages in this process on the CPU: (seconds, worst
+    relative difference, outputs compared)."""
+    import logging
+    import os
+
+    import heracles_tpu_torch.cli as cli
+    from heracles_tpu_torch import twopoint
+    from heracles_tpu_torch.fits import FitsFile
+    from heracles_tpu_torch.io import read, read_alms
+
+    rng = np.random.default_rng(6)
+    cat = root / "catalog.fits"
+    FitsFile(str(cat), mode="rw", clobber=True).write_table({
+        "RA": rng.uniform(0, 360, rows),
+        "DEC": np.degrees(np.arcsin(rng.uniform(-1, 1, rows))),
+        "W": rng.uniform(0.5, 1.5, rows),
+        "G1": rng.normal(0, 0.1, rows), "G2": rng.normal(0, 0.1, rows),
+    }, extname="CATALOG")
+    cfg = root / "heracles.cfg"
+    cfg.write_text(
+        "[defaults]\nnside = 32\nlmax = 48\n"
+        "[fields:WHT]\ntype = weights\ncolumns = RA\n\tDEC\n\tW\n"
+        "[fields:SHE]\ntype = shears\ncolumns = RA\n\tDEC\n\tG1\n\t-G2\n\tW\n"
+        "[fields:DSHE]\ntype = shears\nmapper = discrete\n"
+        "columns = RA\n\tDEC\n\tG1\n\t-G2\n\tW\n"
+        f"[catalogs:cat]\nsource = {cat}\nselections = 0 =\n"
+    )
+    # the HEALPix fields deconvolve with the exact window at nside 32,
+    # computed on the card in the subprocess and on the CPU here
+    env = dict(os.environ, HERACLES_TPU_CACHE=str(root / "cache_cli"),
+               PYTHONPATH=str(Path(__file__).resolve().parent))
+    out = {}
+    t0 = time.perf_counter()
+    for stage, args in (("alms", [str(root / "card_alms.fits")]),
+                        ("spectra", [str(root / "card_cls.fits"),
+                                     str(root / "card_alms.fits")])):
+        proc = subprocess.run(
+            [sys.executable, "-m", "heracles_tpu_torch", stage, "-c", str(cfg),
+             "--no-progress", *args],
+            capture_output=True, text=True, env=env, timeout=600)
+        check(proc.returncode == 0, f"python -m heracles_tpu_torch {stage} "
+              f"exited {proc.returncode}: {proc.stderr[-2000:]}")
+    seconds = time.perf_counter() - t0
+    out["card"] = (read_alms(str(root / "card_alms.fits")),
+                   read(str(root / "card_cls.fits")))
+    logger = logging.getLogger("chip_smoke.cli")
+    # the spectra stage reads its alms from a file, as host arrays: every
+    # pair grid of the stage runs on the card all the same
+    grid_devices = []
+    real_grid = twopoint.rect_pair_grid
+
+    def spy(a1, a2, ms):
+        grid_devices.append((a1.device.type, a2.device.type))
+        return real_grid(a1, a2, ms)
+
+    twopoint.rect_pair_grid = spy
+    try:
+        cli.spectra(str(root / "card_cls_again.fits"), files=[str(cfg)],
+                    alms=[str(root / "card_alms.fits")], logger=logger,
+                    progress=False, device="cuda")
+    finally:
+        twopoint.rect_pair_grid = real_grid
+    check(grid_devices and set(grid_devices) == {("cuda", "cuda")},
+          f"CLI spectra on the card ran its pair grids on {set(grid_devices)}")
+    again = read(str(root / "card_cls_again.fits"))
+    check(set(again) == set(out["card"][1]) and all(
+        np.abs(np.asarray(again[k]) - np.asarray(out["card"][1][k])).max()
+        <= CLI_TOL * np.abs(np.asarray(out["card"][1][k])).max()
+        for k in again), "CLI spectra in this process differ from the "
+          "subprocess's")
+    cache_env = os.environ.get("HERACLES_TPU_CACHE")
+    os.environ["HERACLES_TPU_CACHE"] = str(root / "cache_cli_cpu")
+    try:
+        cli.alms(str(root / "cpu_alms.fits"), files=[str(cfg)], logger=logger,
+                 progress=False, device="cpu")
+        cli.spectra(str(root / "cpu_cls.fits"), files=[str(cfg)],
+                    alms=[str(root / "cpu_alms.fits")], logger=logger,
+                    progress=False, device="cpu")
+    finally:
+        _restore_env("HERACLES_TPU_CACHE", cache_env)
+    out["cpu"] = (read_alms(str(root / "cpu_alms.fits")),
+                  read(str(root / "cpu_cls.fits")))
+    worst, n = 0.0, 0
+    for got, want in zip(out["card"], out["cpu"]):
+        check(set(got) == set(want) and len(want) > 0,
+              f"CLI outputs differ in keys: {sorted(got)} {sorted(want)}")
+        for key in want:
+            g, w = np.asarray(got[key]), np.asarray(want[key])
+            check(g.shape == w.shape and bool(np.isfinite(g).all()),
+                  f"CLI output {key}: shape {g.shape}, finite")
+            rel = float(np.abs(g - w).max() / np.abs(w).max())
+            check(rel <= CLI_TOL, f"CLI output {key} card vs cpu {rel:.2e}")
+            worst, n = max(worst, rel), n + 1
+    return seconds, worst, n
+
+
+def phase10(dev, smi):
+    """Pixel-free alms at full size: the path, its checks, the analysis
+    kernels at point shapes and the spreader against their plain versions,
+    the exact pixel window and the CLI on the card."""
+    import os
+    import shutil
+
+    import heracles_tpu_torch as th
+    from heracles_tpu_torch.mappers import _phases
+    from heracles_tpu_torch.ops import nufft, pixwin, sht, sht_kernels, wigner
+
+    t = time.perf_counter()
+    lmax, nlm = DISCRETE_LMAX, (DISCRETE_LMAX + 1) * (DISCRETE_LMAX + 2) // 2
+    # discrete_alm_l1000's points and values (bench.py:236-246); spin 2
+    # takes two more rows of the same generator
+    rng = np.random.default_rng(3)
+    theta = np.arccos(rng.uniform(-1, 1, size=DISCRETE_NPTS))
+    phi = rng.uniform(0, 2 * np.pi, size=DISCRETE_NPTS)
+    vals = rng.normal(size=(1, DISCRETE_NPTS)).astype(np.float32)
+    vals2 = rng.normal(size=(2, DISCRETE_NPTS)).astype(np.float32)
+    # discrete_gridded_1e7_l1000's (bench.py:262-265)
+    rng = np.random.default_rng(4)
+    gtheta = np.arccos(rng.uniform(-1, 1, size=GRIDDED_NPTS))
+    gphi = rng.uniform(0, 2 * np.pi, size=GRIDDED_NPTS)
+    gvals = rng.normal(size=(1, GRIDDED_NPTS))
+    # the paged catalogue, pipeline_n4096_l3000's recipe (catalog_arrays)
+    rng = np.random.default_rng(5)
+    arr = np.empty(PAGED_ROWS, [(n, "f8") for n in ("RA", "DEC", "G1", "G2",
+                                                    "W")])
+    arr["RA"] = rng.uniform(0, 360, PAGED_ROWS)
+    arr["DEC"] = np.degrees(np.arcsin(rng.uniform(-1, 1, PAGED_ROWS)))
+    arr["G1"] = rng.normal(0, 0.1, PAGED_ROWS)
+    arr["G2"] = rng.normal(0, 0.1, PAGED_ROWS)
+    arr["W"] = rng.uniform(0.5, 1.0, PAGED_ROWS)
+    catalog = th.ArrayCatalog(arr)
+    mapper = th.DiscreteMapper(lmax, dtype=torch.complex64, device=dev)
+    paged = th.DiscreteMapper(lmax, dtype=torch.complex64, method="gridded",
+                              device=dev)
+    fields = {"POS": th.Positions(paged, "RA", "DEC", overdensity=False),
+              "SHE": th.Spin2Field(paged, "RA", "DEC", "G1", "G2", "W")}
+    w = nufft.kernel_width(GRIDDED_EPS)
+    setup = time.perf_counter() - t
+    secs = {}
+
+    # the path: exact spin 0 and spin 2, the gridded cell, the paged mapping
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    exact0, secs["exact spin 0"] = sync_time(
+        lambda: mapper._adjoint_synthesis(theta, phi, vals, 0))
+    exact2, secs["exact spin 2"] = sync_time(
+        lambda: mapper._adjoint_synthesis(theta, phi, vals2, 2))
+    galm, secs["gridded 1e7"] = sync_time(lambda: nufft.adjoint_gridded(
+        gtheta, gphi, gvals, lmax, spin=0, epsilon=GRIDDED_EPS, f32=True,
+        device=dev))
+    maps, secs["paged map_catalogs 1e7"] = sync_time(
+        lambda: th.map_catalogs(fields, {0: catalog}))
+    launches, plain_runs = counts()
+    peak = torch.cuda.max_memory_allocated()
+    npages = -(-PAGED_ROWS // catalog.page_size)
+    want = {"analysis_spin0_folded": 3, "analysis_pair_folded": 2,
+            "spread": 1 + 2 * npages}
+    check(dict(launches) == want, f"phase 10 launches {dict(launches)}, "
+          f"expected {want}")
+    check(sum(plain_runs.values()) == 0, f"plain versions ran: {plain_runs}")
+    for what, a, shape in (("exact spin 0", exact0, (1, nlm)),
+                           ("exact spin 2", exact2, (2, nlm)),
+                           ("gridded", galm, (1, nlm)),
+                           ("paged POS", maps["POS", 0], (nlm,)),
+                           ("paged SHE", maps["SHE", 0], (2, nlm))):
+        a = a.array if isinstance(a, th.DeviceMap) else a
+        check(tuple(a.shape) == shape and a.dtype == torch.complex64
+              and a.device.type == "cuda", f"{what}: {tuple(a.shape)} "
+              f"{a.dtype} on {a.device}")
+        check(bool(torch.isfinite(a).all()), f"{what} not finite")
+    for key, spin in ((("POS", 0), 0), (("SHE", 0), 2)):
+        md = maps[key].metadata
+        check(md["geometry"] == "discrete" and md["spin"] == spin
+              and md["lmax"] == lmax, f"paged {key} metadata {md}")
+    # paging: the paged POS map against one gridded pass over all rows
+    th_all, ph_all = (np.radians(90.0 - arr["DEC"]),
+                      np.radians(arr["RA"] % 360.0))
+    one = nufft.adjoint_gridded(th_all, ph_all, np.ones((1, PAGED_ROWS)), lmax,
+                                epsilon=1e-5, f32=True, device=dev)[0]
+    nbar = maps["POS", 0].metadata["nbar"]
+    _, paging_rel = compare(maps["POS", 0].array * nbar, one,
+                            *TOL[torch.complex64], what="paged POS vs one pass")
+    del maps, one
+
+    # the gridded cell once more: its first call above also planned the
+    # FFTs of the torus grid
+    _, secs["gridded 1e7 again"] = sync_time(lambda: nufft.adjoint_gridded(
+        gtheta, gphi, gvals, lmax, spin=0, epsilon=GRIDDED_EPS, f32=True,
+        device=dev))
+    # the gridded cell's stages, timed apart
+    th_t, ph_t, v_t = (torch.as_tensor(a, device=dev)
+                       for a in (gtheta, gphi, gvals))
+    ntheta, nphi = nufft.grid_shape(lmax)
+    pads = [nufft.alloc_padded(1, lmax, w, False, dev) for _ in range(2)]
+    event_ms(lambda: nufft.spread_padded(th_t, ph_t, v_t, lmax, w, pads[0]))
+    pads[0].zero_()
+    _, spread_ms = event_ms(
+        lambda: nufft.spread_padded(th_t, ph_t, v_t, lmax, w, pads[0]))
+    _, spread_plain_ms = event_ms(
+        lambda: nufft.spread_padded_plain(th_t, ph_t, v_t, pads[1], w))
+    grids = [nufft.fold_padded(p, lmax, w) for p in pads]
+    spread_err, spread_rel = compare(grids[0], grids[1], SPREAD_TOL,
+                                     what="spread 1e7")
+    _, reduce_ms = event_ms(
+        lambda: nufft._reduce_grid(grids[0], lmax, w, 0, torch.complex64))
+    # the yardstick: index_add_ of the precomputed stencil (one PyTorch
+    # call for the scatter; the weights are made before it, untimed)
+    idx, coef = nufft._stencil(th_t, ph_t, w, ntheta, nphi)
+    contrib = (v_t[0, :, None, None] * coef).reshape(-1)
+    idx = idx.reshape(-1)
+    del coef
+    flat = torch.zeros((ntheta + w) * (nphi + w), dtype=torch.float64,
+                       device=dev)
+    event_ms(lambda: flat.index_add_(0, idx, contrib))
+    _, library_ms = event_ms(lambda: flat.index_add_(0, idx, contrib))
+    del idx, contrib, flat, pads, grids
+    # sorted by theta row: what a sort would give the atomics (timed only)
+    order = torch.argsort(th_t)
+    th_s, ph_s, v_s = th_t[order], ph_t[order], v_t[:, order]
+    pad = nufft.alloc_padded(1, lmax, w, False, dev)
+    event_ms(lambda: nufft.spread_padded(th_s, ph_s, v_s, lmax, w, pad))
+    _, spread_sorted_ms = event_ms(
+        lambda: nufft.spread_padded(th_s, ph_s, v_s, lmax, w, pad))
+    del th_s, ph_s, v_s, pad, order, th_t, ph_t, v_t
+    spread_bound_ms, spread_bound_by = spread_bound(
+        GRIDDED_NPTS, 1, 1, w, (ntheta + w) * (nphi + w))
+    # the spreader at 1e6 points, w 6 and 13, real and complex values
+    checks = []
+    n = SPREAD_CHECK_NPTS
+    c_t = torch.as_tensor(gtheta[:n], device=dev)
+    c_p = torch.as_tensor(gphi[:n], device=dev)
+    for cw in SPREAD_CHECK_WIDTHS:
+        for cplx in (False, True):
+            v = torch.as_tensor(gvals[:, :n], device=dev)
+            if cplx:
+                v = torch.complex(v, torch.flip(v, dims=(-1,)))
+            pads = [nufft.alloc_padded(1, lmax, cw, cplx, dev) for _ in range(2)]
+            nufft.spread_padded(c_t, c_p, v, lmax, cw, pads[0])
+            nufft.spread_padded_plain(c_t, c_p, v, pads[1], cw)
+            _, rel = compare(*(nufft.fold_padded(p, lmax, cw) for p in pads),
+                             SPREAD_TOL, what=f"spread w{cw} 1e6")
+            checks.append(f"w{cw}/{'cplx' if cplx else 'real'} {rel:.1e}")
+            del pads
+
+    # the analysis kernels at the point shapes of discrete_alm_l1000
+    order = np.argsort(theta, kind="stable")
+    geom = [torch.as_tensor(a, device=dev)
+            for a in sht._point_geometry(theta[order])]
+    ph_t = torch.as_tensor(phi[order], device=dev)
+    phase = _phases(ph_t, lmax, torch.float32)
+    F = torch.as_tensor(vals[:, order], device=dev)[..., None] * phase
+    u = torch.complex(*(torch.as_tensor(vals2[i, order], device=dev)
+                        for i in range(2)))[None]
+    Fp = u[..., None] * phase
+    Fm = u.conj()[..., None] * phase
+    zero = torch.zeros_like(F)
+    del phase
+    report = {}
+    for name, args, extra in (
+        ("analysis_spin0_folded", (F, F), ()),
+        ("analysis_pair_folded", (Fp, zero, Fm, zero), (2,)),
+    ):
+        kernel = getattr(sht_kernels, name)
+        plain = getattr(wigner, name + "_plain")
+        event_ms(lambda: kernel(*args, *geom, lmax, *extra))  # warm
+        _, ms = event_ms(lambda: kernel(*args, *geom, lmax, *extra))
+        # against the plain version at the bench's CPU size: every eighth
+        # point, so that the sorted spread of colatitudes is kept
+        sub = [a[:, ::DISCRETE_NPTS // DISCRETE_PLAIN_NPTS].contiguous()
+               for a in args]
+        gsub = [g[::DISCRETE_NPTS // DISCRETE_PLAIN_NPTS].contiguous()
+                for g in geom]
+        got = kernel(*sub, *gsub, lmax, *extra)
+        want_k, plain_ms = event_ms(lambda: plain(*sub, *gsub, lmax, *extra))
+        if name == "analysis_spin0_folded":
+            got, want_k = (got,), (want_k,)
+        errs = [compare(g, p, *TOL[torch.complex64], what=f"{name} points")
+                for g, p in zip(got, want_k)]
+        bound_ms, bound_by = point_bound(name, DISCRETE_NPTS, lmax,
+                                         torch.complex64)
+        report[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                            bound_by=bound_by,
+                            rel=max(e[1] for e in errs))
+    counts_sorted = sht_kernels.path_counts("analysis_spin0_folded", F, F,
+                                            *geom, lmax)
+    # the same launch on the points in their drawn order
+    inv = torch.as_tensor(np.argsort(order), device=dev)
+    gun = [g[inv].contiguous() for g in geom]
+    Fun = F[:, inv].contiguous()
+    counts_unsorted = sht_kernels.path_counts("analysis_spin0_folded", Fun, Fun,
+                                              *gun, lmax)
+    event_ms(lambda: sht_kernels.analysis_spin0_folded(Fun, Fun, *gun, lmax))
+    _, unsorted_ms = event_ms(
+        lambda: sht_kernels.analysis_spin0_folded(Fun, Fun, *gun, lmax))
+    check(counts_sorted["steady"] > 0, f"B1 on points never took its steady "
+          f"path: {counts_sorted}")
+    del F, Fp, Fm, zero, u, Fun, gun
+
+    def shares(c):
+        total = sum(c.values())
+        return "/".join(f"{100 * c[p] / total:.1f}" for p in PATHS)
+
+    # gridded against exact on one block in float64 at epsilon 1e-12; the
+    # float32 exact and gridded (epsilon 1e-5) alms against the float64
+    # exact ones
+    accuracy = []
+    exact64 = th.DiscreteMapper(lmax, device=dev)
+    g32 = {0: nufft.adjoint_gridded(theta, phi, vals, lmax, epsilon=1e-5,
+                                    f32=True, device=dev),
+           2: nufft.adjoint_gridded(theta, phi, vals2, lmax, spin=2,
+                                    epsilon=1e-5, f32=True, device=dev)}
+    for spin, v, e32 in ((0, vals.astype(np.float64), exact0),
+                         (2, vals2.astype(np.float64), exact2)):
+        ex, t_ex = sync_time(lambda: exact64._adjoint_synthesis(theta, phi, v,
+                                                                spin))
+        gr, t_gr = sync_time(lambda: nufft.adjoint_gridded(
+            theta, phi, v, lmax, spin=spin, epsilon=1e-12, device=dev))
+        _, rel = compare(gr.reshape(ex.shape), ex, GRIDDED_TOL,
+                         what=f"gridded f64 vs exact spin {spin}")
+        _, rel_e = compare(e32, ex, F32_TOL, what=f"exact f32 spin {spin}")
+        _, rel_g = compare(g32[spin].reshape(ex.shape), ex, F32_TOL,
+                           what=f"gridded f32 spin {spin}")
+        accuracy.append(f"spin {spin}: f64 gridded eps 1e-12 {rel:.1e} (exact "
+                        f"{t_ex:.2f} s, gridded {t_gr:.2f} s), f32 exact "
+                        f"{rel_e:.1e}, f32 gridded eps 1e-5 {rel_g:.1e}")
+    del exact0, exact2, galm, g32, ex, gr
+
+    # the exact pixel window at nside 32 on the card and on the CPU
+    root = Path(__file__).resolve().parent / "build" / "phase10"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    cache_env = os.environ.get("HERACLES_TPU_CACHE")
+    pw = {}
+    try:
+        for name, where in (("card", dev), ("cpu", torch.device("cpu"))):
+            os.environ["HERACLES_TPU_CACHE"] = str(root / f"cache_{name}")
+            pw[name], pw[name + "_s"] = sync_time(
+                lambda: pixwin.pixel_window_exact.__wrapped__(
+                    32, 48, pol=True, device=where))
+    finally:
+        _restore_env("HERACLES_TPU_CACHE", cache_env)
+    pw_err = float(np.abs(pw["card"] - pw["cpu"]).max())
+    check(pw["card"].shape == (2, 49) and pw_err <= PIXWIN_TOL,
+          f"pixel window card vs cpu {pw_err:.2e}")
+    cli_s, cli_err, cli_n = _phase10_cli(root, 20_000)
+    shutil.rmtree(root, ignore_errors=True)
+
+    stage_txt = ", ".join(f"{k} {v:.3f} s" for k, v in secs.items())
+    kern_txt = "; ".join(
+        f"{n} at {DISCRETE_NPTS} points: kernel {r['ms']:.2f} ms, bound "
+        f"{r['bound_ms']:.2f} ms ({r['bound_by']}), plain at "
+        f"{DISCRETE_PLAIN_NPTS} points {r['plain_ms']:.1f} ms, max|d|/max "
+        f"{r['rel']:.1e}" for n, r in report.items())
+    print(f"phase 10 pixel-free alms l{lmax} f32: {stage_txt}; setup "
+          f"{setup:.1f} s; launches {dict(launches)} ({npages} pages x 2 "
+          f"fields + 1 spreads), no plain run; peak {peak / 2**30:.2f} GiB; "
+          f"paged POS vs one pass max|d|/max {paging_rel:.1e}; gridded 1e7 w{w}: spread "
+          f"{spread_ms:.2f} ms (sorted by theta {spread_sorted_ms:.2f} ms), "
+          f"plain {spread_plain_ms:.1f} ms, index_add_ of the stencil "
+          f"{library_ms:.2f} ms, bound {spread_bound_ms:.3f} ms "
+          f"({spread_bound_by}), max|d|/max {spread_rel:.1e}; reduce "
+          f"{reduce_ms:.2f} ms; spread at 1e6 vs plain {', '.join(checks)}; "
+          f"{kern_txt}; B1 path shares steady/dead/full sorted {shares(counts_sorted)}%, "
+          f"unsorted {shares(counts_unsorted)}% (B1 unsorted {unsorted_ms:.2f} "
+          f"ms); against the float64 exact alms: {'; '.join(accuracy)}; "
+          f"pixel window n32 "
+          f"l48 pol card {pw['card_s']:.2f} s vs cpu {pw['cpu_s']:.2f} s, "
+          f"max|d| {pw_err:.1e}; CLI alms + spectra on the card {cli_s:.1f} s, "
+          f"{cli_n} outputs vs cpu {cli_err:.1e}; card {smi} "
+          f"({time.perf_counter() - t:.1f} s)", flush=True)
+    spread = dict(max_abs_err=spread_err, ms=spread_ms,
+                  plain_ms=spread_plain_ms, library_ms=library_ms,
+                  bound_ms=spread_bound_ms, bound_by=spread_bound_by)
+    return spread, launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch sees no CUDA device; this script "
@@ -1346,6 +1811,10 @@ def main():
 
     # -- phase 9: DICES, its own path --------------------------------------
     phase9(dev, smi)
+
+    # -- phase 10: pixel-free alms, its own path ---------------------------
+    report["spread"], discrete_launches = phase10(dev, smi)
+    launches["spread"] = discrete_launches.get("spread", 0)
 
     def mean(key):
         return float(np.mean([c[key] for c in contractions.values()]))

@@ -8,7 +8,9 @@ far: catalogue (in memory or FITS) -> HEALPix maps -> alms -> angular
 power spectra -> mixing matrices, their pseudo-inverses and their
 application to spectra; synthesis; FITS persistence of maps, alms and
 results; Cl <-> correlation transforms and NaturalSpice; the DICES
-jackknife covariances (:mod:`heracles_tpu_torch.dices`).
+jackknife covariances (:mod:`heracles_tpu_torch.dices`); pixel-free alms
+straight from the catalogue (:class:`DiscreteMapper`); exact pixel
+windows; the command line (``python -m heracles_tpu_torch``).
 """
 
 __version__ = "0.1.0"
@@ -62,7 +64,7 @@ from .io import (
     write_maps,
 )
 from .mapper import Mapper
-from .mappers import HealpixMapper
+from .mappers import DiscreteMapper, HealpixMapper
 from .mapping import map_catalogs, transform
 from .progress import NoProgress, Progress
 from .result import Result, binned
@@ -92,6 +94,7 @@ __all__ = [
     "ClsFits",
     "ComplexField",
     "DeviceMap",
+    "DiscreteMapper",
     "Ellipticities",
     "ExceptionExplainer",
     "Field",

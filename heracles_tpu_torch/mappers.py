@@ -1,4 +1,4 @@
-"""HEALPix mapper on torch: device scatter map-making and the SHT.
+"""Mappers on torch: HEALPix maps and pixel-free alms.
 
 Counterpart of :class:`heracles_tpu.mappers.HealpixMapper`: catalogue
 points are scatter-added into a map on the mapper's device
@@ -11,6 +11,11 @@ Jacobi iterations and optional pixel-window deconvolution, and
 jackknife uses: alms kept on the device, and alms copied to the host on a
 side stream while the next analysis runs.  The map dtype and the device (the CUDA
 card unless the caller names another) are constructor arguments.
+
+:class:`DiscreteMapper` is the counterpart of
+:class:`heracles_tpu.mappers.DiscreteMapper`: alms straight from the
+points, a_lm += sum_p v_p conj(sYlm(p)), exactly (the analysis kernels with
+points in place of rings) or gridded (:mod:`heracles_tpu_torch.ops.nufft`).
 """
 
 from __future__ import annotations
@@ -22,9 +27,9 @@ import torch
 
 from .devicemap import DeviceMap
 from .healpix import ang2pix_ring, nside2npix, nside2pixarea, ud_grade
-from .ops import sht
+from .ops import nufft, sht
 
-__all__ = ["HealpixMapper"]
+__all__ = ["DiscreteMapper", "HealpixMapper"]
 
 
 class HealpixMapper:
@@ -165,7 +170,8 @@ class HealpixMapper:
         """Packed (nlm,) pixel-window deconvolution filter on the device."""
         s = abs(spin)
         # spin-2 maps deconvolve with the polarization window
-        pw = sht.pixel_window(self._nside, self._lmax, pol=(s == 2))
+        pw = sht.pixel_window(self._nside, self._lmax, pol=(s == 2),
+                              device=self._device)
         if s == 2:
             pw = pw[1]
         fl = np.ones(self._lmax + 1)
@@ -276,6 +282,276 @@ class HealpixMapper:
         if out is arr:  # same resolution and dtype: the result owns its data
             out = arr.clone()
         return DeviceMap(out, metadata={**md, "nside": self._nside})
+
+
+class DiscreteMapper:
+    """Pixel-free mapper: alms accumulated straight from point positions.
+
+    a_lm += sum_p v_p conj(sYlm(theta_p, phi_p)) by one of two paths,
+    chosen by ``method``:
+
+    * ``"exact"``: the analysis kernels with the points in place of rings,
+      O(N lmax^2), exact to working precision;
+    * ``"gridded"``: ES-kernel spreading onto a torus and the analysis of
+      a coarse grid (:mod:`.ops.nufft`), O(N w^2) plus a fixed reduce,
+      accurate to ``epsilon``;
+    * ``"auto"`` (default): gridded once there are more than 4 (lmax + 1)
+      points, exact below; the paged mapping path (``begin``) is gridded.
+
+    ``epsilon`` defaults to 1e-5 for float32 values (complex64 alms in the
+    paged path) and 1e-12 otherwise.  ``dtype`` is the alms' type:
+    complex64 runs the float32 kernels, complex128 the float64 ones.  Alms
+    and the spreading grid live on ``device``, by default the CUDA card.
+    The exact path runs blocks of ``point_block`` points, each sorted by
+    colatitude (the sum does not depend on the order, and neighbours in a
+    warp then share their recurrence's path).
+    """
+
+    def __init__(self, lmax, *, dtype=torch.complex128, point_block=1 << 16,
+                 epsilon=None, method="auto", device="cuda"):
+        if dtype not in (torch.complex64, torch.complex128):
+            raise TypeError(f"alm dtype must be complex64 or complex128, got "
+                            f"{dtype}")
+        if method not in ("auto", "exact", "gridded"):
+            raise ValueError(f"unknown method: {method!r}")
+        self._lmax = int(lmax)
+        self._dtype = dtype
+        self._point_block = int(point_block)
+        self._epsilon = epsilon
+        self._method = method
+        self._device = torch.device(device)
+
+    @property
+    def lmax(self):
+        return self._lmax
+
+    @property
+    def dtype(self):
+        return self._dtype
+
+    @property
+    def device(self):
+        return self._device
+
+    @property
+    def area(self):
+        return 1.0
+
+    def _metadata(self, spin):
+        return dict(geometry="discrete", kernel="none", lmax=self._lmax,
+                    spin=spin)
+
+    def _nlm(self):
+        return (self._lmax + 1) * (self._lmax + 2) // 2
+
+    def create(self, *dims, spin=0):
+        """Zero packed alms (DeviceMap) with the mapper's metadata."""
+        return DeviceMap(torch.zeros((*dims, self._nlm()), dtype=self._dtype,
+                                     device=self._device),
+                         metadata=self._metadata(spin))
+
+    def map_values(self, lon, lat, data, values, spin=0):
+        """Add the alms of ``values`` at (lon, lat) [degrees] into ``data``.
+
+        ``data``: packed alms (DeviceMap or tensor), updated in place;
+        ``values``: (npoints,) or (rows, npoints), the two components of a
+        spin-s field as two rows.
+        """
+        state = data.array if isinstance(data, DeviceMap) else data
+        if not isinstance(state, torch.Tensor):
+            raise TypeError("map_values adds in place into a tensor or a "
+                            f"DeviceMap, got {type(data).__name__}")
+        values = np.asarray(values)
+        flatten = values.ndim == 1
+        if flatten:
+            values = values.reshape(1, -1)
+        epsilon = self._epsilon
+        if epsilon is None:
+            epsilon = 1e-5 if values.dtype == np.float32 else 1e-12
+        theta, phi = _angles(lon, lat)
+        method = self._method
+        if method == "auto":
+            method = "gridded" if theta.size > 4 * (self._lmax + 1) else "exact"
+        if method == "gridded":
+            alm = self._adjoint_gridded(theta, phi, values, spin, epsilon)
+        else:
+            alm = self._adjoint_synthesis(theta, phi, values, spin)
+        state += alm[0] if flatten else alm
+
+    def _adjoint_gridded(self, theta, phi, values, spin, epsilon):
+        alm = nufft.adjoint_gridded(
+            theta, phi, values, self._lmax, spin=spin, epsilon=epsilon,
+            f32=self._dtype == torch.complex64, device=self._device,
+        )
+        if spin:
+            alm = alm.reshape(values.shape[0], -1)
+        return alm.to(self._dtype)
+
+    # -- paged accumulation (the mapping pipeline) --------------------------
+    #
+    # The gridded path's reduce is paid once per catalogue: the padded
+    # spreading grid stays on the device across pages and is folded and
+    # reduced in finish(); the exact path adds each page's alms.
+
+    def begin(self, *dims, spin=0):
+        """Accumulation state of one catalogue (a dict)."""
+        epsilon = self._epsilon
+        if epsilon is None:
+            epsilon = 1e-5 if self._dtype == torch.complex64 else 1e-12
+        method = "gridded" if self._method == "auto" else self._method
+        state = {"spin": spin, "dims": dims, "epsilon": epsilon,
+                 "method": method}
+        if method == "exact":
+            state["alm"] = self.create(*dims, spin=spin)
+        else:
+            nrows = 1 if spin else max(1, int(np.prod(dims, dtype=int)))
+            state["w"] = nufft.kernel_width(epsilon)
+            state["pad"] = nufft.alloc_padded(nrows, self._lmax, state["w"],
+                                              bool(spin), self._device)
+        return state
+
+    def add(self, state, lon, lat, values):
+        """Add one page of points (lon/lat in degrees) to ``state``."""
+        if state["method"] == "exact":
+            self.map_values(lon, lat, state["alm"], values, spin=state["spin"])
+            return state
+        values = np.asarray(values)
+        if values.ndim == 1:
+            values = values.reshape(1, -1)
+        theta, phi = _angles(lon, lat)
+        if state["spin"]:
+            vals = (values[0] + 1j * values[1]).reshape(1, -1)
+        else:
+            vals = values.astype(np.float64, copy=False)
+        nufft.spread_padded(theta, phi, vals, self._lmax, state["w"],
+                            state["pad"])
+        return state
+
+    def finish(self, state, spin=0):
+        """The catalogue's packed alms (DeviceMap).
+
+        The spin is the one ``begin`` recorded, whatever ``spin`` says: a
+        spin-2 state holds a complex grid.
+        """
+        spin = state["spin"]
+        if state["method"] == "exact":
+            return state["alm"]
+        grid = nufft.fold_padded(state.pop("pad"), self._lmax, state["w"])
+        alm = nufft.adjoint_gridded(
+            None, None, None, self._lmax, spin=spin, epsilon=state["epsilon"],
+            f32=self._dtype == torch.complex64, grid=grid,
+        )
+        if spin:
+            alm = alm.reshape(2, -1)
+        out = alm.to(self._dtype).reshape(tuple(state["dims"]) + alm.shape[-1:])
+        return DeviceMap(out.contiguous(), metadata=self._metadata(spin))
+
+    def _adjoint_synthesis(self, theta, phi, values, spin):
+        """The exact point adjoint, block by block: (rows, nlm) alms."""
+        lmax = self._lmax
+        dev = self._device
+        real = torch.float64 if self._dtype == torch.complex128 else torch.float32
+        out = torch.zeros((values.shape[0], self._nlm()), dtype=self._dtype,
+                          device=dev)
+        B = self._point_block
+        for start in range(0, theta.size, B):
+            th = theta[start : start + B]
+            ph = phi[start : start + B]
+            v = values[:, start : start + B]
+            npts = th.size
+            if npts < B and theta.size > B:
+                # a ragged tail is padded with zero-valued points at the
+                # equator, which add nothing
+                pad = B - npts
+                th = np.pad(th, (0, pad), constant_values=np.pi / 2)
+                ph = np.pad(ph, (0, pad))
+                v = np.pad(v, ((0, 0), (0, pad)))
+            order = np.argsort(th, kind="stable")
+            geom = [torch.as_tensor(a, device=dev)
+                    for a in sht._point_geometry(th[order])]
+            ph = torch.as_tensor(ph[order], device=dev)
+            v = v[:, order]
+            if spin == 0:
+                vt = torch.as_tensor(v, device=dev).to(real)
+                out += _adjoint_spin0(*geom, ph, vt, lmax)
+            else:
+                u = torch.complex(torch.as_tensor(v[0], device=dev),
+                                  torch.as_tensor(v[1], device=dev))
+                eb = _adjoint_spin(*geom, ph, u[None].to(self._dtype), lmax,
+                                   spin)
+                out += eb.reshape(out.shape)
+        return out
+
+    def transform(self, data, spin=0):
+        """Identity: the data already are alms."""
+        return data
+
+    def resample(self, data):
+        """Packed alms re-truncated (or zero-padded) to this mapper's lmax.
+
+        ``data``: a DeviceMap, tensor or numpy array of packed alms (...,
+        nlm).  Returns a DeviceMap of the mapper's dtype on its device, with
+        the input's metadata and the new ``lmax``.
+        """
+        if isinstance(data, DeviceMap):
+            arr, md = data.array, data.metadata
+        else:
+            md = dict(getattr(data.dtype, "metadata", None) or {})
+            arr = torch.as_tensor(np.asarray(data) if isinstance(data, np.ndarray)
+                                  else data)
+        *dims, n = arr.shape
+        lmax_in = (int((8 * n + 1) ** 0.5 + 0.01) - 3) // 2
+        lmax_out = self._lmax
+        lmax = min(lmax_in, lmax_out)
+        out = torch.zeros((*dims, self._nlm()), dtype=self._dtype,
+                          device=self._device)
+        i = j = 0
+        for m in range(lmax + 1):
+            out[..., j : j + lmax - m + 1] = arr[..., i : i + lmax - m + 1]
+            i += lmax_in - m + 1
+            j += lmax_out - m + 1
+        if md:
+            md["lmax"] = lmax_out
+        return DeviceMap(out, metadata=md)
+
+
+def _angles(lon, lat):
+    """(theta, phi) in radians, host float64, of lon/lat in degrees."""
+    theta = np.radians(90.0 - np.asarray(lat, dtype=np.float64))
+    phi = np.radians(np.asarray(lon, dtype=np.float64) % 360.0)
+    return theta, phi
+
+
+def _phases(phi, lmax, real):
+    """e^{-im phi} (npts, lmax+1), the phase taken in float64 and rounded
+    to ``real`` (float32 or float64)."""
+    ang = torch.outer(phi.to(torch.float64),
+                      torch.arange(lmax + 1, dtype=torch.float64,
+                                   device=phi.device))
+    return torch.complex(torch.cos(ang).to(real), -torch.sin(ang).to(real))
+
+
+def _adjoint_spin0(x, logch, logsh, phi, values, lmax):
+    """a_lm = sum_p v_p conj(Ylm(p)) of real point values: (rows, nlm).
+
+    ``x``, ``logch``, ``logsh``: (npts,) float64 point geometry
+    (:func:`.ops.sht._point_geometry`); ``phi``: (npts,); ``values``:
+    (rows, npts) float32 or float64, which sets the kernels' precision.
+    """
+    # F[p, m] = v_p e^{-im phi_p}: the "ring FFT" of a single point
+    F = values[..., :, None] * _phases(phi, lmax, values.dtype)
+    return sht._analysis_points((F,), x, logch, logsh, lmax, (0,))
+
+
+def _adjoint_spin(x, logch, logsh, phi, u, lmax, spin):
+    """(E, B) alms of complex spin-s point values u = v1 + i v2.
+
+    ``u``: (rows, npts) complex64 or complex128; returns (rows, 2, nlm).
+    """
+    phase = _phases(phi, lmax, u.real.dtype)
+    F = u[..., :, None] * phase
+    Fc = u.conj()[..., :, None] * phase
+    return sht._analysis_points((F, Fc), x, logch, logsh, lmax, (spin, -spin))
 
 
 @cache

@@ -29,7 +29,7 @@ _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(_PKG / "csrc" / name
                 for name in ("sht_analysis.cu", "sht_analysis_pair.cu",
                              "sht_synthesis.cu", "sht_synthesis_pair.cu",
-                             "gram.cu", "fma_peak.cu"))
+                             "gram.cu", "fma_peak.cu", "spread.cu"))
 HEADERS = tuple(_PKG / "csrc" / name
                 for name in ("sht_paths.cuh", "warp_reduce.cuh",
                              "wigner_recurrence.cuh"))
@@ -42,6 +42,8 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_D = ctypes.c_double
 # every extern "C" function of SOURCES: name -> (restype, argtypes); the
 # launchers return cudaGetLastError() as an int
 _SIGNATURES = {
@@ -64,6 +66,7 @@ _SIGNATURES = {
     "heracles_gram_f64": (_I, [_P] * 4 + [_I] * 3 + [_P]),
     "heracles_fma_peak_f32": (_I, [_P] * 3 + [_I] * 4 + [_P]),
     "heracles_fma_peak_f64": (_I, [_P] * 3 + [_I] * 4 + [_P]),
+    "heracles_spread_es": (_I, [_P] * 4 + [_L, _I, _I, _L, _L, _I, _D, _P]),
 }
 
 

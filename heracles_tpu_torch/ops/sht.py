@@ -22,7 +22,6 @@ with (Q + iU) = sum a_{+2,lm} {}_2Y_{lm}.
 from __future__ import annotations
 
 import functools
-import glob
 import importlib.util
 import logging
 import os
@@ -232,6 +231,45 @@ def _analysis_rect(Fw, lmax, ns, dd=False):
     return _narrow(out, back)
 
 
+def _point_geometry(theta):
+    """(x, log cos(theta/2), log sin(theta/2)) of point colatitudes.
+
+    Host float64, the logs clamped at -1e4 at the poles (where orders
+    m > 0 then underflow to exactly zero).  The kernels read the logs in
+    float64, since the seed's exponent multiplies them by m.
+    """
+    th = np.asarray(theta, dtype=np.float64)
+    with np.errstate(divide="ignore"):
+        logch = np.maximum(np.log(np.abs(np.cos(th / 2))), -1e4)
+        logsh = np.maximum(np.log(np.abs(np.sin(th / 2))), -1e4)
+    return np.cos(th), logch, logsh
+
+
+def _analysis_points(Fw, x, logch, logsh, lmax, ns):
+    """Unfolded analysis over arbitrary points, through the folded kernels.
+
+    The points take the place of rings and have no mirror partners: the
+    spin-0 kernel with Fe = Fo contracts F at every l, and the pair kernel
+    with zero southern rows gives the two independent +-s columns.
+    ``Fw``: one (..., npts, lmax+1) spectrum per spin column in ``ns``;
+    ``x``, ``logch``, ``logsh``: (npts,) float64 tensors.  Returns packed
+    alms: (..., nlm) for spin 0, (..., 2, nlm) (E, B) for a spin pair.
+    """
+    if len(ns) == 1:
+        alm = sht_kernels.analysis_spin0_folded(Fw[0], Fw[0], x, logch, logsh,
+                                                lmax)
+    else:
+        zero = torch.zeros_like(Fw[0])
+        alm = _eb(*sht_kernels.analysis_pair_folded(
+            Fw[0], zero, Fw[1], zero, x, logch, logsh, lmax, abs(int(ns[0]))))
+    return pack_alm(alm, lmax, lmax)
+
+
+def _eb(a_p, a_m):
+    """(E, B) on axis -3 from the +s and -s analysis columns."""
+    return torch.stack([-(a_p + a_m) / 2, 1j * (a_p - a_m) / 2], dim=-3)
+
+
 def _unfold_rings(GN, GS):
     """Full-ring spectra from the folded synthesis' (GN, GS).
 
@@ -306,8 +344,7 @@ def _map2alm_once(maps, nside, lmax, mmax, spin, weights, dd=False):
     F, Fneg = ringfft.ring_analysis(u, nside, mmax + 1, weight=w)
     # a_{+s,lm} = sum_r w slm(l,m,+s) F_m(r): column +s;
     # a_{-s,lm} = sum_r w slm(l,m,-s) conj(F_{-m}(r)): column -s
-    a_p, a_m = _analysis_rect((F, Fneg.conj()), lmax, (spin, -spin), dd)
-    return torch.stack([-(a_p + a_m) / 2, 1j * (a_p - a_m) / 2], dim=-3)
+    return _eb(*_analysis_rect((F, Fneg.conj()), lmax, (spin, -spin), dd))
 
 
 def alm2map(alm, nside, lmax=None, mmax=None, *, spin=0, packed=True,
@@ -352,63 +389,35 @@ def alm2map(alm, nside, lmax=None, mmax=None, *, spin=0, packed=True,
     return torch.stack([u.real, u.imag], dim=-2)
 
 
-def _pixwin_table(nside, lmax, pol):
-    """A shipped exact window covering (nside, lmax, pol), else None."""
-    data = _data_dir()
-    if data is None:
-        return None
-    for path in sorted(glob.glob(os.path.join(data, f"pixwin_{int(nside)}_*.npy"))):
-        _, _, lm, pl, _, _ = os.path.basename(path)[:-4].split("_")
-        if int(lm) < lmax or (pol and not int(pl)):
-            continue
-        arr = np.load(path)[..., : lmax + 1]
-        return arr if pol or arr.ndim == 1 else arr[0]
-    return None
-
-
-def _cap_window(nside, lmax):
-    """Equal-area spherical-cap approximation of the scalar window.
-
-    w_l = [P_{l-1}(c) - P_{l+1}(c)] / ((2l+1)(1-c)), c = 1 - Omega/2pi.
-    """
-    c = 1.0 - np.pi / (3.0 * nside * nside) / (2.0 * np.pi)
-    P = np.empty(lmax + 2)
-    P[0] = 1.0
-    P[1] = c
-    for ell in range(2, lmax + 2):
-        P[ell] = ((2 * ell - 1) * c * P[ell - 1] - (ell - 1) * P[ell - 2]) / ell
-    w = np.empty(lmax + 1)
-    w[0] = 1.0
-    ell = np.arange(1, lmax + 1)
-    w[1:] = (P[ell - 1] - P[ell + 1]) / ((2 * ell + 1) * (1.0 - c))
-    return w
-
-
-@functools.lru_cache(maxsize=32)
-def pixel_window(nside, lmax, *, pol=False, method="auto"):
+def pixel_window(nside, lmax, *, pol=False, method="auto", device="cuda"):
     """HEALPix pixel window w(l), l = 0..lmax (numpy, float64).
 
     With ``pol=True`` returns (2, lmax+1) [temperature, polarization].
-    ``method``: ``"exact"`` reads the shipped exact tables; ``"cap"`` is
-    the equal-area spherical-cap closed form; ``"auto"`` takes a table
-    where one covers (nside, lmax) and the cap form otherwise.  Exact
-    windows without a table (which heracles_tpu computes on the fly for
-    nside <= 32) are not ported yet (ROADMAP A13).
+    ``method``: ``"exact"`` integrates the (spin-weighted) harmonics over
+    the true pixel shapes (:func:`.pixwin.pixel_window_exact`: a shipped
+    or cached table, else computed in float64 on ``device``, by default
+    the CUDA card, and cached); ``"cap"`` is the equal-area
+    spherical-cap closed form; ``"auto"`` is exact where a table is
+    shipped or cached or nside <= 32, and the cap form otherwise.
     """
+    from . import pixwin
+
     nside, lmax = int(nside), int(lmax)
     if method not in ("auto", "exact", "cap"):
         raise ValueError(f"unknown pixel window method: {method!r}")
-    if method != "cap":
-        table = _pixwin_table(nside, lmax, pol)
-        if table is not None:
-            return table
-        if method == "exact" or nside <= 32:
-            raise NotImplementedError(
-                f"no shipped exact pixel window for nside={nside}, "
-                f"lmax={lmax}; computing exact windows is not ported yet "
-                "(ROADMAP A13)"
-            )
-    w = _cap_window(nside, lmax)
+    if method == "auto":
+        exact = nside <= 32 or pixwin.find_cached(nside, lmax, pol) is not None
+        method = "exact" if exact else "cap"
+    return _pixel_window(nside, lmax, bool(pol), method, torch.device(device))
+
+
+@functools.lru_cache(maxsize=32)
+def _pixel_window(nside, lmax, pol, method, device):
+    from . import pixwin
+
+    if method == "exact":
+        return pixwin.pixel_window_exact(nside, lmax, pol=pol, device=device)
+    w = pixwin.cap_window(nside, lmax)
     if pol:
         w = np.stack([w, w])
         w[1, : min(2, lmax + 1)] = 0.0

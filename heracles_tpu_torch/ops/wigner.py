@@ -42,6 +42,8 @@ __all__ = [
     "wigner_seed_host",
     "spin0_seed_planes",
     "pair_seed_planes",
+    "lambda_analysis_scan",
+    "lambda_power_scan",
     "lambda_analysis_scan_folded",
     "analysis_spin0_folded_plain",
     "analysis_pair_folded_plain",
@@ -400,6 +402,74 @@ def lambda_synthesis_scan_folded(ms, ns, x, logch, logsh, lmax, alm,
     GS = _swap_blocks(S) if cross else S
     msign = torch.as_tensor(_msign(ms), dtype=GN.real.dtype, device=GN.device)
     return GN, GS * msign
+
+
+def _lane_sums(ms, ns, x, logch, logsh, lmax, Fw):
+    """The unfolded analysis, one l at a time: ``(order, rows)``.
+
+    Lanes are (ms[i], ns[i]); ``Fw``: (..., nr, lanes) complex; ``x``,
+    ``logch``, ``logsh``: (nr,), or with the leading axes of ``Fw`` (rings
+    of their own per batch element).  ``rows`` yields ``(ell, a)`` with
+    ``a`` (..., n, 2) the (re, im) sums over rings of slm * Fw for the
+    first n lanes in order of j0; ``order`` is that lane permutation
+    (:func:`_sorted_lanes`).
+    """
+    ms, ns, j0, order = _sorted_lanes(ms, ns)
+    device = Fw.device
+    if order is not None:
+        Fw = Fw.index_select(-1, torch.as_tensor(order, device=device))
+    dtype = Fw.real.dtype
+    Fr = torch.view_as_real(Fw.resolve_conj().resolve_neg())
+    rings = x.shape
+
+    def rows():
+        for ell, lam in _lambda_rows(ms, ns, j0, x.reshape(-1),
+                                     logch.reshape(-1), logsh.reshape(-1),
+                                     lmax, dtype, device):
+            n = lam.shape[1]
+            lam = lam.reshape(rings + (n, 1))
+            norm = math.sqrt((2 * ell + 1) / (4 * math.pi))
+            yield ell, (lam * Fr[..., :n, :]).sum(-3) * norm
+
+    return order, rows()
+
+
+def lambda_analysis_scan(ms, ns, x, logch, logsh, lmax, Fw):
+    """alm[..., l, lane] = sum_r slm(l, m_lane, n_lane; theta_r) Fw[..., r, lane].
+
+    The unfolded analysis over arbitrary rings (no mirror pairs).  Lanes
+    are (ms[i], ns[i]) with ``ns`` the spin column; ``Fw``: (..., nr,
+    lanes) complex ring coefficients premultiplied by any weights; ``x``,
+    ``logch``, ``logsh``: (nr,) cos(theta) and the half-angle logs, or
+    with the leading axes of ``Fw``.  Returns (..., lmax+1, lanes)
+    complex, on the device and in the precision of ``Fw``.
+    """
+    out = torch.zeros(Fw.shape[:-2] + (lmax + 1, Fw.shape[-1], 2),
+                      dtype=Fw.real.dtype, device=Fw.device)
+    order, rows = _lane_sums(ms, ns, x, logch, logsh, lmax, Fw)
+    for ell, a in rows:
+        out[..., ell, : a.shape[-2], :] = a
+    return _unsort([torch.view_as_complex(out)], order, Fw.device)[0]
+
+
+def lambda_power_scan(ms, ns, x, logch, logsh, lmax, Fw, weights):
+    """Per-l lane-weighted power of the analysis, reduced l by l.
+
+    out[..., k, l] = sum_lane weights[k, lane] |a_l,lane|^2, with a the
+    alms of :func:`lambda_analysis_scan` (same arguments), which are
+    never held for more than one l.  ``weights``: (K, lanes) real.
+    Returns (..., K, lmax+1) real.
+    """
+    w = torch.as_tensor(np.asarray(weights, np.float64), device=Fw.device)
+    order, rows = _lane_sums(ms, ns, x, logch, logsh, lmax, Fw)
+    if order is not None:
+        w = w[:, torch.as_tensor(order, device=Fw.device)]
+    w = w.to(Fw.real.dtype)
+    out = torch.zeros(Fw.shape[:-2] + (w.shape[0], lmax + 1),
+                      dtype=Fw.real.dtype, device=Fw.device)
+    for ell, a in rows:
+        out[..., ell] = (a * a).sum(-1) @ w[:, : a.shape[-2]].T
+    return out
 
 
 def analysis_spin0_folded_plain(Fe, Fo, x, logch, logsh, lmax):

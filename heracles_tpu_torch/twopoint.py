@@ -192,8 +192,9 @@ def _grid_block(grids, slot, alm1, alm2):
     return block.reshape(g.shape[:1] + shape1 + shape2 + g.shape[-1:])
 
 
-def _debias_cl(cl, bias=None, md=None, *, inplace=False):
-    """Subtract the additive noise bias (pixel-window aware)."""
+def _debias_cl(cl, bias=None, md=None, *, inplace=False, device="cuda"):
+    """Subtract the additive noise bias (pixel-window aware; a window that
+    has to be computed is computed on ``device``)."""
     if md is None:
         md = cl.dtype.metadata or {}
     if not inplace:
@@ -224,9 +225,10 @@ def _debias_cl(cl, bias=None, md=None, *, inplace=False):
             deconv = md.get(f"deconv_{i}", True)
             if nside is not None and deconv:
                 if s == 0:
-                    pw = sht.pixel_window(nside, lmax)
+                    pw = sht.pixel_window(nside, lmax, device=device)
                 elif s == 2:
-                    pw = sht.pixel_window(nside, lmax, pol=True)[1]
+                    pw = sht.pixel_window(nside, lmax, pol=True,
+                                          device=device)[1]
                 else:
                     pw = None
                 if pw is not None:
@@ -247,6 +249,7 @@ def angular_power_spectra(
     include=None,
     exclude=None,
     out=None,
+    device=None,
 ):
     """All auto/cross angular power spectra of a set of alms.
 
@@ -254,6 +257,8 @@ def angular_power_spectra(
     (field1, field2, bin1, bin2) with symmetric-pair dedup and canonical
     field ordering.  Values are DeviceMaps, tensors or numpy arrays with
     metadata; each result is a :class:`Result` over a host float64 array.
+    The pair grid runs on ``device``, by default on the device of the
+    values (the host for numpy arrays, such as alms read from a file).
     """
     logger.info(
         "computing cls for %d%s alm(s)",
@@ -291,15 +296,18 @@ def angular_power_spectra(
     one = {}
     for _, alm1, alm2 in plan:
         for alm in (alm1, alm2):
-            one.setdefault(id(alm), _tensor(alm)[None])
+            if id(alm) not in one:
+                a = _tensor(alm)[None]
+                one[id(alm)] = a if device is None else a.to(device)
     grids, slot = _cross_grids(
         [(key, one[id(a1)], one[id(a2)]) for key, a1, a2 in plan], 1, lmax)
+    device = _compute_device(one.values())
 
     # pass 3 (host): metadata, noise bias, Result assembly
     for key, alm1, alm2 in plan:
         cl = np.array(_grid_block(grids, slot, one[id(alm1)], one[id(alm2)])[0])
         cls[key] = _pair_result(key, cl, _metadata(alm1), _metadata(alm2),
-                                debias, bins, weights)
+                                debias, bins, weights, device)
 
     logger.info(
         "computed %d cl(s) in %s",
@@ -309,10 +317,11 @@ def angular_power_spectra(
     return cls
 
 
-def _pair_result(key, cl, md1, md2, debias, bins, weights):
+def _pair_result(key, cl, md1, md2, debias, bins, weights, device):
     """The Result of one pair's host cl block: merged ``_1``/``_2``
     metadata, the noise bias of an auto-spectrum, optional debias and
-    binning."""
+    binning (a pixel window is computed on ``device``, where the grid
+    ran)."""
     k1, k2, i1, i2 = key
     md1, md2 = md1 or {}, md2 or {}
     s1, s2 = md1.get("spin"), md2.get("spin")
@@ -331,7 +340,7 @@ def _pair_result(key, cl, md1, md2, debias, bins, weights):
     if bias is not None:
         md["bias"] = bias
     if debias and bias is not None:
-        _debias_cl(cl, bias, md, inplace=True)
+        _debias_cl(cl, bias, md, inplace=True, device=device)
     update_metadata(cl, **md)
     result = Result(cl, spin=(s1, s2), axis=-1)
     if bins is not None:
@@ -432,6 +441,7 @@ def angular_power_spectra_sample_stacks(
 
     # pass 2 (device): every sample's pair grid, batched
     grids, slot = _cross_grids(plan, nsamples, lmax)
+    device = _compute_device(a for _, a1, a2 in plan for a in (a1, a2))
 
     # pass 3 (host): per-sample metadata, bias, Result assembly
     outs = [TocDict() for _ in range(nsamples)]
@@ -441,16 +451,26 @@ def angular_power_spectra_sample_stacks(
         for s in range(nsamples):
             outs[s][key] = _pair_result(key, np.array(block[s]),
                                         metadata[k1, i1], metadata[k2, i2],
-                                        debias, bins, weights)
+                                        debias, bins, weights, device)
     return outs
 
 
-def debias_cls(cls, bias=None, *, inplace=False):
-    """Remove (metadata or explicit) noise bias from every cl."""
+def debias_cls(cls, bias=None, *, inplace=False, device="cuda"):
+    """Remove (metadata or explicit) noise bias from every cl; a pixel
+    window that has to be computed is computed on ``device``."""
     out = cls if inplace else TocDict()
     for key in cls:
-        out[key] = _debias_cl(cls[key], bias and bias.get(key), inplace=inplace)
+        out[key] = _debias_cl(cls[key], bias and bias.get(key),
+                              inplace=inplace, device=device)
     return out
+
+
+def _compute_device(values):
+    """The first device of ``values`` (tensors or numpy) off the host, else
+    the CPU: where a pair grid of them runs."""
+    return next((v.device for v in values
+                 if isinstance(v, torch.Tensor) and v.device.type != "cpu"),
+                torch.device("cpu"))
 
 
 # -- mixing matrices ------------------------------------------------------

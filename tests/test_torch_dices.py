@@ -2,8 +2,8 @@
 
 Positions + shear + visibility maps at nside 8, lmax 8, 3 regions: the
 same seeded numpy maps go through both packages in float64
-(``deconvolve=False``: the port has no exact pixel window at nside <= 32
-yet).  The reference runs once per module (it compiles every transform
+(``deconvolve=False``: the pixel windows have tests of their own,
+``tests/test_torch_pixwin.py``).  The reference runs once per module (it compiles every transform
 anew); the port runs in its three modes (FITS files, in memory, device
 cache) and each delete-``nd`` sample's spectra, their bias metadata, the
 covariances, the delete-2 correction and the shrinkage are held to the

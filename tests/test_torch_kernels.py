@@ -517,3 +517,136 @@ def test_deletek_on_the_card_matches_the_host(cuda):
                     np.testing.assert_allclose(np.asarray(got), w, rtol=1e-12,
                                                atol=1e-12 * np.abs(w).max())
                     assert got.dtype.metadata == want.dtype.metadata
+
+
+def _points(npts, seed, device):
+    """Point geometry (random colatitudes, two at the poles, unsorted)."""
+    from heracles_tpu_torch.ops.sht import _point_geometry
+
+    rng = np.random.default_rng(seed)
+    theta = np.arccos(rng.uniform(-1, 1, npts))
+    theta[:2] = 0.0, np.pi
+    phi = rng.uniform(0, 2 * np.pi, npts)
+    geom = [torch.as_tensor(a, device=device) for a in _point_geometry(theta)]
+    return theta, phi, geom
+
+
+@pytest.mark.parametrize("cdtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("npts,lmax", [(1001, 40), (4097, 200)])
+def test_analysis_kernels_on_points(cuda, npts, lmax, cdtype):
+    """B1 with Fe = Fo and B2 with zero southern rows over unsorted points
+    (a count that is no multiple of 4, pole-clamped logs) against their
+    plain versions."""
+    from heracles_tpu_torch.ops import sht
+
+    _, _, geom = _points(npts, 5, cuda)
+    rng = np.random.default_rng(6)
+    shape = (1, npts, lmax + 1)
+    F = [torch.as_tensor(rng.normal(size=shape) + 1j * rng.normal(size=shape),
+                         dtype=cdtype, device=cuda) for _ in range(2)]
+    before = dict(sht_kernels.LAUNCHES)
+    got = sht._analysis_points(F[:1], *geom, lmax, (0,))
+    want = wigner.analysis_spin0_folded_plain(F[0], F[0], *geom, lmax)
+    _assert_close(got, sht.pack_alm(want, lmax, lmax), cdtype)
+    got = sht._analysis_points(F, *geom, lmax, (2, -2))
+    zero = torch.zeros_like(F[0])
+    want = wigner.analysis_pair_folded_plain(F[0], zero, F[1], zero, *geom,
+                                             lmax, 2)
+    torch.cuda.synchronize()
+    _assert_close(got, sht.pack_alm(sht._eb(*want), lmax, lmax), cdtype)
+    for name in ("analysis_spin0_folded", "analysis_pair_folded"):
+        assert sht_kernels.LAUNCHES[name] == before.get(name, 0) + 1
+
+
+@pytest.mark.parametrize("complex_vals", [False, True])
+@pytest.mark.parametrize("w", [4, 6, 13, 16])
+def test_spread_kernel_matches_plain(cuda, w, complex_vals):
+    """The spreader against its plain version at 1e-12 of the grid's max
+    (float64 atomics add in an order that varies from run to run)."""
+    from heracles_tpu_torch.ops import nufft
+
+    theta, phi, _ = _points(20001, 7, cuda)
+    rng = np.random.default_rng(8)
+    lmax = 100
+    vals = rng.normal(size=(2, theta.size))
+    vals = (vals[0] + 1j * vals[1])[None] if complex_vals else vals
+    pads = [nufft.alloc_padded(vals.shape[0], lmax, w, complex_vals, cuda)
+            for _ in range(2)]
+    theta_t, phi_t = (torch.as_tensor(a, device=cuda) for a in (theta, phi))
+    vals_t = torch.as_tensor(vals, device=cuda)
+    before = nufft.LAUNCHES["spread"]
+    nufft.spread_padded(theta_t, phi_t, vals_t, lmax, w, pads[0])
+    torch.cuda.synchronize()
+    assert nufft.LAUNCHES["spread"] == before + 1
+    nufft.spread_padded_plain(theta_t, phi_t, vals_t, pads[1], w)
+    got, want = (nufft.fold_padded(p, lmax, w).cpu().numpy() for p in pads)
+    assert np.abs(got - want).max() <= 1e-12 * np.abs(want).max()
+
+
+def test_discrete_mapper_on_the_card(cuda):
+    """The exact and gridded paths launch B1, B2 and the spreader (exact:
+    one launch per block of points; gridded: one spread per call and one
+    analysis of the coarse grid), run no plain version, and agree with the
+    CPU mapper."""
+    import heracles_tpu_torch as th
+    from heracles_tpu_torch.ops import nufft
+
+    theta, phi, _ = _points(3001, 9, "cpu")
+    lon, lat = np.degrees(phi), 90.0 - np.degrees(theta)
+    rng = np.random.default_rng(10)
+    v = rng.normal(size=(2, theta.size))
+    lmax = 64
+    expect = {"exact": ({"analysis_spin0_folded": 3,
+                         "analysis_pair_folded": 3}, 0),
+              "gridded": ({"analysis_spin0_folded": 1,
+                           "analysis_pair_folded": 1}, 2)}
+    out = {}
+    for dev in (cuda, "cpu"):
+        for method in ("exact", "gridded"):
+            sht_kernels.reset_counts()
+            nufft.reset_counts()
+            mapper = th.DiscreteMapper(lmax, method=method, point_block=1024,
+                                       device=dev)
+            for spin in (0, 2):
+                data = mapper.create(*((2,) if spin else ()), spin=spin)
+                mapper.map_values(lon, lat, data, v if spin else v[0], spin=spin)
+                out[method, str(dev), spin] = np.asarray(data)
+            if dev == cuda:
+                launches, spreads = expect[method]
+                assert dict(sht_kernels.LAUNCHES) == launches
+                assert nufft.LAUNCHES["spread"] == spreads
+                assert not wigner.PLAIN_RUNS and not nufft.PLAIN_RUNS
+    for (method, dev, spin), got in out.items():
+        if dev == "cpu":
+            continue
+        want = out[method, "cpu", spin]
+        assert np.abs(got - want).max() <= 1e-11 * np.abs(want).max()
+
+
+def test_spectra_of_host_alms_run_on_the_card(cuda, monkeypatch):
+    """``angular_power_spectra(device=)`` moves host alms (as read from a
+    file) to the card and runs the pair grid there, with the host's result."""
+    from heracles_tpu_torch import twopoint
+
+    rng = np.random.default_rng(11)
+    lmax = 24
+    nlm = (lmax + 1) * (lmax + 2) // 2
+    alms = {}
+    for i in range(3):
+        a = rng.normal(size=nlm) + 1j * rng.normal(size=nlm)
+        alms["P", i] = np.asarray(a, dtype=np.dtype(complex, metadata={"spin": 0}))
+    grids = []
+    real = twopoint.rect_pair_grid
+
+    def spy(a1, a2, ms):
+        grids.append((a1.device.type, a2.device.type))
+        return real(a1, a2, ms)
+
+    monkeypatch.setattr(twopoint, "rect_pair_grid", spy)
+    got = twopoint.angular_power_spectra(alms, device=cuda)
+    assert grids and set(grids) == {("cuda", "cuda")}
+    grids.clear()
+    want = twopoint.angular_power_spectra(alms)
+    assert set(grids) == {("cpu", "cpu")} and set(got) == set(want)
+    for key in want:
+        np.testing.assert_allclose(got[key], want[key], rtol=1e-12, atol=0)

@@ -215,13 +215,20 @@ def test_pixel_window_shipped_table():
                                   jsht.pixel_window(4096, 3000))
 
 
-def test_pixel_window_cap_and_unported():
+def test_pixel_window_cap_and_exact_at_nside_16_match_reference(
+        tmp_path, monkeypatch):
     np.testing.assert_allclose(sht.pixel_window(64, 96, method="cap"),
                                jsht.pixel_window(64, 96, method="cap"),
                                rtol=1e-14)
-    # heracles_tpu computes exact windows for small nside on the fly
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        sht.pixel_window(16, 24)
+    # no table at nside 16: both packages compute the exact window
+    monkeypatch.setenv("HERACLES_TPU_CACHE", str(tmp_path))
+    jsht._pixel_window_cached.cache_clear()
+    try:
+        np.testing.assert_allclose(sht.pixel_window(16, 24, device="cpu"),
+                                   jsht.pixel_window(16, 24), rtol=0,
+                                   atol=1e-10)
+    finally:
+        jsht._pixel_window_cached.cache_clear()
 
 
 def test_wigner_seed_host():
@@ -283,7 +290,7 @@ def test_build_without_nvcc(tmp_path, monkeypatch):
     names = [src.name for src in _build.SOURCES]
     assert names == ["sht_analysis.cu", "sht_analysis_pair.cu",
                      "sht_synthesis.cu", "sht_synthesis_pair.cu", "gram.cu",
-                     "fma_peak.cu"]
+                     "fma_peak.cu", "spread.cu"]
     assert all(src.is_file() for src in _build.SOURCES + _build.HEADERS)
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
@@ -308,7 +315,8 @@ def _c_functions(source):
         types = []
         for p in params.split(","):
             p = p.strip()
-            types.append("ptr" if "*" in p else p.split()[0])
+            # the type is every word but the parameter's name
+            types.append("ptr" if "*" in p else "".join(p.split()[:-1]))
         out[name] = (ret.replace(" ", ""), types)
     return out
 
@@ -321,7 +329,8 @@ def test_c_interface_matches_signatures():
     import ctypes
 
     ctype = {"ptr": ctypes.c_void_p, "int": ctypes.c_int,
-             "size_t": ctypes.c_size_t, "constchar*": ctypes.c_char_p}
+             "size_t": ctypes.c_size_t, "constchar*": ctypes.c_char_p,
+             "longlong": ctypes.c_longlong, "double": ctypes.c_double}
     found = {}
     for src in _build.SOURCES:
         funcs = _c_functions(src)

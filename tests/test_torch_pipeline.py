@@ -133,11 +133,18 @@ def test_jax_alms_through_port_spectra(jax_run):
 
 
 def test_port_imports_no_jax():
-    """``import heracles_tpu_torch`` loads neither jax nor heracles_tpu."""
+    """``import heracles_tpu_torch``, its CLI and ``python -m
+    heracles_tpu_torch --help`` load neither jax nor heracles_tpu."""
     code = (
-        "import sys, heracles_tpu_torch; "
-        "bad = [m for m in ('jax', 'heracles_tpu') if m in sys.modules]; "
-        "assert not bad, bad"
+        "import runpy, sys, heracles_tpu_torch, heracles_tpu_torch.cli\n"
+        "import heracles_tpu_torch.ops.nufft, heracles_tpu_torch.ops.pixwin\n"
+        "sys.argv = ['heracles-tpu-torch', '--help']\n"
+        "try:\n"
+        "    runpy.run_module('heracles_tpu_torch', run_name='__main__')\n"
+        "except SystemExit as exc:\n"
+        "    assert exc.code == 0, exc.code\n"
+        "bad = [m for m in ('jax', 'heracles_tpu') if m in sys.modules]\n"
+        "assert not bad, bad\n"
     )
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ, PYTHONPATH=root)
