@@ -9,8 +9,10 @@ with its seconds:
 0. the card (``nvidia-smi`` name and power limit), torch and CUDA;
 1. build the Hopper kernels from ``heracles_tpu_torch/csrc`` (ptxas'
    registers and spills, none allowed in the spin-0 synthesis; the Gram
-   kernel's DMMA instruction count from its SASS, the resident blocks per
-   SM of the analysis and synthesis kernels);
+   kernel's DMMA instruction count and the spreader's shared atomics,
+   compare-and-swap loops (none allowed) and global reductions from their
+   SASS, the resident blocks per SM of the analysis and synthesis
+   kernels);
 2. each kernel against its plain PyTorch version on the same CUDA
    tensors: the analysis and synthesis kernels in float32 and float64 at
    three shapes (all four and the Gram kernel also repeated bit for bit),
@@ -34,7 +36,9 @@ with its seconds:
    through the kernel and its plain version (times, agreement, FP64
    rate); the host seconds of the quadrature rule and tables;
 6. the FMA-peak probe at full occupancy (FP32 and FP64 rates, with its
-   launch count), the analysis kernels' issue rates as shares of it, and
+   launch count; the float32 fma rate run is the kernels line's row, its
+   plain version timed at the same shape), the analysis kernels' issue
+   rates as shares of it, and
    the Gram rate as a share of the FP64 tensor-core peak and against
    einsum's;
 7. synthesis at full size: ``transform`` of phase 3's POS and SHE maps
@@ -74,8 +78,12 @@ with its seconds:
    run; the analysis kernels at point shapes against their plain versions
    (8192 points) and the spin-0 kernel's path shares on sorted and
    unsorted points; the spreader against its plain version (1e7 points,
-   and 1e6 points at w 6 and 13) and against ``index_add_`` of the
-   precomputed stencil; gridded against exact in float64 at epsilon
+   the same squeezed into a deep field's 0.4 x 0.4 rad, and 1e6 points at
+   w 6 and 13), timed against ``index_add_`` of the precomputed stencil,
+   on points sorted by theta and on one 1e6-point page, with its three
+   stages (bin + scan, order, spread + flush) timed apart, its bin
+   statistics, and its binning against ``nufft.bin_points_plain``
+   exactly; gridded against exact in float64 at epsilon
    1e-12 and in float32 at 1e-5; the exact pixel window at nside 32 on
    the card against the CPU; ``python -m heracles_tpu_torch`` on a small
    FITS catalogue on the card against the same stages on the CPU.
@@ -85,6 +93,8 @@ the card could take for the same work), the card line, and the result
 line.
 """
 
+import collections
+import functools
 import json
 import re
 import subprocess
@@ -292,23 +302,39 @@ def kernel_label(entry):
     return None
 
 
-def sass_count(path, function, opcode):
-    """Instructions ``opcode`` in the SASS of the functions whose mangled
-    name contains ``function``, by ``cuobjdump -sass`` of the built
-    library (from the toolkit nvcc came from)."""
+@functools.lru_cache(maxsize=1)
+def _sass(path):
+    """``cuobjdump -sass`` of the built library (from the toolkit nvcc
+    came from)."""
     from heracles_tpu_torch.ops import _build
 
     tool = Path(_build.find_nvcc()).parent / "cuobjdump"
-    sass = subprocess.run([str(tool), "-sass", str(path)], capture_output=True,
+    return subprocess.run([str(tool), "-sass", str(path)], capture_output=True,
                           text=True, check=True).stdout
-    n, inside = 0, False
-    for line in sass.splitlines():
+
+
+def sass_opcodes(path, function):
+    """Instruction counts by opcode (with its modifiers, e.g.
+    ``ATOMS.CAST.SPIN.64``) in the SASS of the functions whose mangled
+    name contains ``function``."""
+    ops, inside = collections.Counter(), False
+    for line in _sass(path).splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             inside = function in m.group(1)
-        elif inside and re.search(rf"\b{opcode}\b", line):
-            n += 1
-    return n
+            continue
+        m = inside and re.search(
+            r"/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if m:
+            ops[m.group(1)] += 1
+    return ops
+
+
+def sass_count(path, function, opcode):
+    """Instructions ``opcode`` (any modifiers) in the SASS of the functions
+    whose mangled name contains ``function``."""
+    return sum(n for op, n in sass_opcodes(path, function).items()
+               if op.split(".")[0] == opcode)
 
 
 def ptxas_summary(log):
@@ -495,29 +521,43 @@ def phase2(dev):
                   f"gram K{K} {L1}x{L2} does not repeat bit for bit")
             rows.append(f"gram/{tag}/K{K}x{L1}x{L2} {rel:.2e}")
 
-    # the probe at full occupancy, few steps; the float32 fma case is the
-    # one the kernels line reports
+    # the probe at full occupancy, few steps: a correctness check (the
+    # kernels line times the probe at phase 6's shape)
     rows_full = fma_peak.default_rows(dev)
-    probe = {}
     for dtype in (torch.float32, torch.float64):
         a, b = fma_peak.inputs(rows_full, dtype, dev)
         for kind in ("fma", "rec3"):
             args = (a, b, kind, PROBE_STEPS_CHECK, PROBE_NCHAIN)
-            event_ms(lambda: fma_peak.chains(*args))  # warm
-            got, ms = event_ms(lambda: fma_peak.chains(*args))
-            want, plain_ms = event_ms(lambda: fma_peak.chains_plain(*args))
+            got = fma_peak.chains(*args)
+            want = fma_peak.chains_plain(*args)
             tol = PROBE_STEPS_CHECK * torch.finfo(dtype).eps
-            err, rel = compare(got, want, tol, what=f"{kind} probe {dtype}")
+            _, rel = compare(got, want, tol, what=f"{kind} probe {dtype}")
             tag = f"{kind}/{'f32' if dtype == torch.float32 else 'f64'}"
             rows.append(f"{tag}/{rows_full}x128x{PROBE_STEPS_CHECK} {rel:.2e}")
-            # a and b read once, the chains' sum written once
-            n = a.numel()
-            flops = (n * fma_peak.executed_steps(PROBE_STEPS_CHECK) * PROBE_NCHAIN
-                     * fma_peak.OPS_PER_STEP[kind])
-            bound_ms, bound_by = bound(3.0 * n * a.element_size(), flops, dtype)
-            probe[tag] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                              bound_ms=bound_ms, bound_by=bound_by)
-    return rows, probe["fma/f32"]
+    return rows
+
+
+def probe_row(dev, seconds):
+    """The kernels line's B6 row: the float32 fma probe at the rate run's
+    shape (full occupancy, PROBE_STEPS_RATE steps) with that run's time
+    (``seconds``, the best of fma_peak.run's launches), its plain version
+    timed and compared on the same inputs, and its bound (a and b read
+    once, the chains' sum written once)."""
+    from heracles_tpu_torch.ops import fma_peak
+
+    a, b = fma_peak.inputs(fma_peak.default_rows(dev), torch.float32, dev)
+    args = (a, b, "fma", PROBE_STEPS_RATE, PROBE_NCHAIN)
+    got = fma_peak.chains(*args)
+    want, plain_ms = event_ms(lambda: fma_peak.chains_plain(*args))
+    ms = seconds * 1e3
+    err, _ = compare(got, want, PROBE_STEPS_RATE * torch.finfo(torch.float32).eps,
+                     what="fma probe at the rate shape")
+    n = a.numel()
+    flops = (n * fma_peak.executed_steps(PROBE_STEPS_RATE) * PROBE_NCHAIN
+             * fma_peak.OPS_PER_STEP["fma"])
+    bound_ms, bound_by = bound(3.0 * n * a.element_size(), flops, torch.float32)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
 
 
 def band_max_rel(cl32, cl64, lmin, nbands=10):
@@ -1384,11 +1424,57 @@ def phase10(dev, smi):
     event_ms(lambda: nufft.spread_padded(th_s, ph_s, v_s, lmax, w, pad))
     _, spread_sorted_ms = event_ms(
         lambda: nufft.spread_padded(th_s, ph_s, v_s, lmax, w, pad))
-    del th_s, ph_s, v_s, pad, order, th_t, ph_t, v_t
+    del th_s, ph_s, v_s, order
+    # one call's stages timed apart: bin + scan, order, spread + flush;
+    # then the bin statistics, read back after the timed window
+    scratch = nufft._launch(th_t, ph_t, v_t, pad, w)
+    stage_ms = {}
+    for stage, mask in (("bin + scan", nufft.STAGE_BIN),
+                        ("order", nufft.STAGE_ORDER),
+                        ("spread + flush", nufft.STAGE_SPREAD)):
+        _, stage_ms[stage] = event_ms(lambda: nufft._launch(
+            th_t, ph_t, v_t, pad, w, stages=mask, scratch=scratch))
+    counts_k = scratch["counts"]
+    bin_stats = (f"{counts_k.numel()} bins ({int((counts_k > 0).sum())} with "
+                 f"points), {int(scratch['subs'][-1])} subproblems, largest "
+                 f"bin {int(counts_k.max())} points")
+    del scratch, counts_k, pad
+    # the kernel's binning against its plain version, exactly
+    counts_k, offsets_k, subs_k, sub_bin_k, order_k = nufft.bin_points(
+        th_t, ph_t, lmax, w)
+    bins_p, counts_p, offsets_p = nufft.bin_points_plain(th_t, ph_t, lmax, w)
+    subs_p, sub_bin_p, _ = nufft.subproblems_plain(counts_p)
+    order_k = order_k.long()
+    check(torch.equal(counts_k.long(), counts_p)
+          and torch.equal(offsets_k[:-1].long(), offsets_p)
+          and int(offsets_k[-1]) == GRIDDED_NPTS
+          and torch.equal(subs_k.long(), subs_p)
+          and torch.equal(sub_bin_k.long(), sub_bin_p)
+          and torch.equal(torch.sort(order_k).values,
+                          torch.arange(GRIDDED_NPTS, device=dev))
+          and torch.equal(bins_p[order_k], torch.repeat_interleave(
+              torch.arange(counts_p.numel(), device=dev), counts_p)),
+          "the kernel's binning of the 1e7 points differs from "
+          "bin_points_plain")
+    del counts_k, offsets_k, subs_k, sub_bin_k, order_k, bins_p, counts_p
+    del offsets_p, subs_p, sub_bin_p
+    # the cell's points squeezed into theta in pi/2 -+ 0.2, phi in [0, 0.4]
+    # (a deep field: ~90 bins, ~10k subproblems), timed and against plain
+    c_t = np.pi / 2 - 0.2 + th_t * (0.4 / np.pi)
+    c_p = ph_t * (0.4 / (2 * np.pi))
+    pads = [nufft.alloc_padded(1, lmax, w, False, dev) for _ in range(2)]
+    event_ms(lambda: nufft.spread_padded(c_t, c_p, v_t, lmax, w, pads[0]))
+    pads[0].zero_()
+    _, clustered_ms = event_ms(
+        lambda: nufft.spread_padded(c_t, c_p, v_t, lmax, w, pads[0]))
+    nufft.spread_padded_plain(c_t, c_p, v_t, pads[1], w)
+    _, clustered_rel = compare(*(nufft.fold_padded(p, lmax, w) for p in pads),
+                               SPREAD_TOL, what="spread 1e7 clustered")
+    del pads, c_t, c_p, th_t, ph_t, v_t
     spread_bound_ms, spread_bound_by = spread_bound(
         GRIDDED_NPTS, 1, 1, w, (ntheta + w) * (nphi + w))
     # the spreader at 1e6 points, w 6 and 13, real and complex values
-    checks = []
+    checks, page_ms = [], {}
     n = SPREAD_CHECK_NPTS
     c_t = torch.as_tensor(gtheta[:n], device=dev)
     c_p = torch.as_tensor(gphi[:n], device=dev)
@@ -1402,7 +1488,13 @@ def phase10(dev, smi):
             nufft.spread_padded_plain(c_t, c_p, v, pads[1], cw)
             _, rel = compare(*(nufft.fold_padded(p, lmax, cw) for p in pads),
                              SPREAD_TOL, what=f"spread w{cw} 1e6")
-            checks.append(f"w{cw}/{'cplx' if cplx else 'real'} {rel:.1e}")
+            tag = f"w{cw}/{'cplx' if cplx else 'real'}"
+            checks.append(f"{tag} {rel:.1e}")
+            if cw == w:  # one catalogue page at the cell's width, timed
+                def page():
+                    return nufft.spread_padded(c_t, c_p, v, lmax, cw, pads[0])
+                event_ms(page)  # warm: the allocator holds the scratch
+                _, page_ms[tag] = event_ms(page)
             del pads
 
     # the analysis kernels at the point shapes of discrete_alm_l1000
@@ -1518,11 +1610,15 @@ def phase10(dev, smi):
           f"{setup:.1f} s; launches {dict(launches)} ({npages} pages x 2 "
           f"fields + 1 spreads), no plain run; peak {peak / 2**30:.2f} GiB; "
           f"paged POS vs one pass max|d|/max {paging_rel:.1e}; gridded 1e7 w{w}: spread "
-          f"{spread_ms:.2f} ms (sorted by theta {spread_sorted_ms:.2f} ms), "
+          f"{spread_ms:.3f} ms (sorted by theta {spread_sorted_ms:.3f} ms; "
+          f"stages {', '.join(f'{k} {v:.3f}' for k, v in stage_ms.items())} "
+          f"ms; {bin_stats}; binning equal to bin_points_plain), "
           f"plain {spread_plain_ms:.1f} ms, index_add_ of the stencil "
-          f"{library_ms:.2f} ms, bound {spread_bound_ms:.3f} ms "
-          f"({spread_bound_by}), max|d|/max {spread_rel:.1e}; reduce "
-          f"{reduce_ms:.2f} ms; spread at 1e6 vs plain {', '.join(checks)}; "
+          f"{library_ms:.3f} ms, bound {spread_bound_ms:.3f} ms "
+          f"({spread_bound_by}), max|d|/max {spread_rel:.1e}; clustered "
+          f"1e7 {clustered_ms:.3f} ms, max|d|/max {clustered_rel:.1e}; one "
+          f"1e6 page w{w} {', '.join(f'{k} {v:.3f} ms' for k, v in page_ms.items())}; "
+          f"reduce {reduce_ms:.2f} ms; spread at 1e6 vs plain {', '.join(checks)}; "
           f"{kern_txt}; B1 path shares steady/dead/full sorted {shares(counts_sorted)}%, "
           f"unsorted {shares(counts_unsorted)}% (B1 unsorted {unsorted_ms:.2f} "
           f"ms); against the float64 exact alms: {'; '.join(accuracy)}; "
@@ -1561,6 +1657,20 @@ def main():
     kl = _build.load_library()
     dmma = sass_count(kl.path, "gram_kernel", "DMMA")
     check(dmma > 0, "the Gram kernel's SASS has no DMMA instruction")
+    # the spreader's tile: native 32-bit shared atomics, no compare-and-swap
+    # loop (a float64 atomicAdd in shared memory would compile to one)
+    spread_ops = {}
+    for tag, fn in (("w6/real", "spread_kernelILi6ELi1E"),
+                    ("w13/cplx", "spread_kernelILi13ELi2E")):
+        ops = sass_opcodes(kl.path, fn)
+        spread_ops[tag] = (
+            sum(n for op, n in ops.items() if op.startswith("ATOMS")),
+            sum(n for op, n in ops.items() if "CAS" in op),
+            sum(n for op, n in ops.items() if op.startswith("RED")))
+        check(spread_ops[tag][0] > 0 and spread_ops[tag][1] == 0,
+              f"spread {tag} SASS: {dict(ops)}")
+    spread_txt = "; ".join(f"{t} {a} ATOMS, {c} CAS, {r} RED"
+                           for t, (a, c, r) in spread_ops.items())
     blocks = "; ".join(
         f"{kernel} {kl.blocks_per_sm(kernel, False)} (f32), "
         f"{kl.blocks_per_sm(kernel, True)} (f64)"
@@ -1573,12 +1683,13 @@ def main():
         row.endswith(", 0 B stack, 0 B spill") for row in synth0)),
           f"the spin-0 synthesis spills, or an instantiation is missing: {synth0}")
     print(f"phase 1 build: nvcc {kl.seconds:.1f} s -> {kl.path.name}; "
-          f"{ptxas}; gram DMMA instructions {dmma}; blocks "
+          f"{ptxas}; gram DMMA instructions {dmma}; spread SASS (shared "
+          f"atomics, compare-and-swap, global reductions) {spread_txt}; blocks "
           f"per SM at any lmax: {blocks} ({time.perf_counter() - t:.1f} s)",
           flush=True)
 
     t = time.perf_counter()
-    rows, probe_check = phase2(dev)
+    rows = phase2(dev)
     torch.cuda.synchronize()
     print(f"phase 2 kernel vs plain, max|d|/max|plain|: {', '.join(rows)} "
           f"({time.perf_counter() - t:.1f} s)", flush=True)
@@ -1771,15 +1882,17 @@ def main():
     # -- phase 6: the FMA-peak probe, the probe's own path -------------------
     t = time.perf_counter()
     reset_counts()
-    rates = {}
+    rates, secs = {}, {}
     for dtype in (torch.float32, torch.float64):
         for kind in ("fma", "rec3"):
             sec, n_ops = fma_peak.run(kind, None, PROBE_STEPS_RATE,
                                       PROBE_NCHAIN, dtype=dtype, device=dev)
             rates[kind, dtype] = n_ops / sec
+            secs[kind, dtype] = sec
     probe_launches, probe_plain = counts()
     check(probe_launches.get("fma_peak", 0) > 0, "fma_peak never launched")
     check(sum(probe_plain.values()) == 0, f"plain versions ran: {probe_plain}")
+    report["fma_peak"] = probe_row(dev, secs["fma", torch.float32])
     fma32 = rates["fma", torch.float32]
     fma64 = rates["fma", torch.float64]
     einsum_rate = float(np.mean([c["flops"] * c["ms"] / c["library_ms"]
@@ -1796,8 +1909,12 @@ def main():
     rate_txt = ", ".join(
         f"{k}/{'f32' if d == torch.float32 else 'f64'} {r / 1e12:.2f} Top/s"
         for (k, d), r in rates.items())
+    b6 = report["fma_peak"]
     print(f"phase 6 probe at {fma_peak.default_rows(dev)}x128, "
           f"{PROBE_STEPS_RATE} steps, {PROBE_NCHAIN} chains: {rate_txt}; "
+          f"fma/f32 once more (the kernels line): kernel {b6['ms']:.3f} ms, "
+          f"plain {b6['plain_ms']:.1f} ms, bound {b6['bound_ms']:.3f} ms "
+          f"({b6['bound_by']}); "
           f"launches {probe_launches}; {'; '.join(shares)}; card {smi} "
           f"({time.perf_counter() - t:.1f} s)", flush=True)
 
@@ -1824,7 +1941,6 @@ def main():
         ms=mean("ms"), plain_ms=mean("plain_ms"), library_ms=mean("library_ms"),
         bound_ms=mean("bound_ms"), bound_by=contractions["(0,0)"]["bound_by"],
     )
-    report["fma_peak"] = probe_check
     launches["fma_peak"] = probe_launches.get("fma_peak", 0)
     for name in SYNTHESIS_KERNELS:
         launches[name] = synth_launches.get(name, 0)

@@ -66,7 +66,8 @@ _SIGNATURES = {
     "heracles_gram_f64": (_I, [_P] * 4 + [_I] * 3 + [_P]),
     "heracles_fma_peak_f32": (_I, [_P] * 3 + [_I] * 4 + [_P]),
     "heracles_fma_peak_f64": (_I, [_P] * 3 + [_I] * 4 + [_P]),
-    "heracles_spread_es": (_I, [_P] * 4 + [_L, _I, _I, _L, _L, _I, _D, _P]),
+    "heracles_spread_es": (_I, [_P] * 4 + [_L, _I, _I, _L, _L, _I, _D]
+                           + [_P] * 8 + [_I] * 4 + [_P]),
 }
 
 

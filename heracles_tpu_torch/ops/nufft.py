@@ -12,8 +12,12 @@ a coarse exact grid of lmax + 1 rings:
    :func:`fold_padded` folds the margins back onto the torus.  A CUDA
    grid launches the hand-written kernel
    (``heracles_tpu_torch/csrc/spread.cu``, built at first use by
-   :mod:`._build`), a CPU grid takes :func:`spread_padded_plain`
-   (``index_add_`` over the stencil), anything else raises;
+   :mod:`._build`): the points are binned by 32 x 32 grid tile, sorted
+   by bin, and each tile is summed in shared memory before one pass of
+   global atomics (:func:`bin_points_plain` and :func:`subproblems_plain`
+   are the plain versions of its binning).  A CPU grid takes
+   :func:`spread_padded_plain` (``index_add_`` over the stencil),
+   anything else raises;
 2. **reduce** (:func:`_reduce_grid`): phi and theta FFTs, division by the
    kernel's transform, the coarse inverse FFT and the fold of the
    southern torus half with the extension sign (-1)^(m+s), all torch.fft
@@ -26,8 +30,9 @@ package's host spreader (a g++ build loaded with ctypes), its numpy
 fallback and its environment switch are not carried over: the spreader is
 this module's kernel, on the grid's device.
 
-``LAUNCHES`` counts spreader launches and ``PLAIN_RUNS`` runs of its plain
-version, both under the name ``"spread"``.
+``LAUNCHES`` counts spreader launches (one per call, whatever stages of
+the kernel it runs) and ``PLAIN_RUNS`` runs of its plain version, both
+under the name ``"spread"``.
 """
 
 from __future__ import annotations
@@ -43,12 +48,15 @@ from . import sht
 __all__ = [
     "adjoint_gridded",
     "alloc_padded",
+    "bin_points",
+    "bin_points_plain",
     "fold_padded",
     "grid_shape",
     "kernel_width",
     "spread_padded",
     "spread_padded_plain",
     "spread_torus",
+    "subproblems_plain",
     "LAUNCHES",
     "PLAIN_RUNS",
     "reset_counts",
@@ -56,6 +64,13 @@ __all__ = [
 
 SIGMA = 2.0  # oversampling factor of the spread grid
 _PLAIN_CHUNK = 1 << 16  # points per block of the plain spreader
+# the kernel's bins: grid cells on a side of a tile, and the most points
+# of one subproblem (csrc/spread.cu kTile, kMaxSub)
+TILE = 32
+MAX_SUB = 1024
+# the kernel's stages (a mask): bin + scan, order, spread + flush
+STAGE_BIN, STAGE_ORDER, STAGE_SPREAD = 1, 2, 4
+STAGES_ALL = STAGE_BIN | STAGE_ORDER | STAGE_SPREAD
 
 LAUNCHES = collections.Counter()
 PLAIN_RUNS = collections.Counter()
@@ -151,7 +166,10 @@ def _spread_inputs(theta, phi, values, pad):
     dev = pad.device
     theta = _tensor(theta, torch.float64, dev).reshape(-1)
     phi = _tensor(phi, torch.float64, dev).reshape(-1)
-    values = _tensor(values, pad.dtype, dev).reshape(-1, theta.shape[0])
+    values = _tensor(values, pad.dtype, dev)
+    # a page without points has a row count only from the grid
+    npts = theta.shape[0]
+    values = values.reshape((-1, npts) if npts else (pad.shape[0], 0))
     return theta, phi, values
 
 
@@ -217,27 +235,131 @@ def spread_padded_plain(theta, phi, values, pad, w):
     return pad
 
 
-def _launch(theta, phi, values, pad, w):
+def _nbins(ntheta, nphi, tile=TILE):
+    """(bins along theta, bins along phi) of the unpadded torus."""
+    return -(-ntheta // tile), -(-nphi // tile)
+
+
+def bin_points_plain(theta, phi, lmax, w, tile=TILE):
+    """Plain version of the kernel's binning (stages A and B's offsets).
+
+    Each point's bin is the ``tile`` x ``tile`` tile of the unpadded torus
+    that holds its stencil's first cell.  Returns (bins (npts,) int64,
+    counts (nbins,) int64, offsets (nbins,) int64, the exclusive scan of
+    the counts), on the angles' device.
+    """
+    ntheta, nphi = grid_shape(lmax)
+    half_w = 0.5 * w
+    jt, _ = _first_cell(theta * (ntheta / (2 * np.pi)) - 0.5, half_w, ntheta)
+    jp, _ = _first_cell(phi * (nphi / (2 * np.pi)), half_w, nphi)
+    nbt, nbp = _nbins(ntheta, nphi, tile)
+    bins = (jt // tile) * nbp + jp // tile
+    counts = torch.bincount(bins, minlength=nbt * nbp)
+    return bins, counts, torch.cumsum(counts, 0) - counts
+
+
+def subproblems_plain(counts, max_sub=MAX_SUB):
+    """Plain version of the kernel's subproblems (stage B's prefix and
+    map).
+
+    A bin of n points is ceil(n / ``max_sub``) subproblems.  Returns (subs
+    (nbins + 1,), the exclusive prefix of the subproblems with the total
+    last; bin and chunk (total,) of each subproblem, by binary search in
+    ``subs``: the kernel's block i takes subproblem i).
+    """
+    nsub = (counts + max_sub - 1) // max_sub
+    subs = torch.cat([torch.zeros(1, dtype=nsub.dtype, device=nsub.device),
+                      torch.cumsum(nsub, 0)])
+    blocks = torch.arange(int(subs[-1]), device=subs.device)
+    # the last bin b with subs[b] <= block: it has a subproblem there
+    bins = torch.searchsorted(subs, blocks, right=True) - 1
+    return subs, bins, blocks - subs[bins]
+
+
+def _record_stride(nvals):
+    """float64 of one point's record: ut, up, the corner, its values,
+    padded to whole 32-byte sectors (csrc/spread.cu)."""
+    return 4 * ((3 + nvals + 3) // 4)
+
+
+def _scratch(npts, nrows, ncomp, ntheta, nphi, device):
+    """The kernel's scratch, by name (see csrc/spread.cu)."""
+    nbins = int(np.prod(_nbins(ntheta, nphi)))
+    i32 = dict(dtype=torch.int32, device=device)
+    return {
+        "key": torch.empty((npts, 2), **i32),
+        "counts": torch.empty(nbins, **i32),
+        "offsets": torch.empty(nbins + 1, **i32),
+        "subs": torch.empty(nbins + 1, **i32),
+        "sub_bin": torch.empty(-(-npts // MAX_SUB) + nbins, **i32),
+        "emax": torch.empty((nbins, nrows), **i32),
+        "records": torch.empty((npts, _record_stride(nrows * ncomp)),
+                               dtype=torch.float64, device=device),
+        "order": torch.empty(npts, **i32),
+    }
+
+
+def _launch(theta, phi, values, pad, w, stages=STAGES_ALL, scratch=None):
+    """Run the kernel's ``stages`` on CUDA tensors; returns the scratch.
+
+    ``scratch`` from an earlier call carries the binning to a later stage
+    (the stages can be timed apart); by default it is allocated here.
+    """
     from . import _build
 
     kl = _build.load_library()
     nrows, gt, gp = pad.shape
     if not pad.is_contiguous():
         raise ValueError("spread: the grid must be contiguous")
+    if theta.shape[0] >= 2**31 or nrows > 65535:
+        raise ValueError(f"spread: {theta.shape[0]} points of {nrows} rows "
+                         f"exceed the kernel's int32 offsets or its grid")
     vals = torch.view_as_real(values) if values.is_complex() else values
     vals = vals.contiguous()
     grid = torch.view_as_real(pad) if pad.is_complex() else pad
     ncomp = 2 if pad.is_complex() else 1
     theta, phi = theta.contiguous(), phi.contiguous()
+    npts, ntheta, nphi = theta.shape[0], gt - w, gp - w
+    if scratch is None:
+        scratch = _scratch(npts, nrows, ncomp, ntheta, nphi, pad.device)
     with torch.cuda.device(pad.device):
         stream = torch.cuda.current_stream(pad.device).cuda_stream
         err = kl.lib.heracles_spread_es(
             theta.data_ptr(), phi.data_ptr(), vals.data_ptr(), grid.data_ptr(),
-            theta.shape[0], nrows, ncomp, gt - w, gp - w, w, _es_beta(w),
-            stream)
+            npts, nrows, ncomp, ntheta, nphi, w, _es_beta(w),
+            *(scratch[k].data_ptr() for k in ("key", "counts", "offsets",
+                                              "subs", "sub_bin", "emax",
+                                              "records", "order")),
+            TILE, MAX_SUB, scratch["records"].shape[1], stages, stream)
     kl.check(err)
     LAUNCHES["spread"] += 1
-    return pad
+    return scratch
+
+
+def bin_points(theta, phi, lmax, w):
+    """The kernel's binning of CUDA points (its stages A to C only).
+
+    Returns (counts (nbins,), offsets (nbins + 1,), subs (nbins + 1,),
+    sub_bin (subproblems,), order (npts,)), int32 tensors on the card:
+    ``offsets`` and ``subs`` are the exclusive prefixes of the counts and
+    of the subproblems, with the totals last; ``sub_bin`` is each
+    subproblem's bin, ``order`` the points' original indices in bin order.
+    """
+    ntheta, nphi = grid_shape(lmax)
+    # the grid's shape only: stages A to C do not touch it
+    pad = torch.empty((1, ntheta + w, nphi + w), dtype=torch.float64,
+                      device=theta.device)
+    theta = _tensor(theta, torch.float64, pad.device).reshape(-1)
+    phi = _tensor(phi, torch.float64, pad.device).reshape(-1)
+    values = torch.zeros((1, theta.shape[0]), dtype=torch.float64,
+                         device=pad.device)
+    _check(theta, phi, values, pad, w)
+    if pad.device.type != "cuda":
+        raise ValueError("bin_points runs the kernel: the points must be on "
+                         "the card (bin_points_plain is the plain version)")
+    s = _launch(theta, phi, values, pad, w, STAGE_BIN | STAGE_ORDER)
+    return (s["counts"], s["offsets"], s["subs"],
+            s["sub_bin"][:int(s["subs"][-1])], s["order"])
 
 
 def spread_padded(theta, phi, values, lmax, w, pad):
@@ -257,7 +379,8 @@ def spread_padded(theta, phi, values, lmax, w, pad):
     _check(theta, phi, values, pad, w)
     if pad.device.type == "cpu":
         return spread_padded_plain(theta, phi, values, pad, w)
-    return _launch(theta, phi, values, pad, w)
+    _launch(theta, phi, values, pad, w)
+    return pad
 
 
 def spread_torus(theta, phi, values, lmax, w, device="cuda"):

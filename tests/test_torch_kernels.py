@@ -583,6 +583,119 @@ def test_spread_kernel_matches_plain(cuda, w, complex_vals):
     assert np.abs(got - want).max() <= 1e-12 * np.abs(want).max()
 
 
+def _spread_cases(case, w):
+    """(theta, phi, values, lmax) of one edge case of the spreader at
+    width ``w``."""
+    rng = np.random.default_rng(12)
+    lmax, nrows, npts = 100, 1, 20001
+    if case == "empty":
+        npts = 0
+    theta = np.arccos(rng.uniform(-1, 1, npts))
+    phi = rng.uniform(0, 2 * np.pi, npts)
+    if case == "one_tile":
+        # every stencil corner in rows 97..126 and columns 65..94, inside
+        # the tile (3, 2): 20 subproblems
+        from heracles_tpu_torch.ops import nufft
+
+        ntheta, nphi = nufft.grid_shape(lmax)
+        theta = (97.5 + w / 2 + rng.uniform(0, 29, npts)) * 2 * np.pi / ntheta
+        phi = (65 + w / 2 + rng.uniform(0, 29, npts)) * 2 * np.pi / nphi
+    elif case == "poles_wrap":
+        theta = rng.choice([0.0, np.pi, 1e-9, np.pi - 1e-9], npts)
+        phi = rng.choice([0.0, 2 * np.pi - 1e-15, 1e-3, 2 * np.pi - 1e-3], npts)
+    elif case == "rows3":
+        nrows = 3
+    elif case == "nonfinite":
+        vals = rng.normal(size=(nrows, npts))
+        vals[0, :3] = np.nan, np.inf, -np.inf
+        return theta, phi, vals, lmax
+    elif case == "scales":
+        # a bin's largest |v| sets its fixed-point scale: tiny, unit and
+        # huge values by bin, and subnormals and zeros in tiny bins
+        from heracles_tpu_torch.ops import nufft
+
+        vals = rng.normal(size=(nrows, npts))
+        bins = nufft.bin_points_plain(torch.as_tensor(theta),
+                                      torch.as_tensor(phi), lmax, w)[0]
+        kind = bins.numpy() % 3
+        vals[0] *= np.where(kind == 0, 1e-300, np.where(kind == 1, 1e300, 1.0))
+        vals[0, np.flatnonzero(kind == 0)[:5]] = 5e-324, -1e-310, 0, 0, 1e-320
+        return theta, phi, vals, lmax
+    elif case.startswith("lmax"):
+        lmax = int(case[4:])
+    return theta, phi, rng.normal(size=(nrows, npts)), lmax
+
+
+@pytest.mark.parametrize("case", ["one_tile", "poles_wrap", "empty", "rows3",
+                                  "lmax8", "lmax20", "nonfinite", "scales"])
+def test_spread_kernel_edge_cases(cuda, case):
+    """The spreader against its plain version at 1e-12 of the grid's max:
+    a heavy bin of many subproblems, points at the poles and across the
+    phi wrap, no point, three rows, grids whose last tiles are clipped
+    (ntheta 40 at lmax 8), NaN and inf values (the same cells not finite,
+    the rest within tolerance) and values from 5e-324 to 1e300 (the
+    fixed-point scale of each bin)."""
+    from heracles_tpu_torch.ops import nufft
+
+    for w, complex_vals in ((6, False), (13, True)):
+        theta, phi, vals, lmax = _spread_cases(case, w)
+        v = vals[:1] + 1j * vals[-1:] if complex_vals else vals
+        pads = [nufft.alloc_padded(v.shape[0], lmax, w, complex_vals, cuda)
+                for _ in range(2)]
+        th_t, ph_t, v_t = nufft._spread_inputs(theta, phi, v, pads[0])
+        nufft.spread_padded(th_t, ph_t, v_t, lmax, w, pads[0])
+        torch.cuda.synchronize()
+        nufft.spread_padded_plain(th_t, ph_t, v_t, pads[1], w)
+        got, want = (nufft.fold_padded(p, lmax, w).cpu().numpy() for p in pads)
+        # an infinite value: inf * 0 in the plain version's complex
+        # product is NaN, the kernel's (and the host spreader's) inf
+        ok = np.isfinite(want)
+        np.testing.assert_array_equal(np.isfinite(got), ok)
+        # the huge values' bins set the scale of the comparison, as in the
+        # plain version's own float64 sums
+        scale = np.abs(want[ok]).max() if ok.any() else 0.0
+        assert np.abs(got[ok] - want[ok]).max(initial=0.0) <= 1e-12 * scale
+        if case == "scales":  # the tiny bins keep their own precision
+            tiny = ok & (np.abs(want) < 1e-200) & (want != 0)
+            assert tiny.any()
+            assert np.all(np.abs(got[tiny] - want[tiny])
+                          <= 1e-12 * np.abs(want[tiny]).max())
+
+
+@pytest.mark.parametrize("lmax", [20, 100])
+def test_bin_kernel_matches_plain(cuda, lmax):
+    """The kernel's bin counts, offsets, subproblem prefix and subproblem
+    -> bin map equal the plain versions' exactly, and each bin holds the
+    same original points (their order inside a bin follows the atomics)."""
+    from heracles_tpu_torch.ops import nufft
+
+    rng = np.random.default_rng(13)
+    theta = np.concatenate([[0.0, np.pi, np.pi / 2],
+                            np.arccos(rng.uniform(-1, 1, 30000))])
+    phi = np.concatenate([[0.0, 2 * np.pi - 1e-15, np.pi],
+                          rng.uniform(0, 2 * np.pi, 30000)])
+    # a heavy bin: 3000 points in one tile
+    theta[3:3003] = np.pi / 2 + rng.uniform(0, 0.01, 3000)
+    th_t, ph_t = (torch.as_tensor(a, device=cuda) for a in (theta, phi))
+    for w in (4, 6, 16):
+        counts, offsets, subs, sub_bin, order = nufft.bin_points(
+            th_t, ph_t, lmax, w)
+        bins, want_counts, want_offsets = nufft.bin_points_plain(th_t, ph_t,
+                                                                 lmax, w)
+        assert torch.equal(counts.long(), want_counts)
+        assert torch.equal(offsets[:-1].long(), want_offsets)
+        assert int(offsets[-1]) == theta.size
+        want_subs, want_bin, _ = nufft.subproblems_plain(want_counts)
+        assert torch.equal(subs.long(), want_subs)
+        assert torch.equal(sub_bin.long(), want_bin)
+        order = order.long()
+        assert torch.equal(torch.sort(order).values,
+                           torch.arange(theta.size, device=cuda))
+        nbins = want_counts.shape[0]
+        assert torch.equal(bins[order], torch.repeat_interleave(
+            torch.arange(nbins, device=cuda), want_counts))
+
+
 def test_discrete_mapper_on_the_card(cuda):
     """The exact and gridded paths launch B1, B2 and the spreader (exact:
     one launch per block of points; gridded: one spread per call and one
