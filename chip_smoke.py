@@ -86,7 +86,21 @@ with its seconds:
    exactly; gridded against exact in float64 at epsilon
    1e-12 and in float32 at 1e-5; the exact pixel window at nside 32 on
    the card against the CPU; ``python -m heracles_tpu_torch`` on a small
-   FITS catalogue on the card against the same stages on the CPU.
+   FITS catalogue on the card against the same stages on the CPU;
+11. the device mesh (``heracles_tpu_torch.parallel``): B1-B4 in float32
+   and float64 at bin 0's shapes on the two blocks of orders of a
+   two-shard "m" split (each block's columns bit for bit the full
+   launch's, the padded orders zero, each block timed against the full
+   launch); ``pipeline_step`` of phase 3's POS and SHE maps on
+   ``make_mesh()`` (every visible card) against phase 3's alms; on a
+   (2, 2) mesh of four shards on the card, ``pipeline_step`` (spin 0 and
+   mixed) against it, ``map2alm_sharded`` / ``alm2map_sharded`` against
+   the unsharded transforms, ``transform_sharded`` against ``transform``,
+   ``mixmat(mesh=)`` against phase 3's matrix,
+   ``adjoint_synthesis_sharded`` against phase 10's exact alms and
+   ``compute_jk_alms(mesh=)`` of 8 regions against phase 9's, each with
+   its exact launch counts, no plain run, its seconds and its peak memory
+   (shards queued on one card: not a scaling measurement).
 
 Then a JSON line of the kernels (with each one's bound: the least time
 the card could take for the same work), the card line, and the result
@@ -577,21 +591,23 @@ def bound(nbytes, flops, dtype, peak=None):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def sht_triples(batch, nhalf, nm, lmax, spin):
-    """(ring, l, m) triples with l >= j0 = max(m, spin) of one launch."""
-    j0 = np.maximum(np.arange(nm), spin)
+def sht_triples(batch, nhalf, nm, lmax, spin, m0=0):
+    """(ring, l, m) triples with l >= j0 = max(m, spin) of one launch of
+    the orders m0..m0+nm-1."""
+    j0 = np.maximum(m0 + np.arange(nm), spin)
     return float(batch) * nhalf * float(np.clip(lmax + 1 - j0, 0, None).sum())
 
 
-def sht_bound(name, batch, nhalf, nm, lmax, cdtype):
-    """The bound of one SHT kernel launch: ring spectra and alms moved once."""
+def sht_bound(name, batch, nhalf, nm, lmax, cdtype, m0=0):
+    """The bound of one SHT kernel launch of the orders m0..m0+nm-1: ring
+    spectra and alms moved once."""
     pair = name.endswith("pair_folded")
     nring, nalm = (4, 2) if pair else (2, 1)
     item = torch.empty((), dtype=cdtype).element_size()
     nbytes = (float(batch) * nm * item * (nring * nhalf + nalm * (lmax + 1))
               + nhalf * (item // 2 + 16))  # x, log cos, log sin
     flops = FLOP_PER_TRIPLE[name] * sht_triples(batch, nhalf, nm, lmax,
-                                                2 if pair else 0)
+                                                2 if pair else 0, m0)
     real = torch.float32 if cdtype == torch.complex64 else torch.float64
     return bound(nbytes, flops, real)
 
@@ -921,7 +937,8 @@ def _same_cls(got, want, what, rtol=DICES_RTOL):
 
 def phase9(dev, smi):
     """DICES at full width: the path, its checks, and the two analysis
-    kernels at the DICES batch against their plain versions."""
+    kernels at the DICES batch against their plain versions.  Returns the
+    file-mode run's host alms of 8 regions (for phase 11)."""
     import shutil
 
     import heracles_tpu_torch as th
@@ -1031,7 +1048,7 @@ def phase9(dev, smi):
     shutil.rmtree(fdir, ignore_errors=True)
     jk8 = regions(DICES_FILE_NJK)
     reset_counts()
-    _, secs["file alms"] = sync_time(lambda: dices.compute_jk_alms(
+    alms8, secs["file alms"] = sync_time(lambda: dices.compute_jk_alms(
         data, vmaps, jk8, fields, dir=str(fdir), region_batch=DICES_BATCH))
     file_launches, plain_runs = counts()
     nbatch8 = -(-DICES_FILE_NJK // DICES_BATCH)
@@ -1158,6 +1175,7 @@ def phase9(dev, smi):
           f"delete-2: {len(cls8_2)} samples, diagonal correction; shrinkage "
           f"factor {lam:.4f}, variances kept to {shrink_err:.1e}; {kern_txt}; "
           f"card {smi} ({time.perf_counter() - t:.1f} s)", flush=True)
+    return alms8
 
 
 def point_bound(name, npts, lmax, cdtype):
@@ -1299,7 +1317,9 @@ def _phase10_cli(root, rows):
 def phase10(dev, smi):
     """Pixel-free alms at full size: the path, its checks, the analysis
     kernels at point shapes and the spreader against their plain versions,
-    the exact pixel window and the CLI on the card."""
+    the exact pixel window and the CLI on the card.  Returns the spreader's
+    kernels-line row, the launches, and the exact path's points and alms
+    (for phase 11)."""
     import os
     import shutil
 
@@ -1578,6 +1598,8 @@ def phase10(dev, smi):
         accuracy.append(f"spin {spin}: f64 gridded eps 1e-12 {rel:.1e} (exact "
                         f"{t_ex:.2f} s, gridded {t_gr:.2f} s), f32 exact "
                         f"{rel_e:.1e}, f32 gridded eps 1e-5 {rel_g:.1e}")
+    discrete = dict(theta=theta, phi=phi, vals=vals, vals2=vals2,
+                    exact0=exact0, exact2=exact2)
     del exact0, exact2, galm, g32, ex, gr
 
     # the exact pixel window at nside 32 on the card and on the CPU
@@ -1587,16 +1609,24 @@ def phase10(dev, smi):
     cache_env = os.environ.get("HERACLES_TPU_CACHE")
     pw = {}
     try:
-        for name, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        # the card twice, so that a mismatch says whether the card
+        # repeats its own result
+        for name, where in (("card", dev), ("cpu", torch.device("cpu")),
+                            ("card2", dev)):
             os.environ["HERACLES_TPU_CACHE"] = str(root / f"cache_{name}")
             pw[name], pw[name + "_s"] = sync_time(
                 lambda: pixwin.pixel_window_exact.__wrapped__(
                     32, 48, pol=True, device=where))
     finally:
         _restore_env("HERACLES_TPU_CACHE", cache_env)
-    pw_err = float(np.abs(pw["card"] - pw["cpu"]).max())
+    pw_d = np.abs(pw["card"] - pw["cpu"])
+    pw_err = float(pw_d.max())
+    at = np.unravel_index(pw_d.argmax(), pw_d.shape)
     check(pw["card"].shape == (2, 49) and pw_err <= PIXWIN_TOL,
-          f"pixel window card vs cpu {pw_err:.2e}")
+          f"pixel window card vs cpu {pw_err:.2e} at (row, l) = "
+          f"{tuple(int(i) for i in at)}: card {pw['card'][at]!r}, cpu "
+          f"{pw['cpu'][at]!r}; the card's second run differs from its first "
+          f"by {np.abs(pw['card2'] - pw['card']).max():.2e}")
     cli_s, cli_err, cli_n = _phase10_cli(root, 20_000)
     shutil.rmtree(root, ignore_errors=True)
 
@@ -1624,13 +1654,283 @@ def phase10(dev, smi):
           f"ms); against the float64 exact alms: {'; '.join(accuracy)}; "
           f"pixel window n32 "
           f"l48 pol card {pw['card_s']:.2f} s vs cpu {pw['cpu_s']:.2f} s, "
-          f"max|d| {pw_err:.1e}; CLI alms + spectra on the card {cli_s:.1f} s, "
+          f"max|d| {pw_err:.1e} (the card's second run vs its first "
+          f"{np.abs(pw['card2'] - pw['card']).max():.1e}); CLI alms + spectra on the card {cli_s:.1f} s, "
           f"{cli_n} outputs vs cpu {cli_err:.1e}; card {smi} "
           f"({time.perf_counter() - t:.1f} s)", flush=True)
     spread = dict(max_abs_err=spread_err, ms=spread_ms,
                   plain_ms=spread_plain_ms, library_ms=library_ms,
                   bound_ms=spread_bound_ms, bound_by=spread_bound_by)
-    return spread, launches
+    return spread, launches, discrete
+
+
+def grid_rel(got, want, lmin=2):
+    """max over pairs and l >= lmin of |got - want| / sqrt(want_ii want_jj):
+    the difference of two (n, n, l) spectra grids in units of the auto
+    spectra (cross spectra may pass through zero)."""
+    got = got.to(torch.float64).cpu()
+    want = want.to(torch.float64).cpu()
+    auto = torch.diagonal(want, dim1=0, dim2=1).T  # (n, l)
+    denom = torch.sqrt(auto[:, None, :] * auto[None, :, :])[..., lmin:]
+    return float(((got - want)[..., lmin:].abs() / denom).max())
+
+
+def m0_blocks(dev, per):
+    """B1-B4 in float32 and float64 at bin 0's shapes on the two blocks of
+    a two-shard "m" split: each block's columns bit for bit the full
+    launch's, the padded orders zero, and each block's time against the
+    full launch's.  Returns the text of phase 11's line."""
+    from heracles_tpu_torch.ops import sht, sht_kernels
+
+    x, lch, lsh = sht._geometry(NSIDE, dev)
+    nhalf, nm = x.shape[0], LMAX + 1
+    g = torch.Generator(device=dev).manual_seed(11)
+    parts = []
+    for cdtype in (torch.complex64, torch.complex128):
+        prec = "f32" if cdtype == torch.complex64 else "f64"
+        for name in ("analysis_spin0_folded", "analysis_pair_folded",
+                     "synthesis_spin0_folded", "synthesis_pair_folded"):
+            pair = name.endswith("pair_folded")
+            rows_in = nhalf if name.startswith("analysis") else LMAX + 1
+            nin = (4 if pair else 2) if name.startswith("analysis") else (
+                2 if pair else 1)
+            ins = [torch.randn((1, rows_in, nm), dtype=cdtype, device=dev,
+                               generator=g) for _ in range(nin)]
+            extra = (2,) if pair else ()
+            kernel = getattr(sht_kernels, name)
+
+            def run(args, m0=0):
+                out = kernel(*args, x, lch, lsh, LMAX, *extra, m0)
+                return out if isinstance(out, (tuple, list)) else (out,)
+
+            run(ins)  # warm
+            full, full_ms = event_ms(lambda: run(ins))
+            blocks = []
+            for mi in range(2):
+                m0 = mi * per
+                blk = [torch.nn.functional.pad(t[..., m0:m0 + per],
+                                               (0, max(0, m0 + per - nm)))
+                       for t in ins]
+                run(blk, m0)  # warm
+                out, ms = event_ms(lambda: run(blk, m0))
+                real = max(0, min(per, nm - m0))
+                for o, f in zip(out, full):
+                    check(torch.equal(o[..., :real], f[..., m0:m0 + real]),
+                          f"{name} {prec} block m0={m0}: columns differ from "
+                          "the full launch's")
+                    check(not bool(o[..., real:].any()),
+                          f"{name} {prec} block m0={m0}: padded orders not "
+                          "zero")
+                bms, by = sht_bound(name, 1, nhalf, per, LMAX, cdtype, m0=m0)
+                blocks.append(dict(m0=m0, ms=ms, share=ms / full_ms,
+                                   bound_ms=bms, bound_by=by))
+                del out, blk
+            fb, _ = sht_bound(name, 1, nhalf, nm, LMAX, cdtype)
+            parts.append(
+                f"{name} {prec}: full {full_ms:.2f} ms (bound {fb:.2f}); "
+                + ", ".join(f"m0 {b['m0']} {b['ms']:.2f} ms = "
+                            f"{100 * b['share']:.1f}% (bound "
+                            f"{b['bound_ms']:.2f} ms, {b['bound_by']})"
+                            for b in blocks))
+            del ins, full
+    # the (l, m) pairs of each block: the load balance of contiguous blocks
+    pairs = [float(np.clip(LMAX + 1 - np.arange(m0, m0 + per), 0, None).sum())
+             for m0 in (0, per)]
+    share = pairs[0] / sum(pairs)
+    return (f"m0 blocks of {per} orders at n{NSIDE} l{LMAX} (bit for bit the "
+            f"full launch's columns, padded orders zero; block 0 holds "
+            f"{100 * share:.1f}% of the (l, m) pairs): " + "; ".join(parts))
+
+
+def phase11(dev, smi, p3, dices_alms, discrete):
+    """The device mesh at full width: the kernels on blocks of orders, then
+    the sharded entry points on make_mesh() over the visible cards and on a
+    (2, 2) mesh of four shards on one card.  ``p3``: phase 3's POS and SHE
+    maps, alms, mask spectrum and POS x POS mixing matrix; ``dices_alms``:
+    phase 9's file-mode alms of 8 regions; ``discrete``: phase 10's points
+    and exact alms."""
+    import heracles_tpu_torch as th
+    from heracles_tpu_torch import dices, parallel, twopoint
+    from heracles_tpu_torch.ops import gram, sht
+
+    t = time.perf_counter()
+    torch.cuda.synchronize()
+    card_mesh = parallel.make_mesh()
+    mesh = parallel.make_mesh(4, m_axis=2, devices=[dev] * 4)
+    per = parallel._m_block(LMAX, 2)
+    block_txt = m0_blocks(dev, per)
+    t_blocks = time.perf_counter() - t
+
+    pos, she = p3["pos"], p3["she"]  # (2, npix), (2, 2, npix) float32
+    runs = {}
+
+    def entry(label, fn):
+        """fn() with the counts and the peak memory zeroed before it and
+        read after it."""
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        out, secs = sync_time(fn)
+        launches, plain = counts()
+        check(sum(plain.values()) == 0, f"{label}: plain versions ran: {plain}")
+        runs[label] = (secs, {k: v for k, v in launches.items() if v},
+                       torch.cuda.max_memory_allocated())
+        return out
+
+    def compare_rows(got, want, what):
+        """compare() row by row of the leading axes (a map at a time)."""
+        n = got.shape[-1]
+        return max(compare(g, w, *TOL[torch.complex64], what=what)[1]
+                   for g, w in zip(got.reshape(-1, n), want.reshape(-1, n)))
+
+    def want_launches(label, want):
+        got = runs[label][1]
+        check(got == want, f"{label}: launches {got}, expected {want}")
+
+    nshard, ncard = mesh.size, card_mesh.size
+    # the pipeline step on the visible cards, against phase 3's alms
+    grid1 = entry("pipeline_step make_mesh() mixed",
+                  lambda: parallel.pipeline_step(card_mesh, pos, LMAX, she))
+    want_launches("pipeline_step make_mesh() mixed",
+                  {"analysis_spin0_folded": ncard,
+                   "analysis_pair_folded": ncard})
+    fl = {}
+    for s in (0, 2):
+        pw = sht.pixel_window(NSIDE, LMAX, pol=(s == 2), device=dev)
+        pw = pw[1] if s == 2 else pw
+        f = np.ones(LMAX + 1)
+        f[s:] /= pw[s:]
+        fl[s] = torch.as_tensor(f)
+    planes, fls = [], []
+    for key, s in ((("POS", 0), 0), (("POS", 1), 0), (("SHE", 0), 2),
+                   (("SHE", 1), 2)):
+        a = p3["alms"][key].array
+        rect = sht.unpack_alm(a.reshape(-1, a.shape[-1]), LMAX)
+        planes.append(rect)
+        fls += [fl[s]] * rect.shape[0]
+    planes = torch.cat(planes)
+    want_grid = twopoint.rect_pair_grid(planes, planes,
+                                        torch.arange(LMAX + 1)).cpu()
+    del planes
+    fls = torch.stack(fls)
+    deconv = grid1.cpu() * fls[:, None, :] * fls[None, :, :]
+    err_card = grid_rel(deconv, want_grid)
+    check(tuple(grid1.shape) == (6, 6, LMAX + 1) and err_card <= F32_TOL,
+          f"pipeline_step make_mesh() against phase 3: {err_card:.2e}")
+
+    # the (2, 2) mesh of one card
+    grid0 = entry("pipeline_step (2,2) spin 0",
+                  lambda: parallel.pipeline_step(mesh, pos, LMAX))
+    want_launches("pipeline_step (2,2) spin 0",
+                  {"analysis_spin0_folded": nshard})
+    grid2 = entry("pipeline_step (2,2) mixed",
+                  lambda: parallel.pipeline_step(mesh, pos, LMAX, she))
+    want_launches("pipeline_step (2,2) mixed",
+                  {"analysis_spin0_folded": nshard,
+                   "analysis_pair_folded": nshard})
+    err_ps0 = grid_rel(grid0, grid1[:2, :2])
+    err_ps2 = grid_rel(grid2, grid1)
+    check(err_ps0 <= F32_TOL and err_ps2 <= F32_TOL,
+          f"pipeline_step (2,2) against make_mesh(): {err_ps0:.2e}, "
+          f"{err_ps2:.2e}")
+    del grid0, grid1, grid2
+
+    errs = {}
+    for spin, m in ((0, pos), (2, she)):
+        a = entry(f"map2alm_sharded spin {spin}",
+                  lambda: parallel.map2alm_sharded(mesh, m, LMAX, spin=spin))
+        kern = "analysis_spin0_folded" if spin == 0 else "analysis_pair_folded"
+        want_launches(f"map2alm_sharded spin {spin}", {kern: nshard})
+        check(tuple(a.shape) == tuple(m.shape[:-1]) + (LMAX + 1, 2 * per),
+              f"map2alm_sharded spin {spin}: shape {tuple(a.shape)}")
+        check(not bool(a[..., LMAX + 1:].any()),
+              f"map2alm_sharded spin {spin}: padded orders not zero")
+        ref = sht.map2alm(m, LMAX, spin=spin, packed=False)
+        errs[f"map2alm spin {spin}"] = compare(
+            a[..., :LMAX + 1], ref, *TOL[torch.complex64],
+            what=f"map2alm_sharded spin {spin}")[1]
+        back = entry(f"alm2map_sharded spin {spin}",
+                     lambda: parallel.alm2map_sharded(mesh, a, NSIDE,
+                                                      lmax=LMAX, spin=spin))
+        kern = "synthesis_spin0_folded" if spin == 0 else \
+            "synthesis_pair_folded"
+        want_launches(f"alm2map_sharded spin {spin}", {kern: nshard})
+        ref_m = sht.alm2map(a[..., :LMAX + 1], NSIDE, LMAX, spin=spin,
+                            packed=False)
+        errs[f"alm2map spin {spin}"] = compare_rows(
+            back, ref_m, f"alm2map_sharded spin {spin}")
+        del a, ref, back, ref_m
+
+    mapper = th.HealpixMapper(NSIDE, LMAX, dtype=torch.float32, device=dev)
+    got = entry("transform_sharded POS",
+                lambda: mapper.transform_sharded(mesh, pos))
+    want_launches("transform_sharded POS", {"analysis_spin0_folded": nshard})
+    errs["transform_sharded"] = compare(
+        got.array, mapper.transform(pos).array, *TOL[torch.complex64],
+        what="transform_sharded POS")[1]
+    del got
+
+    mm = entry("mixmat(mesh=)", lambda: twopoint.mixmat(
+        p3["cl3"], l1max=LMAX, l2max=LMAX, l3max=LMAX, mesh=mesh))
+    want_launches("mixmat(mesh=)", {"gram": nshard})
+    mm_err = float(np.abs(mm - p3["mm"]).max() / np.abs(p3["mm"]).max())
+    check(mm_err <= GRAM_TOL, f"mixmat(mesh=) against phase 3: {mm_err:.2e}")
+    # one Gram launch on a node block against the whole rule's
+    A, B, us = twopoint._mixmat_operands(p3["cl3"], LMAX, LMAX, 0, 0, False,
+                                         dev, (0, nshard))
+    event_ms(lambda: gram.gram(A, B, us[0]))  # warm
+    _, gram_block_ms = event_ms(lambda: gram.gram(A, B, us[0]))
+    K, L1 = A.shape
+    gram_block_bound = bound(8.0 * (2 * K * L1 + K + L1 * L1),
+                             2.0 * L1 * L1 * K + K * L1, torch.float64)
+    del A, B, us
+
+    dmapper = th.DiscreteMapper(DISCRETE_LMAX, dtype=torch.complex64,
+                                device=dev)
+    for spin, v, want in ((0, discrete["vals"], discrete["exact0"]),
+                          (2, discrete["vals2"], discrete["exact2"])):
+        a = entry(f"adjoint_synthesis_sharded spin {spin}",
+                  lambda: dmapper.adjoint_synthesis_sharded(
+                      mesh, discrete["theta"], discrete["phi"], v, spin))
+        kern = "analysis_spin0_folded" if spin == 0 else "analysis_pair_folded"
+        want_launches(f"adjoint_synthesis_sharded spin {spin}",
+                      {kern: nshard})
+        errs[f"adjoint spin {spin}"] = compare(
+            a.reshape(want.shape), want, *TOL[torch.complex64],
+            what=f"adjoint_synthesis_sharded spin {spin}")[1]
+
+    _, fields, data, vmaps, regions = _dices_inputs(dev)
+    jk8 = regions(DICES_FILE_NJK)
+    got = entry("compute_jk_alms(mesh=)", lambda: dices.compute_jk_alms(
+        data, vmaps, jk8, fields, dir=None, region_batch=DICES_BATCH,
+        mesh=mesh))
+    # k = 0 and one batch of 8, each map key through transform_sharded
+    want_launches("compute_jk_alms(mesh=)",
+                  {"analysis_spin0_folded": 4 * nshard,
+                   "analysis_pair_folded": 2 * nshard})
+    check(set(got) == set(dices_alms), f"DICES mesh alms keys {set(got)}")
+    worst = 0.0
+    for ck, alms in dices_alms.items():
+        for key, want in alms.items():
+            worst = max(worst, compare(
+                torch.as_tensor(np.asarray(got[ck][key])),
+                torch.as_tensor(np.asarray(want)), *TOL[torch.complex64],
+                what=f"DICES mesh alms {ck} {key}")[1])
+    errs["DICES alms"] = worst
+
+    run_txt = "; ".join(f"{k} {s:.2f} s {l} peak {p / 2**30:.2f} GiB"
+                        for k, (s, l, p) in runs.items())
+    err_txt = ", ".join(f"{k} {v:.1e}" for k, v in errs.items())
+    print(f"phase 11 mesh: {block_txt} ({t_blocks:.1f} s); make_mesh() "
+          f"{card_mesh.shape} over {ncard} card(s) and a (2, 2) mesh of "
+          f"{nshard} shards on {dev} (shards queued on one card's stream: "
+          f"not a scaling measurement): {run_txt}; pipeline_step make_mesh() "
+          f"against phase 3's alms (windows applied) {err_card:.1e} of the "
+          f"autos, (2,2) against make_mesh() spin 0 {err_ps0:.1e}, mixed "
+          f"{err_ps2:.1e}; max|d|/max {err_txt}; mixmat(mesh=) against "
+          f"phase 3 {mm_err:.1e}; one gram launch on a node block of "
+          f"{K} nodes {gram_block_ms:.3f} ms (bound "
+          f"{gram_block_bound[0]:.3f} ms, {gram_block_bound[1]}); card {smi} "
+          f"({time.perf_counter() - t:.1f} s)", flush=True)
 
 
 def main():
@@ -1750,7 +2050,6 @@ def main():
           f"{launches}; plain runs {plain_runs}; {len(cls)} finite spectra, "
           f"{len(mms)} finite mixing matrices; card {smi} "
           f"(setup {setup:.1f} s, {time.perf_counter() - t:.1f} s)", flush=True)
-    del alms
 
     # -- phase 4: bin 0 at full size, kernel against plain ------------------
     t = time.perf_counter()
@@ -1924,14 +2223,25 @@ def main():
 
     # -- phase 8: dd=, resample, map_values --------------------------------
     phase8(dev, maps, page, *pos_alms, smi)
-    del maps, cls, mms, inv, mixed, pos_alms, page
+    # what phase 11 holds against: phase 3's POS and SHE maps of both bins,
+    # their alms, the mask spectrum and the POS x POS mixing matrix
+    p3 = dict(
+        pos=torch.stack([maps["POS", i].array for i in range(NBINS)]),
+        she=torch.stack([maps["SHE", i].array for i in range(NBINS)]),
+        alms={k: v for k, v in alms.items() if k[0] in ("POS", "SHE")},
+        cl3=cl3, mm=np.asarray(mms["POS", "POS", 0, 0].array, np.float64))
+    del maps, alms, cls, mms, inv, mixed, pos_alms, page
 
     # -- phase 9: DICES, its own path --------------------------------------
-    phase9(dev, smi)
+    dices_alms = phase9(dev, smi)
 
     # -- phase 10: pixel-free alms, its own path ---------------------------
-    report["spread"], discrete_launches = phase10(dev, smi)
+    report["spread"], discrete_launches, discrete = phase10(dev, smi)
     launches["spread"] = discrete_launches.get("spread", 0)
+
+    # -- phase 11: the device mesh, its own path ---------------------------
+    phase11(dev, smi, p3, dices_alms, discrete)
+    del p3, dices_alms, discrete
 
     def mean(key):
         return float(np.mean([c[key] for c in contractions.values()]))

@@ -18,12 +18,12 @@
 //
 // Design (the pair analysis' shape, sht_analysis_pair.cu, with the block's
 // warps decoupled):
-//   * one block of 128 threads per (order m, batch element), blockIdx.x = m
-//     so the longest columns start first; each thread owns kRings = 4 rings
-//     of a tile of 512 (lane + 32 r of its warp's 128 adjacent rings) and
-//     runs their recurrence from j0 to lmax with F in registers (read with
-//     a stride of nm complex values: the read is small beside the compute,
-//     so F is not transposed);
+//   * one block of 128 threads per (order m, batch element), blockIdx.x =
+//     m - m0 so the longest columns start first; each thread owns
+//     kRings = 4 rings of a tile of 512 (lane + 32 r of its warp's 128
+//     adjacent rings) and runs their recurrence from j0 to lmax with F
+//     in registers (read with a stride of nm complex values: the read is
+//     small beside the compute, so F is not transposed);
 //   * the sum over rings needs a reduction across threads, once per chunk
 //     of LC = 16 multipoles: a warp butterfly reduce-scatter of the V = 32
 //     partial sums (31 shuffles per 64 triples of a lane);
@@ -67,6 +67,10 @@
 // (the shared memory does not depend on lmax);
 // heracles_analysis_spin0_paths_f32 is a diagnostic launch that also counts
 // the warps' sub-chunks on each path (steady, dead, full).
+// Every launch takes the block of orders m0..m0+nm-1 into its columns
+// 0..nm-1 (the seed planes are the block's, indexed by column), so a
+// device mesh can give each shard its own block; m0 = 0 is every order
+// from 0, and an order above lmax gives a column of zeros.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -207,7 +211,7 @@ __global__ void __launch_bounds__(kThreads)
                     const T* __restrict__ x, const double* __restrict__ logch,
                     const double* __restrict__ logsh,
                     const double* __restrict__ seed, T* __restrict__ out,
-                    int nhalf, int nm, int lmax,
+                    int nhalf, int nm, int lmax, int m0,
                     unsigned long long* __restrict__ counts) {
   static_assert(LC == 2 * kSub && kRows % LC == 0 && V == 32,
                 "two sub-chunks per chunk, chunks tile the section, one sum "
@@ -216,7 +220,8 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ __align__(16) T tab[2][kRows][4];  // a1, a0, b, (pad)
   __shared__ __align__(16) T part[2][kWarps][kRows * NC];
 
-  const int m = blockIdx.x;
+  const int mc = blockIdx.x;  // the column: this order's place in the block
+  const int m = m0 + mc;      // the order
   const int b = blockIdx.y;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -225,7 +230,7 @@ __global__ void __launch_bounds__(kThreads)
   const int j0 = m;
   const int ntiles = (nhalf + kTile - 1) / kTile;
   // output (b, l, m) at col + l rs, (re, im) adjacent
-  const size_t col = (size_t(b) * (lmax + 1) * nm + m) * 2;
+  const size_t col = (size_t(b) * (lmax + 1) * nm + mc) * 2;
   const size_t rs = size_t(nm) * 2;
 
   // rows that no tile sums: l < j0, and every row of an empty column
@@ -235,8 +240,8 @@ __global__ void __launch_bounds__(kThreads)
 
   const int n = lmax - j0 + 1;  // multipoles of the column
   const int nsec = (n + kRows - 1) / kRows;
-  const double logc = seed[m];
-  const double sign = seed[nm + m];
+  const double logc = seed[mc];
+  const double sign = seed[nm + mc];
   // seed exponents of cos(t/2) and sin(t/2): both m
   const double pc = double(m);
   const double ps = double(m);
@@ -258,7 +263,7 @@ __global__ void __launch_bounds__(kThreads)
       const int ring = tile * kTile + (warp * kRings + r) * 32 + lane;
       p.dp = T(0);
       if (ring < nhalf) {
-        const size_t off = ((size_t(b) * nhalf + ring) * nm + m) * 2;
+        const size_t off = ((size_t(b) * nhalf + ring) * nm + mc) * 2;
         const double lch = logch[ring], lsh = logsh[ring];
         p.x = x[ring];
         load2(fe + off, p.fa[0], p.fa[1]);
@@ -335,14 +340,15 @@ __global__ void __launch_bounds__(kThreads)
 template <typename T, bool kCount>
 int launch(const void* f0, const void* f1, const void* x, const void* logch,
            const void* logsh, const void* seed, void* out, int batch,
-           int nhalf, int nm, int lmax, void* counts, void* stream) {
+           int nhalf, int nm, int lmax, int m0, void* counts,
+           void* stream) {
   if (batch == 0 || nm == 0) return int(cudaSuccess);
   analysis_kernel<T, kCount>
       <<<dim3(nm, batch), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const T*>(f0), static_cast<const T*>(f1),
           static_cast<const T*>(x), static_cast<const double*>(logch),
           static_cast<const double*>(logsh), static_cast<const double*>(seed),
-          static_cast<T*>(out), nhalf, nm, lmax,
+          static_cast<T*>(out), nhalf, nm, lmax, m0,
           static_cast<unsigned long long*>(counts));
   return int(cudaGetLastError());
 }
@@ -354,17 +360,19 @@ extern "C" {
 int heracles_analysis_spin0_f32(const void* fe, const void* fo, const void* x,
                                 const void* logch, const void* logsh,
                                 const void* seed, void* out, int batch,
-                                int nhalf, int nm, int lmax, void* stream) {
+                                int nhalf, int nm, int lmax, int m0,
+                                void* stream) {
   return launch<float, false>(fe, fo, x, logch, logsh, seed, out, batch, nhalf,
-                              nm, lmax, nullptr, stream);
+                              nm, lmax, m0, nullptr, stream);
 }
 
 int heracles_analysis_spin0_f64(const void* fe, const void* fo, const void* x,
                                 const void* logch, const void* logsh,
                                 const void* seed, void* out, int batch,
-                                int nhalf, int nm, int lmax, void* stream) {
+                                int nhalf, int nm, int lmax, int m0,
+                                void* stream) {
   return launch<double, false>(fe, fo, x, logch, logsh, seed, out, batch,
-                               nhalf, nm, lmax, nullptr, stream);
+                               nhalf, nm, lmax, m0, nullptr, stream);
 }
 
 // The float32 launch with ``counts`` (3 x uint64, zeroed by the caller)
@@ -373,10 +381,10 @@ int heracles_analysis_spin0_paths_f32(const void* fe, const void* fo,
                                       const void* x, const void* logch,
                                       const void* logsh, const void* seed,
                                       void* out, void* counts, int batch,
-                                      int nhalf, int nm, int lmax,
+                                      int nhalf, int nm, int lmax, int m0,
                                       void* stream) {
   return launch<float, true>(fe, fo, x, logch, logsh, seed, out, batch, nhalf,
-                             nm, lmax, counts, stream);
+                             nm, lmax, m0, counts, stream);
 }
 
 // Resident blocks per SM of the spin-0 analysis (its shared memory does not

@@ -17,7 +17,7 @@
 //
 // Design (the synthesis kernels' shape, sht_synthesis.cu):
 //   * one block of 128 threads per (order m, batch element), blockIdx.x =
-//     m so the longest columns start first; each thread owns kRings = 4
+//     m - m0 so the longest columns start first; each thread owns kRings = 4
 //     rings of a tile of 512 (lane + 32 r of its warp's 128) and runs
 //     their two recurrences from j0 to lmax with F in registers;
 //   * the sum over rings needs a reduction across threads, once per chunk
@@ -61,6 +61,10 @@
 // C interface (loaded with ctypes): heracles_analysis_pair_{f32,f64}
 // launch on the given stream and return cudaGetLastError();
 // heracles_analysis_pair_blocks_per_sm gives the resident blocks per SM.
+// Every launch takes the block of orders m0..m0+nm-1 into its columns
+// 0..nm-1 (the seed planes are the block's, indexed by column), so a
+// device mesh can give each shard its own block; m0 = 0 is every order
+// from 0, and an order above lmax gives a column of zeros.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -175,14 +179,15 @@ __global__ void __launch_bounds__(kThreads)
                          const double* __restrict__ logsh,
                          const double* __restrict__ seed,
                          T* __restrict__ out_p, T* __restrict__ out_m,
-                         int nhalf, int nm, int lmax, int s) {
+                         int nhalf, int nm, int lmax, int s, int m0) {
   static_assert(LC % 2 == 0 && kRows % LC == 0,
                 "chunks keep the parity of l and tile the table");
 
   __shared__ __align__(16) T tab[2][kRows][4];  // a1, a0, b, (pad)
   __shared__ T part[2][kWarps][V];
 
-  const int m = blockIdx.x;
+  const int mc = blockIdx.x;  // the column: this order's place in the block
+  const int m = m0 + mc;      // the order
   const int b = blockIdx.y;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -190,7 +195,7 @@ __global__ void __launch_bounds__(kThreads)
   const int j0 = max(m, s);
   const int ntiles = (nhalf + kTile - 1) / kTile;
   // output (b, l, m) at col + l rs, (re, im) adjacent
-  const size_t col = (size_t(b) * (lmax + 1) * nm + m) * 2;
+  const size_t col = (size_t(b) * (lmax + 1) * nm + mc) * 2;
   const size_t rs = size_t(nm) * 2;
 
   // rows that no tile sums: l < j0, and every row of an empty column
@@ -203,10 +208,10 @@ __global__ void __launch_bounds__(kThreads)
 
   const int n = lmax - j0 + 1;  // multipoles of the column
   const int nsec = (n + kRows - 1) / kRows;
-  const double logc_p = seed[m];
-  const double sign_p = seed[nm + m];
-  const double logc_m = seed[2 * nm + m];
-  const double sign_m = seed[3 * nm + m];
+  const double logc_p = seed[mc];
+  const double sign_p = seed[nm + mc];
+  const double logc_m = seed[2 * nm + mc];
+  const double sign_m = seed[3 * nm + mc];
   // seed exponents of cos(t/2) and sin(t/2): (m+s, |m-s|) for +s and
   // swapped for -s
   const double pc = double(m + s);
@@ -233,7 +238,7 @@ __global__ void __launch_bounds__(kThreads)
       p.dp = T(0);
       p.dpm = T(0);
       if (ring < nhalf) {
-        const size_t off = ((size_t(b) * nhalf + ring) * nm + m) * 2;
+        const size_t off = ((size_t(b) * nhalf + ring) * nm + mc) * 2;
         const double lch = logch[ring], lsh = logsh[ring];
         p.x = x[ring];
 #pragma unroll
@@ -315,7 +320,7 @@ template <typename T>
 int launch(const void* fnp, const void* sp, const void* fnm, const void* sm,
            const void* x, const void* logch, const void* logsh,
            const void* seed, void* out_p, void* out_m, int batch, int nhalf,
-           int nm, int lmax, int spin, void* stream) {
+           int nm, int lmax, int spin, int m0, void* stream) {
   if (batch == 0 || nm == 0) return int(cudaSuccess);
   pair_analysis_kernel<T>
       <<<dim3(nm, batch), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
@@ -324,7 +329,7 @@ int launch(const void* fnp, const void* sp, const void* fnm, const void* sm,
           static_cast<const T*>(x), static_cast<const double*>(logch),
           static_cast<const double*>(logsh), static_cast<const double*>(seed),
           static_cast<T*>(out_p), static_cast<T*>(out_m), nhalf, nm, lmax,
-          spin);
+          spin, m0);
   return int(cudaGetLastError());
 }
 
@@ -337,9 +342,9 @@ int heracles_analysis_pair_f32(const void* fnp, const void* sp,
                                const void* logch, const void* logsh,
                                const void* seed, void* out_p, void* out_m,
                                int batch, int nhalf, int nm, int lmax,
-                               int spin, void* stream) {
+                               int spin, int m0, void* stream) {
   return launch<float>(fnp, sp, fnm, sm, x, logch, logsh, seed, out_p, out_m,
-                       batch, nhalf, nm, lmax, spin, stream);
+                       batch, nhalf, nm, lmax, spin, m0, stream);
 }
 
 int heracles_analysis_pair_f64(const void* fnp, const void* sp,
@@ -347,9 +352,9 @@ int heracles_analysis_pair_f64(const void* fnp, const void* sp,
                                const void* logch, const void* logsh,
                                const void* seed, void* out_p, void* out_m,
                                int batch, int nhalf, int nm, int lmax,
-                               int spin, void* stream) {
+                               int spin, int m0, void* stream) {
   return launch<double>(fnp, sp, fnm, sm, x, logch, logsh, seed, out_p, out_m,
-                        batch, nhalf, nm, lmax, spin, stream);
+                        batch, nhalf, nm, lmax, spin, m0, stream);
 }
 
 // Resident blocks per SM of the pair analysis (its shared memory does not

@@ -23,11 +23,12 @@
 //
 // Design (the pair synthesis' shape, sht_synthesis_pair.cu, with one
 // recurrence, one exponent and two sums per parity):
-//   * one block of 128 threads per (order m, batch element), blockIdx.x = m
-//     so the longest columns start first; each thread owns kRings = 4 rings
-//     of a tile of 512 and steps l from j0 = m to lmax with its rings'
-//     recurrence and 4 sums each in registers: the sum over l is the
-//     recurrence's own loop, so no reduction across threads is needed;
+//   * one block of 128 threads per (order m, batch element), blockIdx.x =
+//     m - m0 so the longest columns start first; each thread owns
+//     kRings = 4 rings of a tile of 512 and steps l from j0 = m to lmax
+//     with its rings' recurrence and 4 sums each in registers: the sum
+//     over l is the recurrence's own loop, so no reduction across
+//     threads is needed;
 //   * a warp owns 128 adjacent rings (lane + 32 r of its 128), so its
 //     rings leave the poles' underflow close together, and picks one of
 //     three paths at the start of every sub-chunk of kSub = 8 multipoles
@@ -78,6 +79,10 @@
 // heracles_synthesis_spin0_blocks_per_sm gives the resident blocks per SM;
 // heracles_synthesis_spin0_paths_f32 is a diagnostic launch that also
 // counts the warps' sub-chunks on each path (steady, dead, full).
+// Every launch takes the block of orders m0..m0+nm-1 into its columns
+// 0..nm-1 (the seed planes are the block's, indexed by column), so a
+// device mesh can give each shard its own block; m0 = 0 is every order
+// from 0, and an order above lmax gives a column of zeros.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -212,20 +217,21 @@ __global__ void __launch_bounds__(kThreads)
                      const double* __restrict__ logsh,
                      const double* __restrict__ seed, T* __restrict__ gn0,
                      T* __restrict__ gs0, int nhalf, int nm, int lmax,
-                     unsigned long long* __restrict__ counts) {
+                     int m0, unsigned long long* __restrict__ counts) {
   static_assert(kSub % 2 == 0 && LC % kSub == 0,
                 "sub-chunks keep the parity of l and tile the chunk");
 
   __shared__ __align__(16) T tab[2][LC][NR];
 
-  const int m = blockIdx.x;
+  const int mc = blockIdx.x;  // the column: this order's place in the block
+  const int m = m0 + mc;      // the order
   const int b = blockIdx.y;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int j0 = m;
   const int ntiles = (nhalf + kTile - 1) / kTile;
-  const size_t out_col = (size_t(b) * nhalf * nm + m) * 2;
+  const size_t out_col = (size_t(b) * nhalf * nm + mc) * 2;
 
   if (j0 > lmax) {  // an order above lmax: zeros
     for (int ring = tid; ring < nhalf; ring += kThreads) {
@@ -236,10 +242,10 @@ __global__ void __launch_bounds__(kThreads)
     return;
   }
 
-  const size_t alm_col = (size_t(b) * (lmax + 1) * nm + m) * 2;
+  const size_t alm_col = (size_t(b) * (lmax + 1) * nm + mc) * 2;
   const int nchunks = (lmax - j0 + LC) / LC;
-  const double logc_p = seed[m];
-  const double sign_p = seed[nm + m];
+  const double logc_p = seed[mc];
+  const double sign_p = seed[nm + mc];
   // seed exponents of cos(t/2) and sin(t/2): both m
   const double pc = double(m);
   const double ps = double(m);
@@ -323,7 +329,7 @@ __global__ void __launch_bounds__(kThreads)
 template <typename T, bool kCount>
 int launch(const void* a0, const void* x, const void* logch,
            const void* logsh, const void* seed, void* gn0, void* gs0,
-           int batch, int nhalf, int nm, int lmax, void* counts,
+           int batch, int nhalf, int nm, int lmax, int m0, void* counts,
            void* stream) {
   if (batch == 0 || nm == 0 || nhalf == 0) return int(cudaSuccess);
   synthesis_kernel<T, kCount>
@@ -331,7 +337,7 @@ int launch(const void* a0, const void* x, const void* logch,
           static_cast<const T*>(a0), static_cast<const T*>(x),
           static_cast<const double*>(logch), static_cast<const double*>(logsh),
           static_cast<const double*>(seed), static_cast<T*>(gn0),
-          static_cast<T*>(gs0), nhalf, nm, lmax,
+          static_cast<T*>(gs0), nhalf, nm, lmax, m0,
           static_cast<unsigned long long*>(counts));
   return int(cudaGetLastError());
 }
@@ -344,18 +350,18 @@ int heracles_synthesis_spin0_f32(const void* alm, const void* x,
                                  const void* logch, const void* logsh,
                                  const void* seed, void* gn, void* gs,
                                  int batch, int nhalf, int nm, int lmax,
-                                 void* stream) {
+                                 int m0, void* stream) {
   return launch<float, false>(alm, x, logch, logsh, seed, gn, gs, batch, nhalf,
-                              nm, lmax, nullptr, stream);
+                              nm, lmax, m0, nullptr, stream);
 }
 
 int heracles_synthesis_spin0_f64(const void* alm, const void* x,
                                  const void* logch, const void* logsh,
                                  const void* seed, void* gn, void* gs,
                                  int batch, int nhalf, int nm, int lmax,
-                                 void* stream) {
+                                 int m0, void* stream) {
   return launch<double, false>(alm, x, logch, logsh, seed, gn, gs, batch,
-                               nhalf, nm, lmax, nullptr, stream);
+                               nhalf, nm, lmax, m0, nullptr, stream);
 }
 
 // The float32 launch with ``counts`` (3 x uint64, zeroed by the caller)
@@ -364,9 +370,9 @@ int heracles_synthesis_spin0_paths_f32(const void* alm, const void* x,
                                        const void* logch, const void* logsh,
                                        const void* seed, void* gn, void* gs,
                                        void* counts, int batch, int nhalf,
-                                       int nm, int lmax, void* stream) {
+                                       int nm, int lmax, int m0, void* stream) {
   return launch<float, true>(alm, x, logch, logsh, seed, gn, gs, batch, nhalf,
-                             nm, lmax, counts, stream);
+                             nm, lmax, m0, counts, stream);
 }
 
 // Resident blocks per SM of the spin-0 synthesis (its shared memory does

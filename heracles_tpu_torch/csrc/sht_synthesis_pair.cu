@@ -22,11 +22,12 @@
 // are read once (0.1 GB) and G written once (0.8 GB in float32).
 //
 // Design:
-//   * one block of 128 threads per (order m, batch element), blockIdx.x = m
-//     so the longest columns start first; each thread owns kRings = 4 rings
-//     of a tile of 512 and steps l from j0 to lmax with its rings' two
-//     recurrences and 12 sums each in registers: the sum over l is the
-//     recurrence's own loop, so no reduction across threads is needed;
+//   * one block of 128 threads per (order m, batch element), blockIdx.x =
+//     m - m0 so the longest columns start first; each thread owns
+//     kRings = 4 rings of a tile of 512 and steps l from j0 to lmax
+//     with its rings' two recurrences and 12 sums each in registers:
+//     the sum over l is the recurrence's own loop, so no reduction
+//     across threads is needed;
 //   * a warp owns 128 adjacent rings (lane + 32 r of its 128), so its
 //     rings leave the poles' underflow close together, and picks one of
 //     three paths at the start of every sub-chunk of kSub = 8 multipoles:
@@ -71,6 +72,10 @@
 // heracles_synthesis_pair_blocks_per_sm gives the resident blocks per SM;
 // heracles_synthesis_pair_paths_f32 is a diagnostic launch that also counts
 // the warps' sub-chunks on each path (steady, dead, full).
+// Every launch takes the block of orders m0..m0+nm-1 into its columns
+// 0..nm-1 (the seed planes are the block's, indexed by column), so a
+// device mesh can give each shard its own block; m0 = 0 is every order
+// from 0, and an order above lmax gives a column of zeros.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -224,20 +229,22 @@ __global__ void __launch_bounds__(kThreads)
                           const double* __restrict__ seed, T* __restrict__ gnp,
                           T* __restrict__ gsp, T* __restrict__ gnm,
                           T* __restrict__ gsm, int nhalf, int nm, int lmax,
-                          int s, unsigned long long* __restrict__ counts) {
+                          int s, int m0,
+                          unsigned long long* __restrict__ counts) {
   static_assert(kSub % 2 == 0 && LC % kSub == 0,
                 "sub-chunks keep the parity of l and tile the chunk");
 
   __shared__ __align__(16) T tab[2][LC][NR];
 
-  const int m = blockIdx.x;
+  const int mc = blockIdx.x;  // the column: this order's place in the block
+  const int m = m0 + mc;      // the order
   const int b = blockIdx.y;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int j0 = max(m, s);
   const int ntiles = (nhalf + kTile - 1) / kTile;
-  const size_t out_col = (size_t(b) * nhalf * nm + m) * 2;
+  const size_t out_col = (size_t(b) * nhalf * nm + mc) * 2;
 
   if (j0 > lmax) {  // an order above lmax: zeros
     for (int ring = tid; ring < nhalf; ring += kThreads) {
@@ -250,12 +257,12 @@ __global__ void __launch_bounds__(kThreads)
     return;
   }
 
-  const size_t alm_col = (size_t(b) * (lmax + 1) * nm + m) * 2;
+  const size_t alm_col = (size_t(b) * (lmax + 1) * nm + mc) * 2;
   const int nchunks = (lmax - j0 + LC) / LC;
-  const double logc_p = seed[m];
-  const double sign_p = seed[nm + m];
-  const double logc_m = seed[2 * nm + m];
-  const double sign_m = seed[3 * nm + m];
+  const double logc_p = seed[mc];
+  const double sign_p = seed[nm + mc];
+  const double logc_m = seed[2 * nm + mc];
+  const double sign_m = seed[3 * nm + mc];
   // seed exponents of cos(t/2) and sin(t/2): (m+s, |m-s|) for +s and
   // swapped for -s
   const double pc = double(m + s);
@@ -345,7 +352,7 @@ template <typename T, bool kCount>
 int launch(const void* ap, const void* am, const void* x, const void* logch,
            const void* logsh, const void* seed, void* gnp, void* gsp,
            void* gnm, void* gsm, int batch, int nhalf, int nm, int lmax,
-           int spin, void* counts, void* stream) {
+           int spin, int m0, void* counts, void* stream) {
   if (batch == 0 || nm == 0 || nhalf == 0) return int(cudaSuccess);
   pair_synthesis_kernel<T, kCount>
       <<<dim3(nm, batch), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
@@ -353,7 +360,7 @@ int launch(const void* ap, const void* am, const void* x, const void* logch,
           static_cast<const T*>(x), static_cast<const double*>(logch),
           static_cast<const double*>(logsh), static_cast<const double*>(seed),
           static_cast<T*>(gnp), static_cast<T*>(gsp), static_cast<T*>(gnm),
-          static_cast<T*>(gsm), nhalf, nm, lmax, spin,
+          static_cast<T*>(gsm), nhalf, nm, lmax, spin, m0,
           static_cast<unsigned long long*>(counts));
   return int(cudaGetLastError());
 }
@@ -367,10 +374,10 @@ int heracles_synthesis_pair_f32(const void* alm_p, const void* alm_m,
                                 const void* logsh, const void* seed,
                                 void* gnp, void* gsp, void* gnm, void* gsm,
                                 int batch, int nhalf, int nm, int lmax,
-                                int spin, void* stream) {
+                                int spin, int m0, void* stream) {
   return launch<float, false>(alm_p, alm_m, x, logch, logsh, seed, gnp, gsp,
-                              gnm, gsm, batch, nhalf, nm, lmax, spin, nullptr,
-                              stream);
+                              gnm, gsm, batch, nhalf, nm, lmax, spin, m0,
+                              nullptr, stream);
 }
 
 int heracles_synthesis_pair_f64(const void* alm_p, const void* alm_m,
@@ -378,10 +385,10 @@ int heracles_synthesis_pair_f64(const void* alm_p, const void* alm_m,
                                 const void* logsh, const void* seed,
                                 void* gnp, void* gsp, void* gnm, void* gsm,
                                 int batch, int nhalf, int nm, int lmax,
-                                int spin, void* stream) {
+                                int spin, int m0, void* stream) {
   return launch<double, false>(alm_p, alm_m, x, logch, logsh, seed, gnp, gsp,
-                               gnm, gsm, batch, nhalf, nm, lmax, spin, nullptr,
-                               stream);
+                               gnm, gsm, batch, nhalf, nm, lmax, spin, m0,
+                               nullptr, stream);
 }
 
 // The float32 launch with ``counts`` (3 x uint64, zeroed by the caller)
@@ -392,9 +399,9 @@ int heracles_synthesis_pair_paths_f32(const void* alm_p, const void* alm_m,
                                       void* gnp, void* gsp, void* gnm,
                                       void* gsm, void* counts, int batch,
                                       int nhalf, int nm, int lmax, int spin,
-                                      void* stream) {
+                                      int m0, void* stream) {
   return launch<float, true>(alm_p, alm_m, x, logch, logsh, seed, gnp, gsp,
-                             gnm, gsm, batch, nhalf, nm, lmax, spin, counts,
+                             gnm, gsm, batch, nhalf, nm, lmax, spin, m0, counts,
                              stream);
 }
 

@@ -100,6 +100,12 @@ class DeviceMap:
         out.dtype = self._dtype
         return out
 
+    def block_until_ready(self):
+        """Wait for the work queued on the tensor's card; returns self."""
+        if self._array.device.type == "cuda":
+            torch.cuda.synchronize(self._array.device)
+        return self
+
     def __repr__(self):
         return (
             f"DeviceMap(shape={self.shape}, dtype={self._dtype.str}, "

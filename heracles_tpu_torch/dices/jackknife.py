@@ -96,16 +96,20 @@ def jackknife_cls(
     nd=1,
     dir="./dices",
     progress=None,
+    mesh=None,
 ):
     """Spectra of all delete-``nd`` jackknife samples (cached to ``dir``).
 
     ``dir=None`` selects the in-memory mode (no FITS caches); the default
-    keeps the restartable file cache.
+    keeps the restartable file cache.  ``mesh``: a device mesh
+    (:mod:`heracles_tpu_torch.parallel`); the region batches' transforms
+    and the sample spectra are then split across its shards (the same
+    results).
     """
     if progress is None:
         progress = NoProgress()
     alms_cache = compute_jk_alms(data_maps, vis_maps, jk_map, fields, dir=dir,
-                                 progress=progress)
+                                 progress=progress, mesh=mesh)
     return compute_jk_cls_from_alms(
         jk_map,
         fields,
@@ -115,6 +119,7 @@ def jackknife_cls(
         dir=dir,
         progress=progress,
         alms_cache=alms_cache,
+        mesh=mesh,
     )
 
 
@@ -148,7 +153,8 @@ def _estimate_alm_bytes(data_maps, vis_maps, fields, njk):
 
 
 def compute_jk_alms(data_maps, vis_maps, jk_map, fields, dir="./dices",
-                    progress=None, region_batch=8, device_cache=None):
+                    progress=None, region_batch=8, device_cache=None,
+                    mesh=None):
     """Compute and cache the alms of every jackknife region (and the full sky).
 
     Regions are processed in batches of ``region_batch``: the
@@ -167,6 +173,11 @@ def compute_jk_alms(data_maps, vis_maps, jk_map, fields, dir="./dices",
     path.  Default (None): on when ``dir`` is None, the path is batched and
     the estimated cache fits :func:`_device_cache_budget`.  Returns the
     alms computed here, keyed ``(name, k)`` with name "data" or "vis".
+
+    ``mesh``: a device mesh; each batch's stacks then go through the
+    mappers' ``transform_sharded``, the batch rounded to whole multiples
+    of the mesh's "batch" axis, and the alms come back to the host (a
+    device cache with a mesh raises).
     """
     if progress is None:
         progress = NoProgress()
@@ -176,6 +187,10 @@ def compute_jk_alms(data_maps, vis_maps, jk_map, fields, dir="./dices",
     njk = _n_regions(jk_map)
     progress.update(0, njk + 1)
     cache = {}
+    if mesh is not None:
+        # fill the mesh: whole multiples of the batch axis per dispatch
+        nb = mesh.shape["batch"]
+        region_batch = max(region_batch, nb) // nb * nb
     batched_ok = region_batch > 1 and all(
         getattr(fields[key[0]].mapper_or_error, "batched_transform", False)
         for key in list(data_maps) + list(vis_maps)
@@ -186,15 +201,15 @@ def compute_jk_alms(data_maps, vis_maps, jk_map, fields, dir="./dices",
                 "device_cache=True requires dir=None (the device cache "
                 "replaces the FITS checkpoints)"
             )
-        if not batched_ok:
+        if not batched_ok or mesh is not None:
             raise ValueError(
                 "device_cache requires the batched path (region_batch > 1, "
-                "batched-transform mappers)"
+                "no mesh, batched-transform mappers)"
             )
         resident = True
     elif device_cache is None:
         resident = (
-            dir is None and batched_ok
+            dir is None and batched_ok and mesh is None
             and _estimate_alm_bytes(data_maps, vis_maps, fields, njk)
             <= _device_cache_budget()
         )
@@ -204,7 +219,7 @@ def compute_jk_alms(data_maps, vis_maps, jk_map, fields, dir="./dices",
         for k in range(njk + 1):
             with progress.task(f"ALMs {k}"):
                 _compute_single_jk_alm(k, data_maps, vis_maps, jk_map, fields,
-                                       dir, cache=cache)
+                                       dir, cache=cache, mesh=mesh)
             progress.update(k + 1, njk + 1)
         return cache
     pending = [
@@ -233,7 +248,7 @@ def compute_jk_alms(data_maps, vis_maps, jk_map, fields, dir="./dices",
                 }
         else:
             _compute_single_jk_alm(0, data_maps, vis_maps, jk_map, fields,
-                                   dir, cache=cache)
+                                   dir, cache=cache, mesh=mesh)
     progress.update(1, njk + 1)
     done = njk - len(pending)
     progress.update(1 + done, njk + 1)
@@ -248,7 +263,7 @@ def compute_jk_alms(data_maps, vis_maps, jk_map, fields, dir="./dices",
         ks = pending[start : start + region_batch]
         with progress.task(f"ALMs {ks[0]}..{ks[-1]}"):
             fin = _dispatch_batched_jk_alms(ks, fields, dir, device_state,
-                                            cache, resident)
+                                            cache, resident, mesh)
             if prev_finish is not None:
                 prev_finish()
                 done += prev_len
@@ -290,14 +305,15 @@ def _device_region_maps(maps, fields):
 
 
 def _dispatch_batched_jk_alms(ks, fields, dir, device_state, cache,
-                              resident):
+                              resident, mesh=None):
     """Dispatch one batched transform per map key over the maps of
     ``device_state`` masked to the regions ``ks``.
 
     Returns a zero-argument *finisher*.  With ``resident`` it slices the
     batched alms into per-region DeviceMap cache entries; otherwise the
-    transforms were dispatched with :meth:`transform_async` and it waits
-    for the host alms and writes the per-region FITS caches.
+    transforms were dispatched with :meth:`transform_async` (with a
+    ``mesh``: :meth:`transform_sharded`) and it waits for the host alms
+    and writes the per-region FITS caches.
     """
     dev_data, dev_vis, jk_dev = device_state
     ks_arr = torch.as_tensor(np.asarray(ks, np.float32), dtype=jk_dev.dtype,
@@ -309,8 +325,14 @@ def _dispatch_batched_jk_alms(ks, fields, dir, device_state, cache,
             field = fields[key[0]]
             stacked = _masked_stack(arr, jk_dev.to(arr.device),
                                     ks_arr.to(arr.device))
-            out[key] = getattr(field.mapper_or_error, method)(
-                stacked, spin=field.spin, metadata=md)
+            mapper = field.mapper_or_error
+            if mesh is not None:
+                alm = mapper.transform_sharded(mesh, stacked, spin=field.spin,
+                                               metadata=md)
+                out[key] = lambda alm=alm: np.asarray(alm)
+            else:
+                out[key] = getattr(mapper, method)(stacked, spin=field.spin,
+                                                   metadata=md)
         return out
 
     if resident:
@@ -350,7 +372,7 @@ def _store_batched_jk_alms(ks, data_batched, vis_batched, dir, cache):
 
 
 def _compute_single_jk_alm(k, data_maps, vis_maps, jk_map, fields, dir,
-                           cache):
+                           cache, mesh=None):
     """Region k's alms (k = 0: the full footprint) through ``transform``,
     as host numpy arrays with their metadata; skipped where ``dir`` holds
     them."""
@@ -364,8 +386,10 @@ def _compute_single_jk_alm(k, data_maps, vis_maps, jk_map, fields, dir,
     else:
         data = _get_region_maps(data_maps, jk_map, k)
         vis = _get_region_maps(vis_maps, jk_map, k)
-    data_alms = {key: np.asarray(a) for key, a in transform(fields, data).items()}
-    vis_alms = {key: np.asarray(a) for key, a in transform(fields, vis).items()}
+    data_alms = {key: np.asarray(a)
+                 for key, a in transform(fields, data, mesh=mesh).items()}
+    vis_alms = {key: np.asarray(a)
+                for key, a in transform(fields, vis, mesh=mesh).items()}
     if dir is not None:
         write_alms(data_path, data_alms, clobber=True)
         write_alms(vis_path, vis_alms, clobber=True)
@@ -383,6 +407,7 @@ def compute_jk_cls_from_alms(
     progress=None,
     sample_batch=16,
     alms_cache=None,
+    mesh=None,
 ):
     """Spectra of every delete-``nd`` region combination from cached alms.
 
@@ -394,7 +419,8 @@ def compute_jk_cls_from_alms(
     assembled on the device; otherwise on the host, and the grids run on
     the fields' mapper device.  With ``dir`` each sample's spectra are
     cached in ``cls_{regions}_unmixed_{unmixed}.fits`` and read back from
-    there when present.
+    there when present.  ``mesh``: the spectra's pair grids split across a
+    device mesh's shards (the same spectra).
     """
     cache = alms_cache or {}
     jk_map = _labels(jk_map)
@@ -411,7 +437,7 @@ def compute_jk_cls_from_alms(
         return alms
 
     if nd == 0:
-        return {(): angular_power_spectra(_load_alms("data", 0))}
+        return {(): angular_power_spectra(_load_alms("data", 0), mesh=mesh)}
     if nd < 1 or nd > 2:
         raise ValueError("number of deletions must be 1 or 2")
     if mask_correction not in ("Fast", "Full"):
@@ -441,7 +467,7 @@ def compute_jk_cls_from_alms(
         return cls
 
     full = {name: _load_alms(name, 0) for name in ("data", "vis")}
-    mls0 = (angular_power_spectra(full["vis"])
+    mls0 = (angular_power_spectra(full["vis"], mesh=mesh)
             if mask_correction == "Full" else None)
     names = ("data", "vis") if mask_correction == "Full" else ("data",)
 
@@ -462,7 +488,8 @@ def compute_jk_cls_from_alms(
             stacks = {key: _assemble_deletek(alms[key].array, R[key], idx)
                       for key in alms}
             md = {key: alms[key].metadata for key in alms}
-            return angular_power_spectra_sample_stacks(stacks, md, len(batch))
+            return angular_power_spectra_sample_stacks(stacks, md, len(batch),
+                                                       mesh=mesh)
     else:
         device = _fields_device(fields.values())
 
@@ -475,7 +502,7 @@ def compute_jk_cls_from_alms(
                 for regions in batch
             ]
             return angular_power_spectra_samples(
-                [to_torch(alms, device) for alms in alm_sets])
+                [to_torch(alms, device) for alms in alm_sets], mesh=mesh)
 
     step = max(1, sample_batch)
     for start in range(0, len(pending), step):

@@ -20,7 +20,7 @@ points in place of rings) or gridded (:mod:`heracles_tpu_torch.ops.nufft`).
 
 from __future__ import annotations
 
-from functools import cache, cached_property
+from functools import cached_property
 
 import numpy as np
 import torch
@@ -234,28 +234,60 @@ class HealpixMapper:
         allocator does not hand its memory out before the copy is done.
         """
         alm = self.transform(data, spin, metadata=metadata)
-        arr = alm.array
-        if arr.device.type != "cuda":
-            return lambda: np.asarray(alm)
-        computed = torch.cuda.Event()
-        computed.record(torch.cuda.current_stream(arr.device))
-        side = _copy_stream(arr.device)
-        side.wait_event(computed)
-        host = torch.empty(arr.shape, dtype=arr.dtype, pin_memory=True)
-        with torch.cuda.stream(side):
-            host.copy_(arr, non_blocking=True)
-            copied = torch.cuda.Event()
-            copied.record(side)
-        arr.record_stream(side)
-        dtype = alm.dtype
+        copied = sht._host_copy_async(alm.array)
 
         def finish():
-            copied.synchronize()
-            out = host.numpy()
-            out.dtype = dtype
+            out = copied()
+            out.dtype = alm.dtype
             return out
 
         return finish
+
+    def transform_sharded(self, mesh, data, spin=0, *, metadata=None):
+        """Batched analysis over a device mesh (:mod:`..parallel`).
+
+        ``data``: (B, npix) spin-0 or (B, 2, npix) [Q, U] stacked maps (a
+        DeviceMap, a tensor or a numpy array); the batch is split over the
+        mesh's "batch" axis and each transform's orders over its "m" axis.
+        Returns a DeviceMap of packed alms (B[, 2], nlm) on the mesh's
+        first device, equal to :meth:`transform` of the same stack.  The
+        mapper's Jacobi iterations run sharded too (the reference's
+        ``transform_sharded`` leaves them out).
+        """
+        from .parallel import alm2map_sharded, map2alm_sharded
+
+        arr, md = self._unwrap(data, metadata)
+        rect = map2alm_sharded(mesh, arr, self._lmax, spin=spin,
+                               weights="ring", dd=self._dd)
+        for _ in range(self._iterations):
+            resid = arr.to(rect.device) - alm2map_sharded(
+                mesh, rect, self._nside, lmax=self._lmax, spin=spin,
+                dd=self._dd)
+            rect = rect + map2alm_sharded(mesh, resid, self._lmax, spin=spin,
+                                          weights="ring", dd=self._dd)
+        alm = sht.pack_alm(rect[..., : self._lmax + 1], self._lmax,
+                           self._lmax)
+        if self._deconv:
+            alm = alm * self._fl_packed(spin, alm.real.dtype).to(alm.device)
+        return DeviceMap(alm, metadata={**md, "deconv": self._deconv})
+
+    def synthesize_sharded(self, mesh, alm, spin=0):
+        """Batched synthesis over a device mesh: the inverse of
+        :meth:`transform_sharded`.
+
+        ``alm``: a (B, nlm) or (B, 2, nlm) [E, B] packed stack (a
+        DeviceMap, a tensor or a numpy array); bins are split over "batch"
+        and each synthesis' orders over "m".  Returns a DeviceMap of
+        (B[, 2], npix) maps on the mesh's first device, equal to
+        :meth:`synthesize` of the same stack.
+        """
+        from .parallel import alm2map_sharded
+
+        arr, _ = self._unwrap(alm, None)
+        rect = sht.unpack_alm(arr, self._lmax, self._lmax)
+        out = alm2map_sharded(mesh, rect, self._nside, lmax=self._lmax,
+                              spin=spin, dd=self._dd)
+        return DeviceMap(out.to(self._dtype), metadata=self._metadata(spin))
 
     def synthesize(self, alm, spin=0):
         """Inverse transform: packed alms -> a DeviceMap of maps.
@@ -446,10 +478,11 @@ class DiscreteMapper:
         out = alm.to(self._dtype).reshape(tuple(state["dims"]) + alm.shape[-1:])
         return DeviceMap(out.contiguous(), metadata=self._metadata(spin))
 
-    def _adjoint_synthesis(self, theta, phi, values, spin):
-        """The exact point adjoint, block by block: (rows, nlm) alms."""
+    def _adjoint_synthesis(self, theta, phi, values, spin, device=None):
+        """The exact point adjoint, block by block: (rows, nlm) alms on
+        ``device`` (default the mapper's)."""
         lmax = self._lmax
-        dev = self._device
+        dev = self._device if device is None else device
         real = torch.float64 if self._dtype == torch.complex128 else torch.float32
         out = torch.zeros((values.shape[0], self._nlm()), dtype=self._dtype,
                           device=dev)
@@ -481,6 +514,36 @@ class DiscreteMapper:
                                    spin)
                 out += eb.reshape(out.shape)
         return out
+
+    def adjoint_synthesis_sharded(self, mesh, theta, phi, values, spin=0):
+        """The exact point adjoint with the points split over a device mesh.
+
+        ``theta``, ``phi``: (npts,) radians; ``values``: (npts,) or (rows,
+        npts), the two components of a spin-s field as two rows.  The
+        point axis is cut into one equal block per shard (padded with
+        zero-valued points at theta = pi/2, which add nothing); each shard
+        runs the block path of the exact adjoint (the analysis kernels with
+        the points in place of rings) on its device, and the partial alms
+        are summed.  Returns packed alms (rows, nlm) on the mesh's first
+        device, as the exact path of :meth:`map_values` computes them.
+        """
+        from .parallel import _psum
+
+        devices = list(mesh.devices.flat)
+        theta = np.asarray(theta, np.float64)
+        phi = np.asarray(phi, np.float64)
+        values = np.atleast_2d(np.asarray(values))
+        per = -(-theta.size // len(devices))
+        pad = per * len(devices) - theta.size
+        theta = np.pad(theta, (0, pad), constant_values=np.pi / 2)
+        phi = np.pad(phi, (0, pad))
+        values = np.pad(values, ((0, 0), (0, pad)))
+        parts = [self._adjoint_synthesis(theta[i * per:(i + 1) * per],
+                                         phi[i * per:(i + 1) * per],
+                                         values[:, i * per:(i + 1) * per],
+                                         spin, device=d)
+                 for i, d in enumerate(devices)]
+        return _psum(parts, devices, dest=devices[0])
 
     def transform(self, data, spin=0):
         """Identity: the data already are alms."""
@@ -553,8 +616,3 @@ def _adjoint_spin(x, logch, logsh, phi, u, lmax, spin):
     Fc = u.conj()[..., :, None] * phase
     return sht._analysis_points((F, Fc), x, logch, logsh, lmax, (spin, -spin))
 
-
-@cache
-def _copy_stream(device):
-    """The side stream of a card on which alms are copied to the host."""
-    return torch.cuda.Stream(device)

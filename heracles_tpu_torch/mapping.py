@@ -81,7 +81,7 @@ def map_catalogs(
     return out
 
 
-def transform(fields, data, *, out=None, progress=None, batch=8):
+def transform(fields, data, *, out=None, progress=None, batch=8, mesh=None):
     """Transform maps to alms via each field's mapper.
 
     Fills in missing spin metadata from the field and raises on a
@@ -90,6 +90,11 @@ def transform(fields, data, *, out=None, progress=None, batch=8):
     take leading batch dims), capped so that a stack holds at most 2e8
     elements: at nside 4096 every map transforms on its own.  Per-map
     metadata is preserved on the batched path.
+
+    ``mesh``: a :class:`~heracles_tpu_torch.parallel.Mesh`.  A group
+    whose mapper has ``transform_sharded`` then goes out whole, as one
+    stack split over the mesh (even a group of one map); the alms come
+    back on the mesh's first device, equal to the unsharded ones.
     """
     if out is None:
         out = TocDict()
@@ -118,7 +123,8 @@ def transform(fields, data, *, out=None, progress=None, batch=8):
     groups = {}
     for idx, (key, field, m) in enumerate(items):
         mapper = field.mapper_or_error
-        if batch and batch > 1 and getattr(mapper, "batched_transform", False):
+        if ((mesh is not None or (batch and batch > 1))
+                and getattr(mapper, "batched_transform", False)):
             dev = m.device if isinstance(m, DeviceMap) else None
             gkey = (id(mapper), field.spin, tuple(np.shape(m)),
                     np.dtype(m.dtype.str), dev)
@@ -131,20 +137,32 @@ def transform(fields, data, *, out=None, progress=None, batch=8):
     current, total = 0, len(items)
     progress.update(0, total)
     for gkey, idxs in groups.items():
-        elems = int(np.prod(np.shape(items[idxs[0]][2]))) or 1
-        step = 1 if gkey[0] == "solo" else max(1, min(batch, _STACK_ELEMS // elems))
         mapper = items[idxs[0]][1].mapper_or_error
         spin = items[idxs[0]][1].spin
+        sharded = (mesh is not None and gkey[0] != "solo"
+                   and hasattr(mapper, "transform_sharded"))
+        elems = int(np.prod(np.shape(items[idxs[0]][2]))) or 1
+        if sharded:
+            step = len(idxs)
+        elif gkey[0] == "solo":
+            step = 1
+        else:
+            step = max(1, min(batch, _STACK_ELEMS // elems))
         for start in range(0, len(idxs), step):
             chunk = idxs[start : start + step]
             labels = ", ".join(str(items[idx][0]) for idx in chunk)
             with progress.task(f"[{labels}]"):
-                if len(chunk) == 1:
+                if len(chunk) == 1 and not sharded:
                     m = items[chunk[0]][2]
                     results[chunk[0]] = mapper.transform(m, spin=spin)
                 else:
-                    alms = mapper.transform(_stack([items[idx][2] for idx in chunk]),
-                                            spin=spin, metadata={"spin": spin})
+                    stack = _stack([items[idx][2] for idx in chunk])
+                    if sharded:
+                        alms = mapper.transform_sharded(
+                            mesh, stack, spin=spin, metadata={"spin": spin})
+                    else:
+                        alms = mapper.transform(stack, spin=spin,
+                                                metadata={"spin": spin})
                     for row, idx in enumerate(chunk):
                         alm = alms[row]
                         md = dict(items[idx][2].dtype.metadata or {})

@@ -47,21 +47,21 @@ _D = ctypes.c_double
 # every extern "C" function of SOURCES: name -> (restype, argtypes); the
 # launchers return cudaGetLastError() as an int
 _SIGNATURES = {
-    "heracles_analysis_spin0_f32": (_I, [_P] * 7 + [_I] * 4 + [_P]),
-    "heracles_analysis_spin0_f64": (_I, [_P] * 7 + [_I] * 4 + [_P]),
-    "heracles_analysis_spin0_paths_f32": (_I, [_P] * 8 + [_I] * 4 + [_P]),
+    "heracles_analysis_spin0_f32": (_I, [_P] * 7 + [_I] * 5 + [_P]),
+    "heracles_analysis_spin0_f64": (_I, [_P] * 7 + [_I] * 5 + [_P]),
+    "heracles_analysis_spin0_paths_f32": (_I, [_P] * 8 + [_I] * 5 + [_P]),
     "heracles_analysis_spin0_blocks_per_sm": (_I, [_I, _P]),
     "heracles_cuda_error_string": (ctypes.c_char_p, [_I]),
-    "heracles_analysis_pair_f32": (_I, [_P] * 10 + [_I] * 5 + [_P]),
-    "heracles_analysis_pair_f64": (_I, [_P] * 10 + [_I] * 5 + [_P]),
+    "heracles_analysis_pair_f32": (_I, [_P] * 10 + [_I] * 6 + [_P]),
+    "heracles_analysis_pair_f64": (_I, [_P] * 10 + [_I] * 6 + [_P]),
     "heracles_analysis_pair_blocks_per_sm": (_I, [_I, _P]),
-    "heracles_synthesis_spin0_f32": (_I, [_P] * 7 + [_I] * 4 + [_P]),
-    "heracles_synthesis_spin0_f64": (_I, [_P] * 7 + [_I] * 4 + [_P]),
-    "heracles_synthesis_spin0_paths_f32": (_I, [_P] * 8 + [_I] * 4 + [_P]),
+    "heracles_synthesis_spin0_f32": (_I, [_P] * 7 + [_I] * 5 + [_P]),
+    "heracles_synthesis_spin0_f64": (_I, [_P] * 7 + [_I] * 5 + [_P]),
+    "heracles_synthesis_spin0_paths_f32": (_I, [_P] * 8 + [_I] * 5 + [_P]),
     "heracles_synthesis_spin0_blocks_per_sm": (_I, [_I, _P]),
-    "heracles_synthesis_pair_f32": (_I, [_P] * 10 + [_I] * 5 + [_P]),
-    "heracles_synthesis_pair_f64": (_I, [_P] * 10 + [_I] * 5 + [_P]),
-    "heracles_synthesis_pair_paths_f32": (_I, [_P] * 11 + [_I] * 5 + [_P]),
+    "heracles_synthesis_pair_f32": (_I, [_P] * 10 + [_I] * 6 + [_P]),
+    "heracles_synthesis_pair_f64": (_I, [_P] * 10 + [_I] * 6 + [_P]),
+    "heracles_synthesis_pair_paths_f32": (_I, [_P] * 11 + [_I] * 6 + [_P]),
     "heracles_synthesis_pair_blocks_per_sm": (_I, [_I, _P]),
     "heracles_gram_f64": (_I, [_P] * 4 + [_I] * 3 + [_P]),
     "heracles_fma_peak_f32": (_I, [_P] * 3 + [_I] * 4 + [_P]),

@@ -18,6 +18,10 @@ The tensor decides the path:
   (``heracles_tpu_torch/csrc/gram.cu``, built at first use by
   :mod:`._build`), or raises.
 
+:func:`gram_sharded` is the twin of ``gram_df32_sharded``: the node axis
+split over a device mesh, one contraction per shard, the float64 partials
+summed.
+
 ``LAUNCHES`` counts kernel launches and ``PLAIN_RUNS`` runs of the plain
 version, both under the name ``"gram"``.
 """
@@ -28,7 +32,8 @@ import collections
 
 import torch
 
-__all__ = ["gram", "gram_plain", "LAUNCHES", "PLAIN_RUNS", "reset_counts"]
+__all__ = ["gram", "gram_plain", "gram_sharded", "LAUNCHES", "PLAIN_RUNS",
+           "reset_counts"]
 
 LAUNCHES = collections.Counter()
 PLAIN_RUNS = collections.Counter()
@@ -100,3 +105,35 @@ def gram(A, B, u=None):
     if A.device.type == "cpu":
         return gram_plain(A, B, u)
     return _launch(A, B, u)
+
+
+def gram_sharded(mesh, A, B, u=None):
+    """:func:`gram` with the node axis K split over every shard of ``mesh``.
+
+    K is cut into equal contiguous blocks, one per shard in the mesh's
+    order; the last is zero-padded (zero rows of ``A`` and ``B``, zero
+    weight), so the padding adds exactly nothing.  Each shard runs
+    :func:`gram` on its block on its device and the float64 partials are
+    summed (``parallel._psum``; the emulated float64 of the TPU kernel
+    needed a renormalised reduction there, native float64 does not).
+    Returns (L1, L2) float64 on the mesh's first device.
+    """
+    from ..parallel import _psum
+
+    devices = list(mesh.devices.flat)
+    K = A.shape[0]
+    per = -(-K // len(devices))
+
+    local = [[None if t is None else
+              _pad_rows(t[i * per:(i + 1) * per], per).to(d)
+              for t in (A, B, u)] for i, d in enumerate(devices)]
+    return _psum([gram(*blocks) for blocks in local], devices,
+                 dest=devices[0])
+
+
+def _pad_rows(t, n):
+    """``t`` with zero rows appended up to ``n`` rows."""
+    pad = n - t.shape[0]
+    if pad <= 0:
+        return t
+    return torch.cat([t, t.new_zeros((pad,) + t.shape[1:])])

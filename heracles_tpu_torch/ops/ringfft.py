@@ -14,7 +14,11 @@ and ``4*nside`` in the belt), so:
 
 Ring rows are extracted, and written back by the synthesis, by one index
 operation per bucket whose index is built on the tensors' device.  Chirps
-and phases are built in float64 and rounded to the working type.
+and phases are built in float64 and rounded to the working type.  The
+plan's host arrays go to the card without waiting for the work queued
+there (:func:`_upload`), and nothing is read back, so a transform queues
+its work without waiting on the card (the loop over a device mesh's
+shards relies on it).
 """
 
 from __future__ import annotations
@@ -92,6 +96,12 @@ def ring_plan(nside, mext):
     return tuple(buckets)
 
 
+def _upload(a, device, dtype=None):
+    """Host array ``a`` on ``device``.  Pageable host memory is staged at
+    once, so the copy need not wait for the work queued on the card."""
+    return torch.as_tensor(a, dtype=dtype).to(device, non_blocking=True)
+
+
 def _chirp(q, nph, sign, cdt):
     """exp(sign * i pi q^2 / nph) for int64 q >= 0 (q^2 reduced mod 2 nph)."""
     ang = math.pi * ((q * q) % (2 * nph)).to(torch.float64) / nph
@@ -118,13 +128,13 @@ def _bluestein_dft(vals, nph, L, *, sign, out_extent):
     return conv * w
 
 
-def _cap_rows(maps, pix0, nph, L):
+def _cap_rows(maps, pix0, nph, nmax, L):
     """Rings of a cap bucket from the flat pixel axis, zero-padded to L.
 
-    ``nph``: (R,) int64 tensor of ring lengths; the rings are contiguous
-    from pixel ``pix0``.  The row indices are built on the maps' device.
+    ``nph``: (R,) int64 tensor of ring lengths, ``nmax`` the largest (an
+    int); the rings are contiguous from pixel ``pix0``.  The row indices
+    are built on the maps' device.
     """
-    nmax = int(nph.max())
     starts = pix0 + torch.cumsum(nph, 0) - nph
     p = torch.arange(nmax, device=maps.device)
     inside = p < nph[:, None]
@@ -135,28 +145,33 @@ def _cap_rows(maps, pix0, nph, L):
     return out
 
 
-def ring_analysis(maps, nside, nm, *, weight=None):
+def ring_analysis(maps, nside, nm, *, weight=None, m0=0):
     """Per-ring Fourier coefficients F[..., r, m] = sum_p v_p e^{-i m phi_p}.
 
     ``maps``: (..., npix) real or complex tensor, RING ordering; orders
-    m = 0..nm-1.  ``weight``: optional (nrings,) real per-ring factor (the
-    quadrature weights) folded into the phase.  Returns ``(F, Fneg)``
-    complex (..., nrings, nm); ``Fneg`` (the orders -m) is None for real
-    input, where F_{-m} = conj(F_m).
+    m = m0..m0+nm-1 (a device mesh's block of orders).  The block is
+    sliced out of the transform of the orders 0..m0+nm-1 (its FFTs and
+    its ring plan are those of m0 + nm orders, and the phases are taken
+    per order), so its columns are that transform's, bit for bit.
+    ``weight``: optional (nrings,) real per-ring factor (the quadrature
+    weights) folded into the phase.  Returns ``(F, Fneg)`` complex
+    (..., nrings, nm); ``Fneg`` (the orders -m) is None for real input,
+    where F_{-m} = conj(F_m).
     """
     complex_in = maps.is_complex()
     cdt = _COMPLEX[maps.dtype]
     dev = maps.device
-    plan = ring_plan(nside, nm)
-    m = torch.arange(nm, dtype=torch.float64, device=dev)[None, :]
-    w = None if weight is None else torch.as_tensor(
-        weight, dtype=torch.float64, device=dev)
+    m0, nm = int(m0), int(nm)
+    mext = m0 + nm
+    plan = ring_plan(nside, mext)
+    m = torch.arange(m0, mext, dtype=torch.float64, device=dev)[None, :]
+    w = None if weight is None else _upload(weight, dev, torch.float64)
 
     out_pos, out_neg = [], []
     for b in plan:
         L = b["L"]
         r0, r1 = b["rings"]
-        phi0 = torch.as_tensor(b["phi0"], device=dev)[:, None]
+        phi0 = _upload(b["phi0"], dev)[:, None]
         phase = torch.polar(torch.ones_like(m * phi0), -m * phi0)
         if w is not None:
             phase = phase * w[r0:r1, None]
@@ -164,24 +179,26 @@ def ring_analysis(maps, nside, nm, *, weight=None):
         if b["belt"]:
             p0, p1 = b["pix"]
             rows = maps[..., p0:p1].reshape(maps.shape[:-1] + (r1 - r0, L))
-            if not complex_in and nm <= L // 2 + 1:
+            if not complex_in and mext <= L // 2 + 1:
                 # real input: the half spectrum covers every order
-                out_pos.append(torch.fft.rfft(rows, dim=-1)[..., :nm] * phase)
+                out_pos.append(torch.fft.rfft(rows, dim=-1)[..., m0:mext]
+                               * phase)
                 continue
             C = torch.fft.fft(rows.to(cdt), dim=-1)
             # orders beyond the ring length alias (m mod nph)
-            k = torch.remainder(torch.arange(nm, device=dev), L)
+            k = torch.remainder(torch.arange(m0, mext, device=dev), L)
             out_pos.append(C[..., k] * phase)
             if complex_in:
                 out_neg.append(C[..., torch.remainder(-k, L)] * phase.conj())
             continue
-        nph = torch.as_tensor(b["nph"], device=dev)
-        rows = _cap_rows(maps, b["pix"][0], nph, L).to(cdt)
-        C = _bluestein_dft(rows, nph, L, sign=-1, out_extent=nm)
-        out_pos.append(C[..., :nm] * phase)
+        nph = _upload(b["nph"], dev)
+        rows = _cap_rows(maps, b["pix"][0], nph, int(b["nph"].max()),
+                         L).to(cdt)
+        C = _bluestein_dft(rows, nph, L, sign=-1, out_extent=mext)
+        out_pos.append(C[..., m0:mext] * phase)
         if complex_in:
-            Cn = _bluestein_dft(rows, nph, L, sign=+1, out_extent=nm)
-            out_neg.append(Cn[..., :nm] * phase.conj())
+            Cn = _bluestein_dft(rows, nph, L, sign=+1, out_extent=mext)
+            out_neg.append(Cn[..., m0:mext] * phase.conj())
     F = torch.cat(out_pos, dim=-2)
     if complex_in:
         return F, torch.cat(out_neg, dim=-2)
@@ -230,7 +247,7 @@ def ring_synthesis(h_pos, h_neg, nside, *, real_output=True):
     for b in plan:
         L = b["L"]
         r0, r1 = b["rings"]
-        phi0 = torch.as_tensor(b["phi0"], device=dev)[:, None]
+        phi0 = _upload(b["phi0"], dev)[:, None]
         phase = torch.polar(torch.ones_like(m * phi0), m * phi0).to(cdt)
         hp = h_pos[..., r0:r1, :] * phase
         if h_neg is None:
@@ -256,7 +273,7 @@ def ring_synthesis(h_pos, h_neg, nside, *, real_output=True):
                 v = v.real
             pieces.append(v.reshape(v.shape[:-2] + ((r1 - r0) * L,)))
             continue
-        nph = torch.as_tensor(b["nph"], device=dev)
+        nph = _upload(b["nph"], dev)
         nmax = int(b["nph"].max())
         pad = hp.new_zeros(hp.shape[:-1] + (L - nm,))
         if h_neg is None:

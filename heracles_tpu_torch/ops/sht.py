@@ -43,7 +43,14 @@ __all__ = [
     "ring_weights",
     "pixel_window",
     "resolve_lmax",
+    "map2alm_host",
+    "alm2map_host",
+    "map2alm_async",
 ]
+
+# the reference's padding unit of the order axis: a device mesh's blocks of
+# orders are whole multiples of it (:func:`_mmax_pad`)
+DEFAULT_M_CHUNK = 128
 
 
 def resolve_lmax(nside, lmax=None):
@@ -87,6 +94,11 @@ def unpack_alm(alm_packed, lmax, mmax=None):
     out = alm_packed.new_zeros(alm_packed.shape[:-1] + ((lmax + 1) * (mmax + 1),))
     out[..., _flat_pack_index(lmax, mmax, alm_packed.device)] = alm_packed
     return out.reshape(alm_packed.shape[:-1] + (lmax + 1, mmax + 1))
+
+
+def _mmax_pad(mmax, m_chunk):
+    """Orders 0..mmax padded up to whole chunks of ``m_chunk``."""
+    return ((mmax + 1 + m_chunk - 1) // m_chunk) * m_chunk
 
 
 @functools.lru_cache(maxsize=32)
@@ -173,22 +185,23 @@ def _fold_rings(F, nside):
 def _geometry(nside, device):
     """Northern-ring x (float64), log cos(theta/2), log sin(theta/2)."""
     nhalf = 2 * nside
-    return tuple(torch.as_tensor(a[:nhalf], device=device)
+    return tuple(ringfft._upload(a[:nhalf], device)
                  for a in _geom_arrays(nside))
 
 
-def _folded_inputs(Fw, ns):
+def _folded_inputs(Fw, ns, m0=0):
     """The folded kernel inputs for full-ring spectra ``Fw`` of columns ``ns``.
 
     N/S mirror symmetry pairs column +n with column -n: each branch's
     even/odd inputs combine its own northern rows with its partner
-    branch's southern rows, which carry a (-1)^m per-order sign.  Returns
-    (Fe, Fo) for one spin-0 column, (FNp, Sp, FNm, Sm) for a +-s pair.
+    branch's southern rows, which carry a (-1)^m per-order sign (column c
+    is the order ``m0`` + c).  Returns (Fe, Fo) for one spin-0 column,
+    (FNp, Sp, FNm, Sm) for a +-s pair.
     """
     nm = Fw[0].shape[-1]
     nside = (Fw[0].shape[-2] + 1) // 4
     msign = torch.ones(nm, dtype=Fw[0].real.dtype, device=Fw[0].device)
-    msign[1::2] = -1.0
+    msign[(m0 + 1) % 2::2] = -1.0
     folded = [_fold_rings(f, nside) for f in Fw]
     if len(ns) == 1:
         FN, FS = folded[0]
@@ -213,21 +226,23 @@ def _narrow(arrays, dtype):
     return arrays if dtype is None else tuple(a.to(dtype) for a in arrays)
 
 
-def _analysis_rect(Fw, lmax, ns, dd=False):
+def _analysis_rect(Fw, lmax, ns, dd=False, m0=0):
     """Folded Wigner analysis of full-ring spectra; tuple of rect alms.
 
-    With ``dd`` the folded complex64 spectra are widened to complex128, so
-    the recurrence and the ring sums run in float64, and the alms come
-    back as complex64.
+    Column c of ``Fw`` and of the alms is the order ``m0`` + c.  With
+    ``dd`` the folded complex64 spectra are widened to complex128, so the
+    recurrence and the ring sums run in float64, and the alms come back as
+    complex64.
     """
     nside = (Fw[0].shape[-2] + 1) // 4
     x, logch, logsh = _geometry(nside, Fw[0].device)
-    args, back = _widen(_folded_inputs(Fw, ns), dd)
+    args, back = _widen(_folded_inputs(Fw, ns, m0), dd)
     if len(ns) == 1:
-        out = (sht_kernels.analysis_spin0_folded(*args, x, logch, logsh, lmax),)
+        out = (sht_kernels.analysis_spin0_folded(*args, x, logch, logsh, lmax,
+                                                 m0),)
     else:
         out = sht_kernels.analysis_pair_folded(*args, x, logch, logsh, lmax,
-                                               abs(int(ns[0])))
+                                               abs(int(ns[0])), m0)
     return _narrow(out, back)
 
 
@@ -279,22 +294,23 @@ def _unfold_rings(GN, GS):
     return torch.cat([GN, torch.flip(GS[..., :-1, :], dims=(-2,))], dim=-2)
 
 
-def _synthesis_rect(alms, lmax, ns, nside, dd=False):
+def _synthesis_rect(alms, lmax, ns, nside, dd=False, m0=0):
     """Folded Wigner synthesis of rect alms; tuple of full-ring spectra.
 
-    ``alms``: one (..., lmax+1, nm) array per spin column n in ``ns``;
-    returns one (..., nrings, nm) array each.  With ``dd`` complex64 alms
-    are widened to complex128 for the recurrence and its sums, and the
-    ring spectra come back as complex64.
+    ``alms``: one (..., lmax+1, nm) array per spin column n in ``ns``,
+    column c being the order ``m0`` + c; returns one (..., nrings, nm)
+    array each.  With ``dd`` complex64 alms are widened to complex128 for
+    the recurrence and its sums, and the ring spectra come back as
+    complex64.
     """
     x, logch, logsh = _geometry(nside, alms[0].device)
     alms, back = _widen(tuple(alms), dd)
     if len(ns) == 1:
         GN, GS = _narrow(sht_kernels.synthesis_spin0_folded(
-            alms[0], x, logch, logsh, lmax), back)
+            alms[0], x, logch, logsh, lmax, m0), back)
         return (_unfold_rings(GN, GS),)
     GNp, GSp, GNm, GSm = _narrow(sht_kernels.synthesis_pair_folded(
-        alms[0], alms[1], x, logch, logsh, lmax, abs(int(ns[0]))), back)
+        alms[0], alms[1], x, logch, logsh, lmax, abs(int(ns[0])), m0), back)
     return _unfold_rings(GNp, GSp), _unfold_rings(GNm, GSm)
 
 
@@ -335,16 +351,24 @@ def map2alm(maps, lmax=None, mmax=None, *, spin=0, weights="ring",
 
 def _map2alm_once(maps, nside, lmax, mmax, spin, weights, dd=False):
     """One analysis pass; rectangular alms (E, B stacked for spin 2)."""
-    w = _weights_arr(nside, weights)
+    return _map2alm_block(maps, nside, lmax, 0, mmax + 1, spin,
+                          _weights_arr(nside, weights), dd)
+
+
+def _map2alm_block(maps, nside, lmax, m0, nm, spin, w, dd=False):
+    """One analysis pass of the orders m0..m0+nm-1 (per-ring weights
+    ``w``): rectangular (..., lmax+1, nm) alms, E, B stacked for spin 2;
+    orders above lmax are zeros."""
     if spin == 0:
-        F, _ = ringfft.ring_analysis(maps, nside, mmax + 1, weight=w)
-        (out,) = _analysis_rect((F,), lmax, (0,), dd)
+        F, _ = ringfft.ring_analysis(maps, nside, nm, weight=w, m0=m0)
+        (out,) = _analysis_rect((F,), lmax, (0,), dd, m0)
         return out
     u = torch.complex(maps[..., 0, :], maps[..., 1, :])
-    F, Fneg = ringfft.ring_analysis(u, nside, mmax + 1, weight=w)
+    F, Fneg = ringfft.ring_analysis(u, nside, nm, weight=w, m0=m0)
     # a_{+s,lm} = sum_r w slm(l,m,+s) F_m(r): column +s;
     # a_{-s,lm} = sum_r w slm(l,m,-s) conj(F_{-m}(r)): column -s
-    return _eb(*_analysis_rect((F, Fneg.conj()), lmax, (spin, -spin), dd))
+    return _eb(*_analysis_rect((F, Fneg.conj()), lmax, (spin, -spin), dd,
+                               m0))
 
 
 def alm2map(alm, nside, lmax=None, mmax=None, *, spin=0, packed=True,
@@ -373,9 +397,16 @@ def alm2map(alm, nside, lmax=None, mmax=None, *, spin=0, packed=True,
     mmax = lmax if mmax is None else int(mmax)
     if packed:
         alm = unpack_alm(alm, lmax, mmax)
+    return _ring_maps(_synthesis_block(alm, nside, lmax, spin, dd), nside,
+                      spin)
+
+
+def _synthesis_block(alm, nside, lmax, spin, dd=False, m0=0):
+    """Full-ring spectra of rectangular alms whose column c is the order
+    ``m0`` + c: (G,) at spin 0, (G+, G-) for a spin pair ((E, B) on axis
+    -3 of ``alm``)."""
     if spin == 0:
-        (G,) = _synthesis_rect((alm,), lmax, (0,), nside, dd)
-        return ringfft.ring_synthesis(G, None, nside)
+        return _synthesis_rect((alm,), lmax, (0,), nside, dd, m0)
     alm_e = alm[..., 0, :, :]
     alm_b = alm[..., 1, :, :]
     a_p = -(alm_e + 1j * alm_b)  # a_{+spin}
@@ -383,10 +414,88 @@ def alm2map(alm, nside, lmax=None, mmax=None, *, spin=0, packed=True,
     # u = sum_{m>=0} G+_m e^{im phi} + sum_{m>0} G-_m e^{-im phi} with
     # G+_m = sum_l a_{+s,lm} slm(l,m,+s) and
     # G-_m = sum_l conj(a_{-s,lm}) slm(l,m,-s) (reality relations)
-    Gp, Gm = _synthesis_rect((a_p, a_m.conj()), lmax, (spin, -spin), nside,
-                             dd)
-    u = ringfft.ring_synthesis(Gp, Gm, nside, real_output=False)
+    return _synthesis_rect((a_p, a_m.conj()), lmax, (spin, -spin), nside, dd,
+                           m0)
+
+
+def _ring_maps(Gs, nside, spin):
+    """Maps from the full-ring spectra of :func:`_synthesis_block` (every
+    order from 0): (..., npix), or (..., 2, npix) [Q, U] for a pair."""
+    if spin == 0:
+        return ringfft.ring_synthesis(Gs[0], None, nside)
+    u = ringfft.ring_synthesis(Gs[0], Gs[1], nside, real_output=False)
     return torch.stack([u.real, u.imag], dim=-2)
+
+
+def _host_copy_async(arr):
+    """Start the copy of the tensor ``arr`` to the host; returns a
+    zero-argument callable that gives it as a numpy array.
+
+    On a card the copy runs on a side stream, into pinned host memory,
+    after an event of the current stream, so the caller may queue more work
+    before it calls the handle, which waits for the copy alone.  ``arr`` is
+    recorded on the side stream, so the caching allocator does not hand
+    its memory out before the copy is done.  A CPU tensor is copied when
+    the handle is called.
+    """
+    if arr.device.type != "cuda":
+        return lambda: arr.detach().numpy().copy()
+    computed = torch.cuda.Event()
+    computed.record(torch.cuda.current_stream(arr.device))
+    side = _copy_stream(arr.device)
+    side.wait_event(computed)
+    host = torch.empty(arr.shape, dtype=arr.dtype, pin_memory=True)
+    with torch.cuda.stream(side):
+        host.copy_(arr, non_blocking=True)
+        copied = torch.cuda.Event()
+        copied.record(side)
+    arr.record_stream(side)
+
+    def finish():
+        copied.synchronize()
+        return host.numpy()
+
+    return finish
+
+
+@functools.cache
+def _copy_stream(device):
+    """The side stream of a card on which results are copied to the host."""
+    return torch.cuda.Stream(device)
+
+
+def _on_device(a, device):
+    """A tensor stays where it is; numpy input goes to ``device``."""
+    if isinstance(a, torch.Tensor):
+        return a
+    a = np.asarray(a)
+    return torch.as_tensor(np.ascontiguousarray(a, np.dtype(a.dtype.str)),
+                           device=device)
+
+
+def map2alm_async(maps, lmax=None, *, device="cuda", **kw):
+    """Queue :func:`map2alm` and start the copy of its alms to the host.
+
+    ``maps``: a tensor (analysed where it lies) or a numpy array (moved to
+    ``device``, by default the card); ``kw`` go to :func:`map2alm`.
+    Returns a zero-argument callable that gives the alms as a numpy array
+    (the result of :func:`map2alm_host`); on a card the caller can queue
+    the next transform before it calls the handle.
+    """
+    return _host_copy_async(map2alm(_on_device(maps, device), lmax, **kw))
+
+
+def map2alm_host(maps, lmax=None, *, device="cuda", **kw):
+    """:func:`map2alm` for host callers: numpy (or tensor) maps in, numpy
+    alms out; numpy maps are analysed on ``device``."""
+    return map2alm_async(maps, lmax, device=device, **kw)()
+
+
+def alm2map_host(alm, nside, lmax=None, *, device="cuda", **kw):
+    """:func:`alm2map` for host callers: numpy (or tensor) alms in, numpy
+    maps out; numpy alms are synthesised on ``device``."""
+    out = alm2map(_on_device(alm, device), nside, lmax, **kw)
+    return out.detach().cpu().numpy()
 
 
 def pixel_window(nside, lmax, *, pol=False, method="auto", device="cuda"):

@@ -65,10 +65,11 @@ def reset_counts():
 
 
 @functools.lru_cache(maxsize=16)
-def _seed_planes(nm, spin):
+def _seed_planes(m0, nm, spin):
+    ms = m0 + np.arange(nm)
     if spin is None:
-        return wigner.spin0_seed_planes(np.arange(nm))
-    return wigner.pair_seed_planes(np.arange(nm), spin)
+        return wigner.spin0_seed_planes(ms)
+    return wigner.pair_seed_planes(ms, spin)
 
 
 def _check(name, what, arrays, rows, rings, nhalf):
@@ -98,12 +99,12 @@ def _check(name, what, arrays, rows, rings, nhalf):
 
 
 def _launch(name, inputs, x, logch, logsh, lmax, spin, out_rows, nout,
-            paths=False):
+            m0=0, paths=False):
     """Launch one kernel on CUDA tensors; returns its ``nout`` outputs.
 
     ``name`` is ``{analysis,synthesis}_{spin0,pair}_folded``; ``inputs``
-    are its (..., rows, nm) complex operands and each output is
-    (..., out_rows, nm).  ``paths=True`` launches the kernel's diagnostic
+    are its (..., rows, nm) complex operands, column c being the order
+    m0 + c, and each output is (..., out_rows, nm).  ``paths=True`` launches the kernel's diagnostic
     twin instead (float32 only, not counted in ``LAUNCHES``) and returns
     its three path counts as an int64 tensor.
     """
@@ -111,6 +112,8 @@ def _launch(name, inputs, x, logch, logsh, lmax, spin, out_rows, nout,
 
     if lmax > LMAX_LIMIT:
         raise ValueError(f"{name}: lmax={lmax} is above {LMAX_LIMIT}")
+    if m0 < 0:
+        raise ValueError(f"{name}: m0={m0} is negative")
     kl = _build.load_library()
     direction = name.split("_")[0]
     pair = spin is not None
@@ -128,14 +131,16 @@ def _launch(name, inputs, x, logch, logsh, lmax, spin, out_rows, nout,
     xv = x.to(device=dev, dtype=real).contiguous()
     lch = logch.to(device=dev, dtype=torch.float64).contiguous()
     lsh = logsh.to(device=dev, dtype=torch.float64).contiguous()
-    seed = torch.as_tensor(_seed_planes(nm, spin), device=dev)
+    # staged at once: the copy waits for no work queued on the card
+    seed = torch.as_tensor(_seed_planes(m0, nm, spin)).to(dev,
+                                                          non_blocking=True)
     outs = [torch.empty((B, out_rows, nm), dtype=A.dtype, device=dev)
             for _ in range(nout)]
     fn = getattr(kl.lib, f"heracles_{direction}_{'pair' if pair else 'spin0'}_"
                          f"{'paths_' if paths else ''}"
                          f"{'f64' if is_double else 'f32'}")
     counts = [torch.zeros(3, dtype=torch.int64, device=dev)] if paths else []
-    ints = (B, x.shape[0], nm, lmax) + ((int(spin),) if pair else ())
+    ints = (B, x.shape[0], nm, lmax) + ((int(spin),) if pair else ()) + (m0,)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(*(t.data_ptr() for t in flat), xv.data_ptr(), lch.data_ptr(),
@@ -149,13 +154,13 @@ def _launch(name, inputs, x, logch, logsh, lmax, spin, out_rows, nout,
     return [o.reshape(batch + (out_rows, nm)) for o in outs]
 
 
-def path_counts(name, *args):
+def path_counts(name, *args, m0=0):
     """Sub-chunks of 8 multipoles that the warps of one launch ran on the
     steady, the dead and the full path: a dict of three ints.
 
     ``name`` is ``"analysis_spin0_folded"``, ``"synthesis_spin0_folded"``
-    or ``"synthesis_pair_folded"`` and ``args`` are that function's own,
-    complex64 tensors on the card.
+    or ``"synthesis_pair_folded"`` and ``args`` and ``m0`` are that
+    function's own, complex64 tensors on the card.
     A diagnostic twin of the kernel runs (the same code with three
     counters); its outputs are dropped and ``LAUNCHES`` does not count it.
     """
@@ -166,97 +171,108 @@ def path_counts(name, *args):
         nhalf = x.shape[0]
         _check(name, "spectra", (Fe, Fo), nhalf, (x, logch, logsh), nhalf)
         counts = _launch(name, (Fe, Fo), x, logch, logsh, int(lmax), None,
-                         int(lmax) + 1, 1, paths=True)
+                         int(lmax) + 1, 1, m0=int(m0), paths=True)
     elif name == "synthesis_spin0_folded":
         alm, x, logch, logsh, lmax = args
         _check(name, "alms", (alm,), int(lmax) + 1, (x, logch, logsh),
                x.shape[0])
         counts = _launch(name, (alm,), x, logch, logsh, int(lmax), None,
-                         x.shape[0], 2, paths=True)
+                         x.shape[0], 2, m0=int(m0), paths=True)
     elif name == "synthesis_pair_folded":
         alm_p, alm_m, x, logch, logsh, lmax, spin = args
         _check(name, "alms", (alm_p, alm_m), int(lmax) + 1, (x, logch, logsh),
                x.shape[0])
         counts = _launch(name, (alm_p, alm_m), x, logch, logsh, int(lmax),
-                         abs(int(spin)), x.shape[0], 4, paths=True)
+                         abs(int(spin)), x.shape[0], 4, m0=int(m0),
+                         paths=True)
     else:
         raise ValueError(f"path_counts: {name} has no path counts")
     return dict(zip(("steady", "dead", "full"), counts.tolist()))
 
 
-def analysis_spin0_folded(Fe, Fo, x, logch, logsh, lmax):
+def analysis_spin0_folded(Fe, Fo, x, logch, logsh, lmax, m0=0):
     """alm[..., l, m] = sum_r lam_lm(x_r) (Fe on even l, Fo on odd l)[..., r, m].
 
     ``Fe``/``Fo``: (..., nhalf, nm) complex parity-combined northern ring
     spectra (FN + FS and FN - FS, with FS the (-1)^m-signed mirrored
     southern rows); ``x``: (nhalf,) cos(theta); ``logch``/``logsh``:
     (nhalf,) log cos(theta/2), log sin(theta/2), read in float64 (pass
-    float64 values for full seed accuracy).  Returns (..., lmax+1, nm).
+    float64 values for full seed accuracy).  Column c is the order
+    ``m0`` + c (a device mesh's block of orders); an order above lmax
+    gives zeros.  Returns (..., lmax+1, nm).
     """
     nhalf = x.shape[0]
     _check("analysis_spin0_folded", "spectra", (Fe, Fo), nhalf,
            (x, logch, logsh), nhalf)
+    m0 = int(m0)
     if Fe.device.type == "cpu":
-        return wigner.analysis_spin0_folded_plain(Fe, Fo, x, logch, logsh, lmax)
+        return wigner.analysis_spin0_folded_plain(Fe, Fo, x, logch, logsh, lmax,
+                                                  m0)
     (alm,) = _launch("analysis_spin0_folded", (Fe, Fo), x, logch, logsh,
-                     int(lmax), None, int(lmax) + 1, 1)
+                     int(lmax), None, int(lmax) + 1, 1, m0=m0)
     return alm
 
 
-def analysis_pair_folded(FNp, Sp, FNm, Sm, x, logch, logsh, lmax, spin):
+def analysis_pair_folded(FNp, Sp, FNm, Sm, x, logch, logsh, lmax, spin,
+                         m0=0):
     """Folded spin-pair analysis; returns (alm_p, alm_m).
 
     a_p[l] = sum_r lam_p FNp + (-1)^l lam_m Sp and
     a_m[l] = sum_r lam_m FNm + (-1)^l lam_p Sm, with lam_p / lam_m the
     slm columns n = +spin / -spin.  ``FN*``: (..., nhalf, nm) northern
     rows of each branch; ``S*``: the partner-paired (-1)^m-signed southern
-    rows.  Each output is (..., lmax+1, nm).
+    rows.  Column c is the order ``m0`` + c.  Each output is
+    (..., lmax+1, nm).
     """
     nhalf = x.shape[0]
     _check("analysis_pair_folded", "spectra", (FNp, Sp, FNm, Sm), nhalf,
            (x, logch, logsh), nhalf)
     spin = abs(int(spin))
+    m0 = int(m0)
     if FNp.device.type == "cpu":
         return wigner.analysis_pair_folded_plain(FNp, Sp, FNm, Sm, x, logch,
-                                                 logsh, lmax, spin)
+                                                 logsh, lmax, spin, m0)
     alm_p, alm_m = _launch("analysis_pair_folded", (FNp, Sp, FNm, Sm), x,
-                           logch, logsh, int(lmax), spin, int(lmax) + 1, 2)
+                           logch, logsh, int(lmax), spin, int(lmax) + 1, 2,
+                           m0=m0)
     return alm_p, alm_m
 
 
-def synthesis_spin0_folded(alm, x, logch, logsh, lmax):
+def synthesis_spin0_folded(alm, x, logch, logsh, lmax, m0=0):
     """Folded spin-0 synthesis: rectangular alm -> (GN, GS) ring spectra.
 
     ``alm``: (..., lmax+1, nm) complex; ``x``/``logch``/``logsh``: (nhalf,)
     northern-ring geometry as for :func:`analysis_spin0_folded`.  Returns
     GN = sum_l alm lam (the northern rings) and GS = (-1)^m sum_l (-1)^l
     alm lam (their mirrored southern partners), each (..., nhalf, nm).
+    Column c is the order ``m0`` + c.
     """
-    lmax = int(lmax)
+    lmax, m0 = int(lmax), int(m0)
     _check("synthesis_spin0_folded", "alms", (alm,), lmax + 1,
            (x, logch, logsh), x.shape[0])
     if alm.device.type == "cpu":
-        return wigner.synthesis_spin0_folded_plain(alm, x, logch, logsh, lmax)
+        return wigner.synthesis_spin0_folded_plain(alm, x, logch, logsh, lmax,
+                                                   m0)
     GN, GS = _launch("synthesis_spin0_folded", (alm,), x, logch, logsh, lmax,
-                     None, x.shape[0], 2)
+                     None, x.shape[0], 2, m0=m0)
     return GN, GS
 
 
-def synthesis_pair_folded(alm_p, alm_m, x, logch, logsh, lmax, spin):
+def synthesis_pair_folded(alm_p, alm_m, x, logch, logsh, lmax, spin, m0=0):
     """Folded spin-pair synthesis; returns (GNp, GSp, GNm, GSm).
 
     ``alm_p``/``alm_m``: (..., lmax+1, nm) alms of the n = +spin and
     n = -spin columns.  GNp = sum a_p lam_p and GNm = sum a_m lam_m on
     the northern rings; GSp = (-1)^m sum (-1)^l a_p lam_m and
     GSm = (-1)^m sum (-1)^l a_m lam_p on their mirrored southern partners.
-    Each is (..., nhalf, nm).
+    Column c is the order ``m0`` + c.  Each is (..., nhalf, nm).
     """
-    lmax = int(lmax)
+    lmax, m0 = int(lmax), int(m0)
     _check("synthesis_pair_folded", "alms", (alm_p, alm_m), lmax + 1,
            (x, logch, logsh), x.shape[0])
     spin = abs(int(spin))
     if alm_p.device.type == "cpu":
         return wigner.synthesis_pair_folded_plain(alm_p, alm_m, x, logch,
-                                                  logsh, lmax, spin)
+                                                  logsh, lmax, spin, m0)
     return tuple(_launch("synthesis_pair_folded", (alm_p, alm_m), x, logch,
-                         logsh, lmax, spin, x.shape[0], 4))
+                         logsh, lmax, spin, x.shape[0], 4, m0=m0))

@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 __all__ = [
+    "wigner_seed_log",
     "wigner_seed_host",
     "spin0_seed_planes",
     "pair_seed_planes",
@@ -48,8 +49,10 @@ __all__ = [
     "analysis_spin0_folded_plain",
     "analysis_pair_folded_plain",
     "lambda_synthesis_scan_folded",
+    "lambda_synthesis_scan",
     "synthesis_spin0_folded_plain",
     "synthesis_pair_folded_plain",
+    "wigner_table",
     "wigner_table_host",
     "legendre_sum_host",
     "PLAIN_RUNS",
@@ -120,6 +123,31 @@ def pair_seed_planes(ms, spin):
     return np.stack([logcp, sgp * msign, logcm, sgm * msign])
 
 
+def wigner_seed_log(mp, npar, logch, logsh):
+    """Log-magnitude and sign of the seed d^{j0}_{mp, npar}(theta).
+
+    ``mp``, ``npar``: (lanes,) integer Wigner row and column indices (may
+    be negative); ``logch``/``logsh``: (nr,) tensors of log cos(theta/2),
+    log sin(theta/2).  Returns (j0, sign, logval) tensors of shapes
+    (lanes,), (lanes,), (lanes, nr) on the logs' device, in their dtype:
+    the single surviving term of the Wigner-d sum at j0 = max(|m|, |n|),
+    its constant from host float64 log-factorials.
+    """
+    mp = np.asarray(mp, dtype=np.int64)
+    npar = np.asarray(npar, dtype=np.int64)
+    # _seed_consts takes the slm lanes (m, n) of d^{j0}_{-m,-n}
+    j0, sign, logc = _seed_consts(-mp, -npar)
+    dev, dt = logch.device, logch.dtype
+
+    def lane(a):
+        return torch.as_tensor(np.asarray(a, np.float64), dtype=dt,
+                               device=dev)[:, None]
+
+    logval = (lane(logc) + lane(np.abs(mp + npar)) * logch[None, :]
+              + lane(np.abs(mp - npar)) * logsh[None, :])
+    return (torch.as_tensor(j0, device=dev), lane(sign)[:, 0], logval)
+
+
 def wigner_seed_host(ms, ns, theta):
     """Host-f64 seed planes (mant, k) with value = mant * 2^(60 k).
 
@@ -179,26 +207,26 @@ def _lane_seeds(ms, ns, logch, logsh, dtype):
 def _coeff_tables(ms, ns, j0, lmax, dtype, device):
     """(A1, A0, B), each (lmax+2, lanes): row L advances d^{L-1} -> d^L.
 
-    Computed in float64, zero for L <= j0 (the recurrence is not live).
+    Computed in float64 on the host, zero for L <= j0 (the recurrence is
+    not live), then rounded to ``dtype`` on ``device``.  numpy's square
+    root and division are IEEE, as the card's are; torch's CPU square root
+    goes through MKL, whose first call in a process has come back off by
+    ~1e-12 of its value.
     """
-    f64 = torch.float64
-
-    def lane(a):
-        return torch.as_tensor(np.asarray(a, np.float64), device=device)[None, :]
-
-    L = torch.arange(lmax + 2, dtype=f64, device=device)[:, None]
-    m2, n2, mn = lane(ms * ms), lane(ns * ns), lane(ms * ns)
+    m2, n2, mn = (np.asarray(a, np.float64) for a in (ms * ms, ns * ns, ms * ns))
+    L = np.arange(lmax + 2, dtype=np.float64)[:, None]
 
     def a_of(ell):
         v = (ell * ell - m2) * (ell * ell - n2)
-        return torch.sqrt(torch.clamp(v, min=0.0)) / torch.clamp(ell, min=1.0)
+        return np.sqrt(np.maximum(v, 0.0)) / np.maximum(ell, 1.0)
 
-    live = L > lane(j0)
-    inv = torch.where(live, 1.0 / a_of(L), 0.0)
-    A1 = (2.0 * L - 1.0) * inv
-    A0 = -(2.0 * L - 1.0) * mn / (torch.clamp(L - 1.0, min=1.0) * L) * inv
-    B = a_of(L - 1.0) * inv
-    return A1.to(dtype), A0.to(dtype), B.to(dtype)
+    live = L > np.asarray(j0)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        inv = np.where(live, 1.0 / a_of(L), 0.0)
+        A1 = (2.0 * L - 1.0) * inv
+        A0 = -(2.0 * L - 1.0) * mn / (np.maximum(L - 1.0, 1.0) * L) * inv
+        B = a_of(L - 1.0) * inv
+    return tuple(torch.as_tensor(t, device=device).to(dtype) for t in (A1, A0, B))
 
 
 def _sorted_lanes(ms, ns):
@@ -338,8 +366,9 @@ def _folded_synth(ms, ns, x, logch, logsh, lmax, a, aS):
         a = a.index_select(-1, idx)
         aS = aS.index_select(-1, idx)
     dtype = a.real.dtype
-    ells = torch.arange(lmax + 1, dtype=torch.float64, device=device)
-    norm = torch.sqrt((2.0 * ells + 1.0) * (0.25 / math.pi)).to(dtype)[:, None, None]
+    ells = np.arange(lmax + 1, dtype=np.float64)
+    norm = torch.as_tensor(np.sqrt((2.0 * ells + 1.0) * (0.25 / math.pi)),
+                           device=device).to(dtype)[:, None, None]
     ar = torch.view_as_real(a.resolve_conj().resolve_neg()) * norm
     aSr = torch.view_as_real(aS.resolve_conj().resolve_neg()) * norm
     batch = a.shape[:-2]
@@ -472,26 +501,29 @@ def lambda_power_scan(ms, ns, x, logch, logsh, lmax, Fw, weights):
     return out
 
 
-def analysis_spin0_folded_plain(Fe, Fo, x, logch, logsh, lmax):
+def analysis_spin0_folded_plain(Fe, Fo, x, logch, logsh, lmax, m0=0):
     """Plain version of the spin-0 analysis kernel (same signature).
 
-    alm[..., l, m] = sum_r lam_lm(x_r) (Fe on even l, Fo on odd l)[..., r, m].
+    alm[..., l, m] = sum_r lam_lm(x_r) (Fe on even l, Fo on odd l)[..., r, m],
+    column c holding the order m0 + c (zeros for an order above lmax).
     """
     PLAIN_RUNS["analysis_spin0_folded"] += 1
     nm = Fe.shape[-1]
-    return _folded_scan(np.arange(nm), 0, x, logch, logsh, lmax, Fe, Fo,
+    return _folded_scan(m0 + np.arange(nm), 0, x, logch, logsh, lmax, Fe, Fo,
                         split=False)
 
 
-def analysis_pair_folded_plain(FNp, Sp, FNm, Sm, x, logch, logsh, lmax, spin):
+def analysis_pair_folded_plain(FNp, Sp, FNm, Sm, x, logch, logsh, lmax, spin,
+                               m0=0):
     """Plain version of the spin-pair analysis kernel (same signature).
 
     a_p = sum lam_p FNp + (-1)^l sum lam_m Sp and
-    a_m = sum lam_m FNm + (-1)^l sum lam_p Sm; returns (a_p, a_m).
+    a_m = sum lam_m FNm + (-1)^l sum lam_p Sm; returns (a_p, a_m), column
+    c holding the order m0 + c.
     """
     PLAIN_RUNS["analysis_pair_folded"] += 1
     nm = FNp.shape[-1]
-    ms = np.tile(np.arange(nm), 2)
+    ms = np.tile(m0 + np.arange(nm), 2)
     ns = np.repeat(np.asarray([spin, -spin], np.int64), nm)
     out = lambda_analysis_scan_folded(
         ms, ns, x, logch, logsh, lmax,
@@ -501,34 +533,77 @@ def analysis_pair_folded_plain(FNp, Sp, FNm, Sm, x, logch, logsh, lmax, spin):
     return out[..., :nm], out[..., nm:]
 
 
-def synthesis_spin0_folded_plain(alm, x, logch, logsh, lmax):
+def synthesis_spin0_folded_plain(alm, x, logch, logsh, lmax, m0=0):
     """Plain version of the spin-0 synthesis kernel (same signature).
 
     GN = sum_l alm lam and GS = (-1)^m sum_l (-1)^l alm lam, each
-    (..., nhalf, nm).
+    (..., nhalf, nm), column c holding the order m0 + c.
     """
     PLAIN_RUNS["synthesis_spin0_folded"] += 1
     nm = alm.shape[-1]
-    return lambda_synthesis_scan_folded(np.arange(nm), 0, x, logch, logsh,
-                                        lmax, alm)
+    return lambda_synthesis_scan_folded(m0 + np.arange(nm), 0, x, logch,
+                                        logsh, lmax, alm)
 
 
-def synthesis_pair_folded_plain(alm_p, alm_m, x, logch, logsh, lmax, spin):
+def synthesis_pair_folded_plain(alm_p, alm_m, x, logch, logsh, lmax, spin,
+                                m0=0):
     """Plain version of the spin-pair synthesis kernel (same signature).
 
     GNp = sum a_p lam_p, GSp = (-1)^m sum (-1)^l a_p lam_m,
     GNm = sum a_m lam_m, GSm = (-1)^m sum (-1)^l a_m lam_p; returns
-    (GNp, GSp, GNm, GSm).
+    (GNp, GSp, GNm, GSm), column c holding the order m0 + c.
     """
     PLAIN_RUNS["synthesis_pair_folded"] += 1
     nm = alm_p.shape[-1]
-    ms = np.tile(np.arange(nm), 2)
+    ms = np.tile(m0 + np.arange(nm), 2)
     ns = np.repeat(np.asarray([spin, -spin], np.int64), nm)
     GN, GS = lambda_synthesis_scan_folded(
         ms, ns, x, logch, logsh, lmax, torch.cat([alm_p, alm_m], dim=-1),
         cross=True,
     )
     return GN[..., :nm], GS[..., :nm], GN[..., nm:], GS[..., nm:]
+
+
+def lambda_synthesis_scan(ms, ns, x, logch, logsh, lmax, alm):
+    """G[..., r, lane] = sum_l alm[..., l, lane] slm(l, m_lane, n_lane; theta_r).
+
+    The unfolded synthesis onto arbitrary rings (no mirror pairs): lanes
+    (ms[i], ns[i]); ``alm``: (..., lmax+1, lanes) complex; ``x``,
+    ``logch``, ``logsh``: (nr,).  Returns (..., nr, lanes) complex, on the
+    device and in the precision of ``alm``.
+    """
+    ms, ns, j0, order = _sorted_lanes(ms, ns)
+    device = alm.device
+    if order is not None:
+        alm = alm.index_select(-1, torch.as_tensor(order, device=device))
+    dtype = alm.real.dtype
+    ar = torch.view_as_real(alm.resolve_conj().resolve_neg())
+    G = torch.zeros(alm.shape[:-2] + (x.shape[0], ms.size, 2), dtype=dtype,
+                    device=device)
+    for ell, lam in _lambda_rows(ms, ns, j0, x, logch, logsh, lmax, dtype,
+                                 device):
+        n = lam.shape[1]
+        norm = math.sqrt((2 * ell + 1) / (4 * math.pi))
+        G[..., :n, :] += ar[..., ell, None, :n, :] * (lam * norm)[:, :, None]
+    return _unsort([torch.view_as_complex(G)], order, device)[0]
+
+
+def wigner_table(m, n, x, logch, logsh, lmax):
+    """Wigner-d table d^l_{-m,-n}(theta) for l = 0..lmax: (lmax+1, nr).
+
+    One (m, n) pair on the rings ``x``, ``logch``, ``logsh`` ((nr,)
+    tensors), by the scaled recurrence of the SHT in the precision of
+    ``x`` (the rows of the slm functions before their normalisation, with
+    their (-1)^m taken out).  Zero below j0 = max(|m|, |n|).
+    """
+    dtype = x.dtype
+    out = torch.zeros((lmax + 1, x.shape[0]), dtype=dtype, device=x.device)
+    ms, ns, j0, _ = _sorted_lanes([m], [n])
+    sign = -1.0 if int(m) % 2 else 1.0
+    for ell, lam in _lambda_rows(ms, ns, j0, x, logch, logsh, lmax, dtype,
+                                 x.device):
+        out[ell] = lam[:, 0] * sign
+    return out
 
 
 def wigner_table_host(m, n, theta, lmax):

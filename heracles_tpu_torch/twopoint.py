@@ -102,7 +102,9 @@ def rect_pair_grid(a1, a2, ms):
     batched, not paired: sample s's planes pair only with sample s's.
     """
     f64 = torch.float64
-    eps = torch.where(torch.as_tensor(ms, device=a1.device) == 0, 1.0, 2.0).to(f64)
+    # staged at once: the copy waits for no work queued on the card
+    ms = torch.as_tensor(ms).to(a1.device, non_blocking=True)
+    eps = torch.where(ms == 0, 1.0, 2.0).to(f64)
     grid = torch.einsum("...alm,...blm->...abl", a1.real.to(f64) * eps,
                         a2.real.to(f64))
     grid += torch.einsum("...alm,...blm->...abl", a1.imag.to(f64) * eps,
@@ -128,7 +130,7 @@ def alm2cl(alm, alm2=None, *, lmax=None):
     return grid.reshape(a.shape[:-1] + b.shape[:-1] + (lout + 1,))
 
 
-def _cross_grids(plan, nsamples, lmax):
+def _cross_grids(plan, nsamples, lmax, mesh=None, split=1):
     """Every needed (nlm1 x nlm2) spectra grid of sample-stacked alms.
 
     ``plan`` items are (key, alm1, alm2) where each alm is an
@@ -141,6 +143,13 @@ def _cross_grids(plan, nsamples, lmax):
     the unpacked float64 planes of all samples stay within
     ``_GRID_BUDGET``; ``slot[id(alm)]`` locates a stack as ``(nlm,
     first_row, leading_shape)``.
+
+    With a device ``mesh`` the first stack is cut along axis ``split``
+    (1: its plane rows, 0: its samples) into one block per shard, and the
+    second stack is copied whole to every shard's device (rows) or cut
+    the same way (samples); each shard computes its block's grid there
+    (within the budget per device), and the blocks are gathered on the
+    host.
     """
     rows, slot = {}, {}
     for arr in (a for _, a1, a2 in plan for a in (a1, a2)):
@@ -164,20 +173,41 @@ def _cross_grids(plan, nsamples, lmax):
         if (n2, n1) in grids:
             grids[n1, n2] = grids[n2, n1].transpose(0, 2, 1, 3)
             continue
-        s1, s2 = stacks[n1], stacks[n2].to(stacks[n1].device)
+        s1, s2 = stacks[n1], stacks[n2]
         l1, l2 = _nlm2lmax(n1), _nlm2lmax(n2)
         lout = min(l1, l2) if lmax is None else min(lmax, l1, l2)
-        per = max(1, _GRID_BUDGET // (16 * (max(l1, l2) + 1) ** 2 * nsamples))
-        ms = torch.arange(lout + 1)
-        grid = np.empty((nsamples, s1.shape[1], s2.shape[1], lout + 1))
-        for i0 in range(0, s1.shape[1], per):
-            r1 = sht.unpack_alm(s1[:, i0 : i0 + per], l1)[..., : lout + 1, : lout + 1]
-            for j0 in range(0, s2.shape[1], per):
-                r2 = sht.unpack_alm(s2[:, j0 : j0 + per], l2)[..., : lout + 1, : lout + 1]
-                block = rect_pair_grid(r1, r2, ms)
-                grid[:, i0 : i0 + per, j0 : j0 + per] = block.cpu().numpy()
+        if mesh is None:
+            grid = _pair_grid(s1, s2.to(s1.device), l1, l2, lout).cpu().numpy()
+        else:
+            devices = list(mesh.devices.flat)
+            b1 = s1.tensor_split(len(devices), dim=split)
+            # a sample pairs only with its own sample of the second stack
+            b2 = (s2.tensor_split(len(devices), dim=0) if split == 0
+                  else [s2] * len(devices))
+            local = [(a.to(d), b.to(d)) for a, b, d in zip(b1, b2, devices)
+                     if a.shape[split]]
+            blocks = [_pair_grid(a, b, l1, l2, lout) for a, b in local]
+            grid = np.concatenate([b.cpu().numpy() for b in blocks],
+                                  axis=split)
         grids[n1, n2] = grid
     return grids, slot
+
+
+def _pair_grid(s1, s2, l1, l2, lout):
+    """(S, nA, nB, lout+1) float64 grid of two packed plane stacks on one
+    device, chunked over the planes so that the unpacked float64 planes
+    stay within ``_GRID_BUDGET``."""
+    nsamples = s1.shape[0]
+    per = max(1, _GRID_BUDGET // (16 * (max(l1, l2) + 1) ** 2 * nsamples))
+    ms = torch.arange(lout + 1)
+    grid = torch.empty((nsamples, s1.shape[1], s2.shape[1], lout + 1),
+                       dtype=torch.float64, device=s1.device)
+    for i0 in range(0, s1.shape[1], per):
+        r1 = sht.unpack_alm(s1[:, i0 : i0 + per], l1)[..., : lout + 1, : lout + 1]
+        for j0 in range(0, s2.shape[1], per):
+            r2 = sht.unpack_alm(s2[:, j0 : j0 + per], l2)[..., : lout + 1, : lout + 1]
+            grid[:, i0 : i0 + per, j0 : j0 + per] = rect_pair_grid(r1, r2, ms)
+    return grid
 
 
 def _grid_block(grids, slot, alm1, alm2):
@@ -250,6 +280,7 @@ def angular_power_spectra(
     exclude=None,
     out=None,
     device=None,
+    mesh=None,
 ):
     """All auto/cross angular power spectra of a set of alms.
 
@@ -259,6 +290,9 @@ def angular_power_spectra(
     metadata; each result is a :class:`Result` over a host float64 array.
     The pair grid runs on ``device``, by default on the device of the
     values (the host for numpy arrays, such as alms read from a file).
+    ``mesh``: a :class:`~heracles_tpu_torch.parallel.Mesh`; the grid's
+    plane rows are then split across every shard, each shard pairing its
+    rows with all the planes on its device (the same spectra).
     """
     logger.info(
         "computing cls for %d%s alm(s)",
@@ -300,8 +334,10 @@ def angular_power_spectra(
                 a = _tensor(alm)[None]
                 one[id(alm)] = a if device is None else a.to(device)
     grids, slot = _cross_grids(
-        [(key, one[id(a1)], one[id(a2)]) for key, a1, a2 in plan], 1, lmax)
-    device = _compute_device(one.values())
+        [(key, one[id(a1)], one[id(a2)]) for key, a1, a2 in plan], 1, lmax,
+        mesh=mesh, split=1)
+    device = (_compute_device(one.values()) if mesh is None
+              else mesh.devices.flat[0])
 
     # pass 3 (host): metadata, noise bias, Result assembly
     for key, alm1, alm2 in plan:
@@ -378,6 +414,7 @@ def angular_power_spectra_samples(
     weights=None,
     include=None,
     exclude=None,
+    mesh=None,
 ):
     """:func:`angular_power_spectra` for many alm sets in one device pass.
 
@@ -388,7 +425,8 @@ def angular_power_spectra_samples(
     to mapping :func:`angular_power_spectra` over the list.  Values are
     DeviceMaps, tensors or numpy arrays; the metadata is the first
     sample's.  The grids run on the device of the values (the host for
-    numpy).
+    numpy); with a device ``mesh`` the samples are split across every
+    shard.
     """
     if not alms_list:
         return []
@@ -408,7 +446,7 @@ def angular_power_spectra_samples(
             metadata[k, i] = _metadata(vals[0])
     return angular_power_spectra_sample_stacks(
         stacks, metadata, nsamples, lmax=lmax, debias=debias, bins=bins,
-        weights=weights, plan_keys=plan_keys,
+        weights=weights, plan_keys=plan_keys, mesh=mesh,
     )
 
 
@@ -424,6 +462,7 @@ def angular_power_spectra_sample_stacks(
     include=None,
     exclude=None,
     plan_keys=None,
+    mesh=None,
 ):
     """Sample spectra from pre-stacked alms.
 
@@ -433,6 +472,8 @@ def angular_power_spectra_sample_stacks(
     small float64 grids cross to the host.  ``metadata``: {(name, bin):
     dict} science metadata per key, shared by all samples (sample-specific
     bias corrections are applied downstream, as in the jackknife flow).
+    ``mesh``: a device mesh; the sample axis is then split across every
+    shard (the same spectra).
     """
     if plan_keys is None:
         plan_keys = _sample_pair_plan(list(stacks), include, exclude)
@@ -440,8 +481,9 @@ def angular_power_spectra_sample_stacks(
             for k1, k2, i1, i2 in plan_keys]
 
     # pass 2 (device): every sample's pair grid, batched
-    grids, slot = _cross_grids(plan, nsamples, lmax)
-    device = _compute_device(a for _, a1, a2 in plan for a in (a1, a2))
+    grids, slot = _cross_grids(plan, nsamples, lmax, mesh=mesh, split=0)
+    device = (_compute_device(a for _, a1, a2 in plan for a in (a1, a2))
+              if mesh is None else mesh.devices.flat[0])
 
     # pass 3 (host): per-sample metadata, bias, Result assembly
     outs = [TocDict() for _ in range(nsamples)]
@@ -489,17 +531,20 @@ def _gl_nodes(npoints):
     return x, w, np.arccos(x)
 
 
-@functools.lru_cache(maxsize=4)
-def _mixmat_tables(l1max, l2max, s1, s2, npoints, device):
+@functools.lru_cache(maxsize=16)
+def _mixmat_tables(l1max, l2max, s1, s2, npoints, device, block=None):
     """Device-resident float64 Wigner-d tables on the GL nodes.
 
     d^{l1}_{-s1,-s2} (K, l1max+1) and d^{l2}_{s1,s2} (K, l2max+1), built
     once per (sizes, spins, device) by the host-f64 recurrence, transposed
     once to the node-major layout the Gram kernel reads, and kept on the
     device across masks: the tables are mask-independent, only the node
-    weights change per call.
+    weights change per call.  ``block=(i, n)``: only the nodes of block i
+    of n (:func:`_node_block`).
     """
     _, _, theta = _gl_nodes(npoints)
+    if block is not None:
+        theta = _node_block(theta, *block, fill=np.pi / 2)
 
     def upload(m, n, lmax):
         table = wigner_table_host(m, n, theta, lmax)
@@ -510,18 +555,44 @@ def _mixmat_tables(l1max, l2max, s1, s2, npoints, device):
     return A, B
 
 
-def _mixmat_operands(cl3, l1max, l2max, s1, s2, eb, device):
+def _node_block(a, i, n, fill=0.0):
+    """Block i of n equal contiguous blocks of the node axis of ``a``, the
+    axis padded with ``fill`` to a multiple of n."""
+    per = -(-a.shape[0] // n)
+    out = np.full(per, fill)
+    part = a[i * per:(i + 1) * per]
+    out[: part.shape[0]] = part
+    return out
+
+
+def _mixmat_operands(cl3, l1max, l2max, s1, s2, eb, device, block=None,
+                     weights=None):
     """The Gram operands of one mixing matrix's GL quadrature.
 
     Returns the device tables ``(A, B)`` and the node weights: ``(w xi,)``
     or, for the E/B blocks, ``(w xi_even, w xi_odd)``, as float64 device
     vectors, with xi the mask correlation sum (2l+1)/4pi cl3 P_l at the
-    nodes.
+    nodes.  ``block=(i, n)``: the operands of the nodes of block i of n,
+    the padding nodes at x = 0 with zero weight.  ``weights``: the host
+    node weights of :func:`_mixmat_weights`, where already computed.
     """
     l3max = cl3.shape[-1] - 1
     npoints = (l1max + l2max + l3max) // 2 + 1
+    A, B = _mixmat_tables(l1max, l2max, s1, s2, npoints, device, block)
+    us = _mixmat_weights(cl3, l1max, l2max, eb) if weights is None else weights
+    if block is not None:
+        us = [_node_block(u, *block) for u in us]
+    # staged at once: the copy waits for no work queued on the card
+    return A, B, [torch.as_tensor(u).to(device, non_blocking=True)
+                  for u in us]
+
+
+def _mixmat_weights(cl3, l1max, l2max, eb):
+    """Host float64 node weights of the GL quadrature: ``(w xi,)`` or
+    ``(w xi_even, w xi_odd)``."""
+    l3max = cl3.shape[-1] - 1
+    npoints = (l1max + l2max + l3max) // 2 + 1
     x, w, _ = _gl_nodes(npoints)
-    A, B = _mixmat_tables(l1max, l2max, s1, s2, npoints, device)
     ells3 = np.arange(l3max + 1, dtype=np.float64)
     xi = legendre_sum_host((2 * ells3 + 1) / (4 * np.pi) * cl3, x)
     if eb:
@@ -529,13 +600,11 @@ def _mixmat_operands(cl3, l1max, l2max, s1, s2, eb, device):
         # xi split the integral by (l1 + l2) parity exactly
         xi_e = 0.5 * (xi + xi[::-1])
         xi_o = 0.5 * (xi - xi[::-1])
-        us = (w * xi_e, w * xi_o)
-    else:
-        us = (w * xi,)
-    return A, B, [torch.as_tensor(u, device=device) for u in us]
+        return w * xi_e, w * xi_o
+    return (w * xi,)
 
 
-def _mixmat_gl_dispatch(cl3, l1max, l2max, s1, s2, eb, device):
+def _mixmat_gl_dispatch(cl3, l1max, l2max, s1, s2, eb, device, mesh=None):
     """Float64 GL quadrature of one mixing matrix; returns a finalize callable.
 
     The contractions are launched on ``device`` (asynchronously on a card)
@@ -545,15 +614,34 @@ def _mixmat_gl_dispatch(cl3, l1max, l2max, s1, s2, eb, device):
     contractions against the even / odd parts of xi, so the small M_minus
     (EE -> BB leakage) entries come out at the contraction's own precision
     instead of eps * |M_plus|.
+
+    With a device ``mesh`` the nodes are split into one block per shard:
+    each shard builds its nodes' tables on its device and contracts them,
+    and the float64 partials are summed on the mesh's first device.
     """
-    A, B, us = _mixmat_operands(cl3, l1max, l2max, s1, s2, eb, device)
+    if mesh is None:
+        A, B, us = _mixmat_operands(cl3, l1max, l2max, s1, s2, eb, device)
+        Gs = [gram.gram(A, B, u) for u in us]
+    else:
+        from .parallel import _psum
+
+        devices = list(mesh.devices.flat)
+        device = devices[0]
+        weights = _mixmat_weights(cl3, l1max, l2max, eb)
+
+        shards = [_mixmat_operands(cl3, l1max, l2max, s1, s2, eb, d,
+                                   (i, len(devices)), weights)
+                  for i, d in enumerate(devices)]
+        Gs = [_psum([gram.gram(A, B, us[k]) for A, B, us in shards], devices,
+                    dest=device)
+              for k in range(len(weights))]
     ells2 = np.arange(l2max + 1, dtype=np.float64)
     pref = torch.as_tensor(2 * np.pi * (2 * ells2 + 1) / (4 * np.pi),
                            device=device)
     if not eb:
-        M = gram.gram(A, B, us[0]) * pref
+        M = Gs[0] * pref
     else:
-        G_e, G_o = (gram.gram(A, B, u) for u in us)
+        G_e, G_o = Gs
         ells1 = torch.arange(l1max + 1, device=device)
         even = (ells1[:, None] + torch.arange(l2max + 1, device=device)) % 2 == 0
         M_plus = torch.where(even, G_e, G_o) * pref
@@ -562,7 +650,8 @@ def _mixmat_gl_dispatch(cl3, l1max, l2max, s1, s2, eb, device):
     return lambda: M.cpu().numpy()
 
 
-def _mixmat_dispatch(cl, *, l1max, l2max, l3max, spin, eb, device):
+def _mixmat_dispatch(cl, *, l1max, l2max, l3max, spin, eb, device,
+                     mesh=None):
     """Shared mixmat/mixmat_eb preprocessing; returns a finalize callable.
 
     Every cl dtype is computed in float64 (float32 converts exactly) and
@@ -576,35 +665,38 @@ def _mixmat_dispatch(cl, *, l1max, l2max, l3max, spin, eb, device):
     l2max = lmax_default if l2max is None else int(l2max)
     s1, s2 = spin
     return _mixmat_gl_dispatch(np.asarray(cl, np.float64), l1max, l2max,
-                               abs(s1), abs(s2), eb, torch.device(device))
+                               abs(s1), abs(s2), eb, torch.device(device),
+                               mesh)
 
 
 def mixmat(cl, *, l1max=None, l2max=None, l3max=None, spin=(0, 0),
-           device="cuda"):
+           device="cuda", mesh=None):
     """MASTER mixing matrix M[l1, l2] for a (possibly spin-weighted) pair.
 
     Equivalent of ``convolvecl.mixmat``: M = (2 l2+1)/4pi sum_l3 (2 l3+1)
     cl[l3] (3j(l1,l2,l3; -s1,s1,0))(3j(l1,l2,l3; -s2,s2,0)).  Computed on
-    ``device`` (default the CUDA card); returns a host float64 array.
+    ``device`` (default the CUDA card), or with the quadrature nodes split
+    over every shard of a device ``mesh``; returns a host float64 array.
     """
     return _mixmat_dispatch(
         cl, l1max=l1max, l2max=l2max, l3max=l3max, spin=spin, eb=False,
-        device=device,
+        device=device, mesh=mesh,
     )()
 
 
 def mixmat_eb(cl, *, l1max=None, l2max=None, l3max=None, spin=(2, 2),
-              device="cuda"):
+              device="cuda", mesh=None):
     """E/B mixing-matrix blocks (EE<->EE, EE<->BB, EB<->EB) for spin pairs.
 
     Equivalent of ``convolvecl.mixmat_eb``; the EB block equals
     M_plus - M_minus, consistent with the block-diagonal inversion of
     :func:`invert_mixing_matrix`.  Computed on ``device`` (default the CUDA
-    card); returns a host (3, l1max+1, l2max+1) float64 array.
+    card) or over a device ``mesh`` (as :func:`mixmat`); returns a host
+    (3, l1max+1, l2max+1) float64 array.
     """
     return _mixmat_dispatch(
         cl, l1max=l1max, l2max=l2max, l3max=l3max, spin=spin, eb=True,
-        device=device,
+        device=device, mesh=mesh,
     )()
 
 
@@ -629,6 +721,7 @@ def mixing_matrices(
     out=None,
     progress=None,
     device=None,
+    mesh=None,
 ):
     """Mixing matrices for all field pairs covered by the given mask cls.
 
@@ -637,7 +730,7 @@ def mixing_matrices(
     keyed (field1, field2, bin1, bin2) and wrapped as a Result with the
     *output* ell on axis -2.  The contractions run on ``device``, by
     default the device of the matched fields' mappers (the CUDA card when
-    they have none).
+    they have none), or over a device ``mesh`` (see :func:`mixmat`).
     """
     if out is None:
         out = TocDict()
@@ -677,6 +770,7 @@ def mixing_matrices(
                 spin=(spin1, spin2),
                 eb=not (spin1 == 0 or spin2 == 0),
                 device=device,
+                mesh=mesh,
             )
             pending.append(((f1, f2, i1, i2), (spin1, spin2), finalize))
 

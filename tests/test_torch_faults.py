@@ -368,6 +368,11 @@ def test_new_entry_points_import_no_jax():
         "import heracles_tpu_torch.dices, heracles_tpu_torch.io\n"
         "from heracles_tpu_torch import fits, transforms, unmixing, utils\n"
         "assert callable(heracles_tpu_torch.dices.jackknife_cls)\n"
+        "import heracles_tpu_torch.parallel as par\n"
+        "mesh = par.make_mesh(4, m_axis=2, devices=['cpu'] * 4)\n"
+        "q = par.map2alm_sharded(mesh, torch.ones(2, 192, dtype=torch.float64),"
+        " 4)\n"
+        "assert tuple(q.shape) == (2, 5, 256)\n"
         "bad = [m for m in ('jax', 'heracles_tpu') if m in sys.modules]\n"
         "assert not bad, bad\n"
     )

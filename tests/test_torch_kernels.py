@@ -763,3 +763,168 @@ def test_spectra_of_host_alms_run_on_the_card(cuda, monkeypatch):
     assert set(grids) == {("cpu", "cpu")} and set(got) == set(want)
     for key in want:
         np.testing.assert_allclose(got[key], want[key], rtol=1e-12, atol=0)
+
+
+# -- a block of orders (the device mesh's "m" shards) ---------------------
+
+_NAMES = ("analysis_spin0_folded", "analysis_pair_folded",
+          "synthesis_spin0_folded", "synthesis_pair_folded")
+
+
+def _kernel_operands(name, nside, lmax, cdtype, device, seed):
+    """Full-width operands (nm = lmax + 1) of one kernel, its geometry and
+    its extra arguments."""
+    pair = name.endswith("pair_folded")
+    if name.startswith("analysis"):
+        ins, geom = _inputs(nside, lmax, 2, 4 if pair else 2, cdtype, device,
+                            seed)
+    else:
+        ins, geom = _alms(nside, lmax, 2, 2 if pair else 1, cdtype, device,
+                          seed)
+    return ins, geom, (2,) if pair else ()
+
+
+def _as_tuple(out):
+    return tuple(out) if isinstance(out, (tuple, list)) else (out,)
+
+
+@pytest.mark.parametrize("m0", [0, 64, 160, 192])
+@pytest.mark.parametrize("cdtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("name", _NAMES)
+def test_kernels_on_a_block_of_orders(cuda, name, cdtype, m0):
+    """A launch of the orders m0..m0+63 (at lmax 191: the first block, an
+    inner one, one that straddles lmax, one wholly above it) gives the full
+    launch's columns bit for bit, zeros for the orders above lmax, and
+    agrees with the plain version on the same block."""
+    nside, lmax, width = 64, 191, 64
+    ins, geom, extra = _kernel_operands(name, nside, lmax, cdtype, cuda, 21)
+    kernel = getattr(sht_kernels, name)
+    plain = getattr(wigner, name + "_plain")
+    full = _as_tuple(kernel(*ins, *geom, lmax, *extra))
+    block = [torch.nn.functional.pad(t[..., m0:m0 + width],
+                                     (0, max(0, m0 + width - lmax - 1)))
+             for t in ins]
+    before = sht_kernels.LAUNCHES[name]
+    got = _as_tuple(kernel(*block, *geom, lmax, *extra, m0))
+    torch.cuda.synchronize()
+    assert sht_kernels.LAUNCHES[name] == before + 1
+    want = _as_tuple(plain(*block, *geom, lmax, *extra, m0))
+    real = max(0, min(width, lmax + 1 - m0))
+    tol32 = (3e-5, 3e-4) if name == "synthesis_pair_folded" else (2e-5, 2e-4)
+    for g, f, w in zip(got, full, want):
+        assert g.shape == w.shape
+        assert torch.equal(g[..., :real], f[..., m0:m0 + real])
+        assert not g[..., real:].any()
+        if real:
+            _assert_close(g[..., :real], w[..., :real], cdtype, tol32)
+
+
+@pytest.mark.parametrize("m0", [0, 64, 160])
+@pytest.mark.parametrize("name", ["analysis_spin0_folded",
+                                  "synthesis_spin0_folded",
+                                  "synthesis_pair_folded"])
+def test_path_counts_on_a_block_of_orders(cuda, name, m0):
+    """The diagnostic launch on a block of orders counts the sub-chunks of
+    the block's own columns (none for the orders above lmax)."""
+    nside, lmax, width, batch = 256, 191, 64, 2
+    ins, geom, extra = _kernel_operands(name, nside, lmax, torch.complex64,
+                                        cuda, 22)
+    block = [torch.nn.functional.pad(t[..., m0:m0 + width],
+                                     (0, max(0, m0 + width - lmax - 1)))
+             for t in ins]
+    counts = sht_kernels.path_counts(name, *block, *geom, lmax, *extra, m0=m0)
+    spin = 2 if extra else 0
+    j0 = np.maximum(m0 + np.arange(width), spin)
+    per = 16 if name == "analysis_spin0_folded" else 8
+    subs = int((np.ceil(np.clip(lmax + 1 - j0, 0, None) / per)
+                * (per // 8)).sum())
+    assert sum(counts.values()) == batch * 4 * -(-2 * nside // 512) * subs
+
+
+@pytest.mark.parametrize("cdtype", [torch.float32, torch.float64])
+def test_mesh_of_one_card_matches_unsharded(cuda, cdtype):
+    """A (2, 2) mesh of four shards on one card: the sharded analysis,
+    synthesis and pipeline step against the unsharded transforms, with
+    real orders in the second "m" block (lmax 160 > 128), and one launch
+    of each kernel per shard."""
+    from heracles_tpu_torch import parallel, twopoint
+    from heracles_tpu_torch.ops import sht
+
+    nside, lmax = 64, 160
+    mesh = parallel.make_mesh(4, m_axis=2, devices=[cuda] * 4)
+    rng = np.random.default_rng(23)
+    maps = torch.as_tensor(rng.normal(size=(2, 12 * nside**2)), dtype=cdtype,
+                           device=cuda)
+    qu = torch.as_tensor(rng.normal(size=(2, 2, 12 * nside**2)), dtype=cdtype,
+                         device=cuda)
+    ctype = torch.complex64 if cdtype == torch.float32 else torch.complex128
+    for spin, m in ((0, maps), (2, qu)):
+        sht_kernels.reset_counts()
+        alm = parallel.map2alm_sharded(mesh, m, lmax, spin=spin)
+        name = "analysis_spin0_folded" if spin == 0 else "analysis_pair_folded"
+        assert dict(sht_kernels.LAUNCHES) == {name: 4}
+        assert not wigner.PLAIN_RUNS
+        want = sht.map2alm(m, lmax, spin=spin, packed=False)
+        _assert_close(alm[..., : lmax + 1], want, ctype)
+        assert not alm[..., lmax + 1:].any()
+        sht_kernels.reset_counts()
+        back = parallel.alm2map_sharded(mesh, alm, nside, lmax=lmax, spin=spin)
+        name = ("synthesis_spin0_folded" if spin == 0
+                else "synthesis_pair_folded")
+        assert dict(sht_kernels.LAUNCHES) == {name: 4}
+        _assert_close(back, sht.alm2map(want, nside, lmax, spin=spin,
+                                        packed=False), ctype)
+    grid = parallel.pipeline_step(mesh, maps, lmax, qu)
+    planes = torch.cat([sht.map2alm(maps, lmax, packed=False),
+                        sht.map2alm(qu, lmax, spin=2, packed=False)
+                        .reshape(-1, lmax + 1, lmax + 1)])
+    want = twopoint.rect_pair_grid(planes, planes, torch.arange(lmax + 1))
+    scale = want.abs().max().item()
+    tol = 1e-6 if cdtype == torch.float32 else 1e-12
+    assert (grid - want).abs().max().item() <= tol * scale
+
+
+def test_mesh_of_distinct_cards(cuda):
+    """``make_mesh()`` over every visible card (``torch.cuda.comm``
+    between them) against the unsharded transforms on the first card:
+    spin 0 and spin 2 alms and maps, the mixed pipeline grid, a mixing
+    matrix and the point adjoint.  Needs two cards or more."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards or more")
+    from heracles_tpu_torch import parallel, twopoint
+    from heracles_tpu_torch.mappers import DiscreteMapper
+    from heracles_tpu_torch.ops import sht
+
+    nside, lmax = 64, 160
+    mesh = parallel.make_mesh()
+    assert len({str(d) for d in mesh.devices.flat}) == mesh.size
+    rng = np.random.default_rng(31)
+    maps = torch.as_tensor(rng.normal(size=(mesh.shape["batch"],
+                                            12 * nside**2)), device=cuda)
+    qu = torch.as_tensor(rng.normal(size=(mesh.shape["batch"], 2,
+                                          12 * nside**2)), device=cuda)
+    for spin, m in ((0, maps), (2, qu)):
+        alm = parallel.map2alm_sharded(mesh, m, lmax, spin=spin)
+        assert alm.device == mesh.devices.flat[0]
+        want = sht.map2alm(m, lmax, spin=spin, packed=False)
+        _assert_close(alm[..., : lmax + 1], want, torch.complex128)
+        back = parallel.alm2map_sharded(mesh, alm, nside, lmax=lmax, spin=spin)
+        _assert_close(back, sht.alm2map(want, nside, lmax, spin=spin,
+                                        packed=False), torch.complex128)
+    grid = parallel.pipeline_step(mesh, maps, lmax, qu)
+    planes = torch.cat([sht.map2alm(maps, lmax, packed=False),
+                        sht.map2alm(qu, lmax, spin=2, packed=False)
+                        .reshape(-1, lmax + 1, lmax + 1)])
+    want = twopoint.rect_pair_grid(planes, planes, torch.arange(lmax + 1))
+    assert (grid - want).abs().max().item() <= 1e-12 * want.abs().max().item()
+    cl = rng.uniform(size=lmax + 1) / (1.0 + np.arange(lmax + 1))
+    mm = twopoint.mixmat(cl, mesh=mesh)
+    ref = twopoint.mixmat(cl, device=cuda)
+    np.testing.assert_allclose(mm, ref, rtol=0, atol=1e-12 * np.abs(ref).max())
+    theta = np.arccos(rng.uniform(-1, 1, 1001))
+    phi = rng.uniform(0, 2 * np.pi, 1001)
+    v = rng.normal(size=(2, 1001))
+    mapper = DiscreteMapper(40, device=cuda)
+    got = mapper.adjoint_synthesis_sharded(mesh, theta, phi, v, spin=2)
+    _assert_close(got, mapper._adjoint_synthesis(theta, phi, v, 2),
+                  torch.complex128)

@@ -138,6 +138,7 @@ def test_port_imports_no_jax():
     code = (
         "import runpy, sys, heracles_tpu_torch, heracles_tpu_torch.cli\n"
         "import heracles_tpu_torch.ops.nufft, heracles_tpu_torch.ops.pixwin\n"
+        "import heracles_tpu_torch.parallel\n"
         "sys.argv = ['heracles-tpu-torch', '--help']\n"
         "try:\n"
         "    runpy.run_module('heracles_tpu_torch', run_name='__main__')\n"
