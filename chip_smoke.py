@@ -100,7 +100,17 @@ with its seconds:
    ``adjoint_synthesis_sharded`` against phase 10's exact alms and
    ``compute_jk_alms(mesh=)`` of 8 regions against phase 9's, each with
    its exact launch counts, no plain run, its seconds and its peak memory
-   (shards queued on one card: not a scaling measurement).
+   (shards queued on one card: not a scaling measurement);
+12. the compensated (``dd="comp"``) float32 kernels of B1-B4: bin 0's POS
+   and SHE maps through ``HealpixMapper(dd="comp", iterations=1)
+   .transform`` (exact comp launch counts, no plain run, no float64
+   launch), then ``map2alm`` with ``dd=False``, ``"comp"`` and ``True``
+   against the float64 transform per l-band (comp's top band below
+   plain's); each comp kernel at bin 0's shapes against its plain version
+   (times, agreement, bound) beside the plain float32 kernel's time on the
+   same inputs, the path shares of the comp spin-0 analysis and of either
+   comp synthesis (equal to the plain kernels' counts), and one comp block
+   of orders (m0 = 1536) bit for bit the full comp launch's columns.
 
 Then a JSON line of the kernels (with each one's bound: the least time
 the card could take for the same work), the card line, and the result
@@ -175,7 +185,20 @@ KERNELS = {
     "fma_peak": ("heracles_tpu_torch/csrc/fma_peak.cu", "tools/vpu_peak.py:31"),
     "spread": ("heracles_tpu_torch/csrc/spread.cu",
                "heracles_tpu/ops/_spread.cpp:42"),
+    # the compensated float32 instantiations (phase 12)
+    "analysis_spin0_folded_comp": ("heracles_tpu_torch/csrc/sht_analysis.cu",
+                                   "heracles_tpu/ops/pallas_sht.py:835"),
+    "analysis_pair_folded_comp": (
+        "heracles_tpu_torch/csrc/sht_analysis_pair.cu",
+        "heracles_tpu/ops/pallas_sht.py:1218"),
+    "synthesis_spin0_folded_comp": ("heracles_tpu_torch/csrc/sht_synthesis.cu",
+                                    "heracles_tpu/ops/pallas_sht.py:1828"),
+    "synthesis_pair_folded_comp": (
+        "heracles_tpu_torch/csrc/sht_synthesis_pair.cu",
+        "heracles_tpu/ops/pallas_sht.py:2501"),
 }
+SHT_NAMES = ("analysis_spin0_folded", "analysis_pair_folded",
+             "synthesis_spin0_folded", "synthesis_pair_folded")
 # the kernels of the pipeline path (phase 3); the probe has its own path
 # (phase 6), synthesis its own (phase 7)
 PIPELINE_KERNELS = ("analysis_spin0_folded", "analysis_pair_folded", "gram")
@@ -224,11 +247,19 @@ FP64_TENSOR_PEAK = 67e12
 # function needs 4, whether or not a kernel spends the addition), the emit
 # multiply (1 per column) and the contraction: 2 FMAs (4) for either
 # spin-0 kernel, 8 FMAs (16) for either pair (the synthesis sums even and
-# odd l apart, so its (-1)^l costs nothing per triple).
+# odd l apart, so its (-1)^l costs nothing per triple).  The compensated
+# kernels (wigner_recurrence.cuh, step_lo) add per column the lo stream's
+# step, (a1 x + a0) lo, r (a1 x d), +, b lo', - (a1 x d is the spin-0
+# step's own product, a new one in a pair: 5 at spin 0, 6 a pair column)
+# and the emit's d + lo: 15 and 41.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOP_PER_S = {torch.float32: 67e12, torch.float64: 67e12}
 FLOP_PER_TRIPLE = {"analysis_spin0_folded": 9, "analysis_pair_folded": 27,
-                   "synthesis_spin0_folded": 9, "synthesis_pair_folded": 27}
+                   "synthesis_spin0_folded": 9, "synthesis_pair_folded": 27,
+                   "analysis_spin0_folded_comp": 15,
+                   "analysis_pair_folded_comp": 41,
+                   "synthesis_spin0_folded_comp": 15,
+                   "synthesis_pair_folded_comp": 41}
 
 
 def check(ok, msg):
@@ -286,22 +317,25 @@ def kernel_label(entry):
     def prec(c):
         return "f32" if c == "f" else "f64"
 
-    m = re.search(r"pair_analysis_kernelI([fd])E", entry)
+    def tail(comp, paths="0"):
+        return f"{'/comp' if comp == '1' else ''}" \
+               f"{'/paths' if paths == '1' else ''}"
+
+    # template <typename T, bool kComp[, bool kCount]>: the compensated
+    # instantiations carry a first Lb1, the diagnostic twins that count the
+    # paths a second
+    m = re.search(r"pair_analysis_kernelI([fd])Lb([01])E", entry)
     if m:
-        return f"analy/pair/{prec(m.group(1))}"
-    # the diagnostic twins that count the paths carry Lb1
-    m = re.search(r"pair_synthesis_kernelI([fd])Lb([01])E", entry)
+        return f"analy/pair/{prec(m.group(1))}{tail(m.group(2))}"
+    m = re.search(r"pair_synthesis_kernelI([fd])Lb([01])ELb([01])E", entry)
     if m:
-        return f"synth/pair/{prec(m.group(1))}" \
-               f"{'/paths' if m.group(2) == '1' else ''}"
-    m = re.search(r"analysis_kernelI([fd])Lb([01])E", entry)
+        return f"synth/pair/{prec(m.group(1))}{tail(*m.group(2, 3))}"
+    m = re.search(r"analysis_kernelI([fd])Lb([01])ELb([01])E", entry)
     if m:
-        return f"analy/spin0/{prec(m.group(1))}" \
-               f"{'/paths' if m.group(2) == '1' else ''}"
-    m = re.search(r"synthesis_kernelI([fd])Lb([01])E", entry)
+        return f"analy/spin0/{prec(m.group(1))}{tail(*m.group(2, 3))}"
+    m = re.search(r"synthesis_kernelI([fd])Lb([01])ELb([01])E", entry)
     if m:
-        return f"synth/spin0/{prec(m.group(1))}" \
-               f"{'/paths' if m.group(2) == '1' else ''}"
+        return f"synth/spin0/{prec(m.group(1))}{tail(*m.group(2, 3))}"
     m = re.search(r"probe_kernelI([fd])Li([01])ELi(\d)E", entry)
     if m:
         return f"{'rec3' if m.group(2) == '1' else 'fma'}/" \
@@ -600,12 +634,15 @@ def sht_triples(batch, nhalf, nm, lmax, spin, m0=0):
 
 def sht_bound(name, batch, nhalf, nm, lmax, cdtype, m0=0):
     """The bound of one SHT kernel launch of the orders m0..m0+nm-1: ring
-    spectra and alms moved once."""
-    pair = name.endswith("pair_folded")
+    spectra and alms moved once (a ``*_comp`` name: the compensated
+    kernel, which also reads each ring's r)."""
+    pair = "pair_folded" in name
     nring, nalm = (4, 2) if pair else (2, 1)
     item = torch.empty((), dtype=cdtype).element_size()
     nbytes = (float(batch) * nm * item * (nring * nhalf + nalm * (lmax + 1))
               + nhalf * (item // 2 + 16))  # x, log cos, log sin
+    if name.endswith("_comp"):
+        nbytes += nhalf * 4
     flops = FLOP_PER_TRIPLE[name] * sht_triples(batch, nhalf, nm, lmax,
                                                 2 if pair else 0, m0)
     real = torch.float32 if cdtype == torch.complex64 else torch.float64
@@ -1933,6 +1970,137 @@ def phase11(dev, smi, p3, dices_alms, discrete):
           f"({time.perf_counter() - t:.1f} s)", flush=True)
 
 
+def phase12(dev, smi, p3):
+    """The compensated float32 kernels at full size; returns (kernel
+    reports, launches on their main path), keyed ``<kernel>_comp``."""
+    import heracles_tpu_torch as th
+    from heracles_tpu_torch.ops import ringfft, sht, sht_kernels, wigner
+
+    t = time.perf_counter()
+    pos, she = p3["pos"][0], p3["she"][0]
+    mapper = th.HealpixMapper(NSIDE, LMAX, dtype=torch.float32, device=dev,
+                              dd="comp", iterations=1)
+    # the main path: the mapper's comp transform of bin 0's maps, counts
+    # set to 0 just before and read just after
+    reset_counts()
+    (a_pos, a_she), t_tr = sync_time(lambda: (mapper.transform(pos, spin=0),
+                                              mapper.transform(she, spin=2)))
+    by_prec = dict(sht_kernels.LAUNCHES_BY_PRECISION)
+    _, plain_runs = counts()
+    want = {(name, "f32c"): n for name, n in zip(SHT_NAMES, (2, 2, 1, 1))}
+    check(by_prec == want, f"comp transform launches {by_prec}, expected "
+          f"{want}")
+    check(sum(plain_runs.values()) == 0, f"plain versions ran: {plain_runs}")
+    comp_launches = {f"{name}_comp": n for (name, _), n in want.items()}
+    for label, a in (("POS", a_pos), ("SHE", a_she)):
+        check(a.array.dtype == torch.complex64, f"{label} comp alms "
+              f"{a.array.dtype}")
+        check(bool(torch.isfinite(a.array).all()), f"{label} comp alms not "
+              "finite")
+
+    # map2alm in each mode against the float64 transform, per l-band
+    ls, _ = sht._pack_index(LMAX, LMAX, dev)
+    bands, top = {}, {}
+    for key, spin, m32 in (("POS", 0, pos), ("SHE", 2, she)):
+        a64 = sht.map2alm(m32.double(), LMAX, spin=spin)
+        for mode, dd in (("f32", False), ("comp", "comp"), ("dd", True)):
+            rel = l_band_rel(sht.map2alm(m32, LMAX, spin=spin, dd=dd), a64, ls)
+            bands[key, mode] = rel
+            top[key, mode] = rel[-1]
+        del a64
+        check(top[key, "comp"] < top[key, "f32"],
+              f"{key}: comp's top-band error {top[key, 'comp']:.2e} is not "
+              f"below plain's {top[key, 'f32']:.2e}")
+    band_txt = "; ".join(f"{k} {m} " + " ".join(f"{v:.1e}" for v in rel)
+                         for (k, m), rel in bands.items())
+
+    # each comp kernel at bin 0's shapes against its plain version
+    x, lch, lsh = sht._geometry(NSIDE, dev)
+    x_lo = sht._x_lo(NSIDE, "comp", dev)
+    w = sht.ring_weights(NSIDE)
+    F, _ = ringfft.ring_analysis(pos, NSIDE, LMAX + 1, weight=w)
+    spin0_in = sht._folded_inputs((F,), (0,))
+    Fp, Fn = ringfft.ring_analysis(torch.complex(she[0], she[1]), NSIDE,
+                                   LMAX + 1, weight=w)
+    pair_in = sht._folded_inputs((Fp, Fn.conj()), (2, -2))
+    del F, Fp, Fn
+    a0 = sht.unpack_alm(a_pos.array, LMAX)
+    eb = sht.unpack_alm(a_she.array, LMAX)
+    a_p = -(eb[0] + 1j * eb[1])
+    a_m = (-(eb[0] - 1j * eb[1])).conj().resolve_conj()
+    del eb, a_pos, a_she
+    inputs = {"analysis_spin0_folded": (spin0_in, ()),
+              "analysis_pair_folded": (pair_in, (2,)),
+              "synthesis_spin0_folded": ((a0,), ()),
+              "synthesis_pair_folded": ((a_p, a_m), (2,))}
+    nhalf = x.shape[0]
+    per = 1536
+    report, parts, shares = {}, [], []
+    for name in SHT_NAMES:
+        ins, extra = inputs[name]
+        kernel = getattr(sht_kernels, name)
+        plain = getattr(wigner, name + "_plain")
+
+        def run(args=ins, m0=0, **kw):
+            out = kernel(*args, x, lch, lsh, LMAX, *extra, m0, **kw)
+            return out if isinstance(out, (tuple, list)) else (out,)
+
+        run(dd="comp", x_lo=x_lo)  # warm
+        got, ms = event_ms(lambda: run(dd="comp", x_lo=x_lo))
+        run()  # warm
+        _, f32_ms = event_ms(lambda: run())
+        want_, plain_ms = event_ms(lambda: plain(*ins, x, lch, lsh, LMAX,
+                                                 *extra, x_lo=x_lo))
+        want_ = want_ if isinstance(want_, (tuple, list)) else (want_,)
+        tol = PAIR_SYNTH_TOL32 if name == "synthesis_pair_folded" else \
+            TOL[torch.complex64]
+        errs = [compare(g, p, *tol, what=f"{name} comp")
+                for g, p in zip(got, want_)]
+        del want_
+        # one block of orders, bit for bit the full launch's columns
+        blk = [torch.nn.functional.pad(a[..., per:], (0, 2 * per - LMAX - 1))
+               for a in ins]
+        out = run(blk, per, dd="comp", x_lo=x_lo)
+        real = LMAX + 1 - per
+        for o, f in zip(out, got):
+            check(torch.equal(o[..., :real], f[..., per:]),
+                  f"{name} comp block m0={per}: columns differ from the full "
+                  "launch's")
+            check(not bool(o[..., real:].any()),
+                  f"{name} comp block m0={per}: padded orders not zero")
+        del out, blk, got
+        cname = f"{name}_comp"
+        bms, by = sht_bound(cname, 1, nhalf, LMAX + 1, LMAX, torch.complex64)
+        report[cname] = dict(max_abs_err=max(e[0] for e in errs),
+                             rel=max(e[1] for e in errs), ms=ms,
+                             plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+        parts.append(f"{cname}: kernel {ms:.2f} ms ({ms / f32_ms:.2f}x the "
+                     f"float32 kernel's {f32_ms:.2f} ms), plain "
+                     f"{plain_ms:.1f} ms, bound {bms:.2f} ms ({by}), max|d| "
+                     f"{report[cname]['max_abs_err']:.3e} "
+                     f"({report[cname]['rel']:.2e} of max)")
+        if name != "analysis_pair_folded":
+            args = (*ins, x, lch, lsh, LMAX, *extra)
+            c_comp = sht_kernels.path_counts(name, *args, dd="comp",
+                                             x_lo=x_lo)
+            c_plain = sht_kernels.path_counts(name, *args)
+            check(c_comp == c_plain, f"{name}: comp paths {c_comp} differ "
+                  f"from plain's {c_plain}")
+            total = sum(c_comp.values())
+            shares.append(f"{cname} " + ", ".join(
+                f"{p} {100 * c_comp[p] / total:.1f}%" for p in PATHS))
+    torch.cuda.synchronize()
+    print(f"phase 12 comp n{NSIDE} l{LMAX} f32: HealpixMapper(dd=\"comp\", "
+          f"iterations=1).transform of bin 0's POS and SHE {t_tr:.2f} s, "
+          f"launches {comp_launches}, no plain run; map2alm against the "
+          f"float64 transform, max|da|/max|a| per l-band (10 bands): "
+          f"{band_txt}; {'; '.join(parts)}; paths (equal to the plain "
+          f"kernels'): {'; '.join(shares)}; comp blocks m0={per} bit for bit "
+          f"the full launch's columns; card {smi} "
+          f"({time.perf_counter() - t:.1f} s)", flush=True)
+    return report, comp_launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch sees no CUDA device; this script "
@@ -1973,15 +2141,22 @@ def main():
                            for t, (a, c, r) in spread_ops.items())
     blocks = "; ".join(
         f"{kernel} {kl.blocks_per_sm(kernel, False)} (f32), "
-        f"{kl.blocks_per_sm(kernel, True)} (f64)"
+        f"{kl.blocks_per_sm(kernel, True)} (f64), "
+        f"{kl.blocks_per_sm(kernel, False, comp=True)} (comp)"
         for kernel in ("analysis_spin0", "analysis_pair", "synthesis_spin0",
                        "synthesis_pair"))
     # an existing build has no compiler log to read
     ptxas = ptxas_summary(kl.log) if kl.seconds else "ptxas: no log, built before"
-    synth0 = [row for row in ptxas.split("; ") if row.startswith("synth/spin0/")]
+    rows = ptxas.split("; ")
+    # the comp instantiations' spills are reported, not refused
+    synth0 = [row for row in rows if row.startswith("synth/spin0/")
+              and "/comp" not in row]
     check(not kl.seconds or (len(synth0) == 3 and all(
         row.endswith(", 0 B stack, 0 B spill") for row in synth0)),
           f"the spin-0 synthesis spills, or an instantiation is missing: {synth0}")
+    comp_rows = [row for row in rows if "/comp" in row]
+    check(not kl.seconds or len(comp_rows) == 7,
+          f"a comp instantiation is missing: {comp_rows}")
     print(f"phase 1 build: nvcc {kl.seconds:.1f} s -> {kl.path.name}; "
           f"{ptxas}; gram DMMA instructions {dmma}; spread SASS (shared "
           f"atomics, compare-and-swap, global reductions) {spread_txt}; blocks "
@@ -2241,7 +2416,13 @@ def main():
 
     # -- phase 11: the device mesh, its own path ---------------------------
     phase11(dev, smi, p3, dices_alms, discrete)
-    del p3, dices_alms, discrete
+    del dices_alms, discrete
+
+    # -- phase 12: the compensated kernels, their own path ----------------
+    comp_report, comp_launches = phase12(dev, smi, p3)
+    report.update(comp_report)
+    launches.update(comp_launches)
+    del p3
 
     def mean(key):
         return float(np.mean([c[key] for c in contractions.values()]))

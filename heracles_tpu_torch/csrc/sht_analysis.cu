@@ -59,14 +59,21 @@
 //     the float64 ring half-angle logs in both instantiations;
 //   * the recurrence itself (seed, coefficients, unfused step, rescale) is
 //     wigner_recurrence.cuh, shared with the other SHT kernels, and rounds
-//     as the plain version does.
+//     as the plain version does;
+//   * the float32 kernel has a compensated instantiation (kComp), the twin
+//     of _kernel_comp (pallas_sht.py:835): each ring carries r = x_lo /
+//     x_hi and one lo stream (wigner::step_lo) beside d, shares d's
+//     rescales and paths, and emits d + lo.  It costs 7 operations a
+//     triple more (the lo step's 6 and the emit's add) and 3 registers a
+//     ring; kComp = false compiles to the plain kernel.
 //
-// C interface (loaded with ctypes): heracles_analysis_spin0_{f32,f64}
-// launch on the given stream and return cudaGetLastError();
+// C interface (loaded with ctypes): heracles_analysis_spin0_{f32,f64} and
+// heracles_analysis_spin0_comp_f32 (with the rings' r after x) launch on
+// the given stream and return cudaGetLastError();
 // heracles_analysis_spin0_blocks_per_sm gives the resident blocks per SM
 // (the shared memory does not depend on lmax);
-// heracles_analysis_spin0_paths_f32 is a diagnostic launch that also counts
-// the warps' sub-chunks on each path (steady, dead, full).
+// heracles_analysis_spin0_{,comp_}paths_f32 are diagnostic launches that
+// also count the warps' sub-chunks on each path (steady, dead, full).
 // Every launch takes the block of orders m0..m0+nm-1 into its columns
 // 0..nm-1 (the seed planes are the block's, indexed by column), so a
 // device mesh can give each shard its own block; m0 = 0 is every order
@@ -98,12 +105,14 @@ using sht_paths::PathCounts;
 using sht_paths::rescale_deferred;
 using warp_reduce::reduce_scatter;
 using wigner::advance;
+using wigner::advance_comp;
 using wigner::Arith;
 using wigner::coef_row;
 using wigner::kNoSeed;
 using wigner::norm_of;
 using wigner::seed_of;
 using wigner::step;
+using wigner::step_lo;
 
 // A coefficient row (a1, a0, b, pad) of the shared table, in vector reads.
 __device__ __forceinline__ void load_row(const float* row, float& a1,
@@ -144,10 +153,11 @@ struct Ring {
   int k;        // the 2^60 exponent
   // F of the parity of j0 and of j0 + 1, (re, im), each times 2^-60
   T fa[2], fb[2];
+  T r, dpl, dcl;  // comp only: x_lo / x_hi; the lo stream's l-1, l
 };
 
 // kSub multipoles of a chunk, from its multipole kOff on.
-template <typename T, Path P, int kOff>
+template <typename T, Path P, int kOff, bool kComp>
 __device__ __forceinline__ void spin0_sub(const T* __restrict__ cf,
                                           Ring<T> (&rs)[kRings], T (&acc)[V]) {
 #pragma unroll
@@ -158,7 +168,8 @@ __device__ __forceinline__ void spin0_sub(const T* __restrict__ cf,
     for (int r = 0; r < kRings; ++r) {
       Ring<T>& q = rs[r];
       if (P != Path::kDead) {
-        const T lam = P == Path::kSteady ? q.dc : q.dc * emit_scaled<T>(q.k);
+        const T d = kComp ? Arith<T>::add(q.dc, q.dcl) : q.dc;
+        const T lam = P == Path::kSteady ? d : d * emit_scaled<T>(q.k);
         // chunks start at j0's parity
         const T fre = (t & 1) ? q.fb[0] : q.fa[0];
         const T fim = (t & 1) ? q.fb[1] : q.fa[1];
@@ -167,7 +178,17 @@ __device__ __forceinline__ void spin0_sub(const T* __restrict__ cf,
       }
       const T a1x = Arith<T>::mul(a1, q.x);
       const T dn = step<T>(a1x, a0, bb, q.dc, q.dp);
-      if (P == Path::kFull) {
+      if (kComp) {
+        const T dnl = step_lo<T>(a1x, a0, bb, q.r, q.dc, q.dcl, q.dpl);
+        if (P == Path::kFull) {
+          advance_comp<T>(dn, dnl, q.dp, q.dc, q.dpl, q.dcl, q.k);
+        } else {
+          q.dp = q.dc;
+          q.dc = dn;
+          q.dpl = q.dcl;
+          q.dcl = dnl;
+        }
+      } else if (P == Path::kFull) {
         advance<T>(dn, q.dp, q.dc, q.k);
       } else {  // steady: no rescale is due; dead: it waits for the end
         q.dp = q.dc;
@@ -178,12 +199,16 @@ __device__ __forceinline__ void spin0_sub(const T* __restrict__ cf,
   if (P == Path::kDead) {
 #pragma unroll
     for (int r = 0; r < kRings; ++r) {
-      rescale_deferred<T>(rs[r].dp, rs[r].dc, rs[r].k);
+      if (kComp) {
+        rescale_deferred<T>(rs[r].dp, rs[r].dc, rs[r].dpl, rs[r].dcl, rs[r].k);
+      } else {
+        rescale_deferred<T>(rs[r].dp, rs[r].dc, rs[r].k);
+      }
     }
   }
 }
 
-template <typename T, int kOff, bool kCount>
+template <typename T, int kOff, bool kCount, bool kComp>
 __device__ __forceinline__ void spin0_sub_any(const T* __restrict__ cf,
                                               Ring<T> (&rs)[kRings],
                                               T (&acc)[V],
@@ -197,18 +222,20 @@ __device__ __forceinline__ void spin0_sub_any(const T* __restrict__ cf,
   const Path path = sht_paths::warp_path(steady, dead);
   tally.add(path);
   if (path == Path::kSteady) {
-    spin0_sub<T, Path::kSteady, kOff>(cf, rs, acc);
+    spin0_sub<T, Path::kSteady, kOff, kComp>(cf, rs, acc);
   } else if (path == Path::kDead) {
-    spin0_sub<T, Path::kDead, kOff>(cf, rs, acc);
+    spin0_sub<T, Path::kDead, kOff, kComp>(cf, rs, acc);
   } else {
-    spin0_sub<T, Path::kFull, kOff>(cf, rs, acc);
+    spin0_sub<T, Path::kFull, kOff, kComp>(cf, rs, acc);
   }
 }
 
-template <typename T, bool kCount>
+// xr: the rings' r = x_lo / x_hi, read only by the comp instantiation.
+template <typename T, bool kComp, bool kCount>
 __global__ void __launch_bounds__(kThreads)
     analysis_kernel(const T* __restrict__ f0, const T* __restrict__ f1,
-                    const T* __restrict__ x, const double* __restrict__ logch,
+                    const T* __restrict__ x, const T* __restrict__ xr,
+                    const double* __restrict__ logch,
                     const double* __restrict__ logsh,
                     const double* __restrict__ seed, T* __restrict__ out,
                     int nhalf, int nm, int lmax, int m0,
@@ -216,6 +243,7 @@ __global__ void __launch_bounds__(kThreads)
   static_assert(LC == 2 * kSub && kRows % LC == 0 && V == 32,
                 "two sub-chunks per chunk, chunks tile the section, one sum "
                 "per lane after the butterfly");
+  static_assert(!kComp || sizeof(T) == 4, "comp is a float32 mode");
 
   __shared__ __align__(16) T tab[2][kRows][4];  // a1, a0, b, (pad)
   __shared__ __align__(16) T part[2][kWarps][kRows * NC];
@@ -262,10 +290,12 @@ __global__ void __launch_bounds__(kThreads)
       Ring<T>& p = rings[r];
       const int ring = tile * kTile + (warp * kRings + r) * 32 + lane;
       p.dp = T(0);
+      if (kComp) p.dpl = p.dcl = p.r = T(0);
       if (ring < nhalf) {
         const size_t off = ((size_t(b) * nhalf + ring) * nm + mc) * 2;
         const double lch = logch[ring], lsh = logsh[ring];
         p.x = x[ring];
+        if (kComp) p.r = xr[ring];
         load2(fe + off, p.fa[0], p.fa[1]);
         load2(fo + off, p.fb[0], p.fb[1]);
 #pragma unroll
@@ -303,8 +333,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int i = 0; i < V; ++i) acc[i] = T(0);
         const T* cf = &tab[tb][c * LC][0];
-        spin0_sub_any<T, 0, kCount>(cf, rings, acc, tally);
-        spin0_sub_any<T, kSub, kCount>(cf, rings, acc, tally);
+        spin0_sub_any<T, 0, kCount, kComp>(cf, rings, acc, tally);
+        spin0_sub_any<T, kSub, kCount, kComp>(cf, rings, acc, tally);
 
         // k never decreases: a warp whose every exponent is still below -1
         // emitted only zeros in this chunk and skips its reduction
@@ -337,16 +367,17 @@ __global__ void __launch_bounds__(kThreads)
   tally.flush(counts, lane);
 }
 
-template <typename T, bool kCount>
-int launch(const void* f0, const void* f1, const void* x, const void* logch,
-           const void* logsh, const void* seed, void* out, int batch,
-           int nhalf, int nm, int lmax, int m0, void* counts,
+template <typename T, bool kComp, bool kCount>
+int launch(const void* f0, const void* f1, const void* x, const void* xr,
+           const void* logch, const void* logsh, const void* seed, void* out,
+           int batch, int nhalf, int nm, int lmax, int m0, void* counts,
            void* stream) {
   if (batch == 0 || nm == 0) return int(cudaSuccess);
-  analysis_kernel<T, kCount>
+  analysis_kernel<T, kComp, kCount>
       <<<dim3(nm, batch), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const T*>(f0), static_cast<const T*>(f1),
-          static_cast<const T*>(x), static_cast<const double*>(logch),
+          static_cast<const T*>(x), static_cast<const T*>(xr),
+          static_cast<const double*>(logch),
           static_cast<const double*>(logsh), static_cast<const double*>(seed),
           static_cast<T*>(out), nhalf, nm, lmax, m0,
           static_cast<unsigned long long*>(counts));
@@ -362,8 +393,9 @@ int heracles_analysis_spin0_f32(const void* fe, const void* fo, const void* x,
                                 const void* seed, void* out, int batch,
                                 int nhalf, int nm, int lmax, int m0,
                                 void* stream) {
-  return launch<float, false>(fe, fo, x, logch, logsh, seed, out, batch, nhalf,
-                              nm, lmax, m0, nullptr, stream);
+  return launch<float, false, false>(fe, fo, x, nullptr, logch, logsh, seed,
+                                     out, batch, nhalf, nm, lmax, m0, nullptr,
+                                     stream);
 }
 
 int heracles_analysis_spin0_f64(const void* fe, const void* fo, const void* x,
@@ -371,8 +403,21 @@ int heracles_analysis_spin0_f64(const void* fe, const void* fo, const void* x,
                                 const void* seed, void* out, int batch,
                                 int nhalf, int nm, int lmax, int m0,
                                 void* stream) {
-  return launch<double, false>(fe, fo, x, logch, logsh, seed, out, batch,
-                               nhalf, nm, lmax, m0, nullptr, stream);
+  return launch<double, false, false>(fe, fo, x, nullptr, logch, logsh, seed,
+                                      out, batch, nhalf, nm, lmax, m0, nullptr,
+                                      stream);
+}
+
+// The compensated float32 launch: xr holds each ring's r = x_lo / x_hi.
+int heracles_analysis_spin0_comp_f32(const void* fe, const void* fo,
+                                     const void* x, const void* xr,
+                                     const void* logch, const void* logsh,
+                                     const void* seed, void* out, int batch,
+                                     int nhalf, int nm, int lmax, int m0,
+                                     void* stream) {
+  return launch<float, true, false>(fe, fo, x, xr, logch, logsh, seed, out,
+                                    batch, nhalf, nm, lmax, m0, nullptr,
+                                    stream);
 }
 
 // The float32 launch with ``counts`` (3 x uint64, zeroed by the caller)
@@ -383,18 +428,39 @@ int heracles_analysis_spin0_paths_f32(const void* fe, const void* fo,
                                       void* out, void* counts, int batch,
                                       int nhalf, int nm, int lmax, int m0,
                                       void* stream) {
-  return launch<float, true>(fe, fo, x, logch, logsh, seed, out, batch, nhalf,
-                             nm, lmax, m0, counts, stream);
+  return launch<float, false, true>(fe, fo, x, nullptr, logch, logsh, seed,
+                                    out, batch, nhalf, nm, lmax, m0, counts,
+                                    stream);
+}
+
+// The compensated float32 launch with the path counts.
+int heracles_analysis_spin0_comp_paths_f32(const void* fe, const void* fo,
+                                           const void* x, const void* xr,
+                                           const void* logch,
+                                           const void* logsh, const void* seed,
+                                           void* out, void* counts, int batch,
+                                           int nhalf, int nm, int lmax, int m0,
+                                           void* stream) {
+  return launch<float, true, true>(fe, fo, x, xr, logch, logsh, seed, out,
+                                   batch, nhalf, nm, lmax, m0, counts, stream);
 }
 
 // Resident blocks per SM of the spin-0 analysis (its shared memory does not
-// depend on lmax), written to *blocks; returns the CUDA error code.
-int heracles_analysis_spin0_blocks_per_sm(int is_double, void* blocks) {
+// depend on lmax), written to *blocks; variant 0 is the float32 kernel, 1
+// the float64 one, 2 the compensated float32 one.  Returns the CUDA error
+// code.
+int heracles_analysis_spin0_blocks_per_sm(int variant, void* blocks) {
   int* n = static_cast<int*>(blocks);
-  return int(is_double ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                             n, analysis_kernel<double, false>, kThreads, 0)
-                       : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                             n, analysis_kernel<float, false>, kThreads, 0));
+  if (variant == 1) {
+    return int(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        n, analysis_kernel<double, false, false>, kThreads, 0));
+  }
+  if (variant == 2) {
+    return int(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        n, analysis_kernel<float, true, false>, kThreads, 0));
+  }
+  return int(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      n, analysis_kernel<float, false, false>, kThreads, 0));
 }
 
 const char* heracles_cuda_error_string(int err) {

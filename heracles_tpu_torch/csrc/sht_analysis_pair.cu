@@ -56,10 +56,17 @@
 //     S), not a product-sum plus an add;
 //   * the recurrence itself (seed, coefficients, unfused step, rescale) is
 //     wigner_recurrence.cuh, shared with the spin-0 analysis and the
-//     synthesis kernels, and rounds as the plain version does.
+//     synthesis kernels, and rounds as the plain version does;
+//   * the float32 kernel has a compensated instantiation (kComp), the twin
+//     of _pair_kernel_comp (pallas_sht.py:1218): each ring carries r =
+//     x_lo / x_hi and a lo stream per column (wigner::step_lo), which
+//     shares its column's rescales and adds to it at emission.  It costs
+//     14 operations a triple more (two lo steps of 6, two emit adds) and 5
+//     registers a ring; kComp = false compiles to the plain kernel.
 //
-// C interface (loaded with ctypes): heracles_analysis_pair_{f32,f64}
-// launch on the given stream and return cudaGetLastError();
+// C interface (loaded with ctypes): heracles_analysis_pair_{f32,f64} and
+// heracles_analysis_pair_comp_f32 (with the rings' r after x) launch on
+// the given stream and return cudaGetLastError();
 // heracles_analysis_pair_blocks_per_sm gives the resident blocks per SM.
 // Every launch takes the block of orders m0..m0+nm-1 into its columns
 // 0..nm-1 (the seed planes are the block's, indexed by column), so a
@@ -85,12 +92,14 @@ constexpr int V = NC * LC;                // register sums per thread
 
 using warp_reduce::reduce_scatter;
 using wigner::advance;
+using wigner::advance_comp;
 using wigner::Arith;
 using wigner::coef_row;
 using wigner::kNoSeed;
 using wigner::norm_of;
 using wigner::seed_of;
 using wigner::step;
+using wigner::step_lo;
 
 // The emit factor times 2^60, for spectra held times 2^-60: 2^60 at k = 0,
 // 1 at k = -1, 0 below.  (dc e) (F 2^-60) is the exact product of the
@@ -130,9 +139,11 @@ struct PairRing {
   int k, km;              // their 2^60 exponents
   // FNp, Sp (-1)^j0, FNm, Sm (-1)^j0, each times 2^-60
   T fa[2], fb[2], fc[2], fd[2];
+  // comp only: x_lo / x_hi; the lo streams of the +s and -s columns
+  T r, dpl, dcl, dpml, dcml;
 };
 
-template <typename T, bool kSteady>
+template <typename T, bool kSteady, bool kComp>
 __device__ __forceinline__ void pair_chunk(const T* __restrict__ cf,
                                            PairRing<T> (&rs)[kRings],
                                            T (&acc)[V]) {
@@ -143,8 +154,10 @@ __device__ __forceinline__ void pair_chunk(const T* __restrict__ cf,
 #pragma unroll
     for (int r = 0; r < kRings; ++r) {
       PairRing<T>& q = rs[r];
-      const T lp = kSteady ? q.dc : q.dc * emit_scaled<T>(q.k);
-      const T lm = kSteady ? q.dcm : q.dcm * emit_scaled<T>(q.km);
+      const T dp_ = kComp ? Arith<T>::add(q.dc, q.dcl) : q.dc;
+      const T dm_ = kComp ? Arith<T>::add(q.dcm, q.dcml) : q.dcm;
+      const T lp = kSteady ? dp_ : dp_ * emit_scaled<T>(q.k);
+      const T lm = kSteady ? dm_ : dm_ * emit_scaled<T>(q.km);
       // (-1)^l = (-1)^j0 (-1)^t: the (-1)^j0 is in fb and fd
       const T lps = (t & 1) ? -lp : lp;
       const T lms = (t & 1) ? -lm : lm;
@@ -157,7 +170,23 @@ __device__ __forceinline__ void pair_chunk(const T* __restrict__ cf,
       const T a1x = Arith<T>::mul(a1, q.x);
       const T dnp = step<T>(a1x, a0, bb, q.dc, q.dp);
       const T dnm = step<T>(a1x, -a0, bb, q.dcm, q.dpm);
-      if (kSteady) {
+      if (kComp) {
+        const T dnpl = step_lo<T>(a1x, a0, bb, q.r, q.dc, q.dcl, q.dpl);
+        const T dnml = step_lo<T>(a1x, -a0, bb, q.r, q.dcm, q.dcml, q.dpml);
+        if (kSteady) {
+          q.dp = q.dc;
+          q.dc = dnp;
+          q.dpm = q.dcm;
+          q.dcm = dnm;
+          q.dpl = q.dcl;
+          q.dcl = dnpl;
+          q.dpml = q.dcml;
+          q.dcml = dnml;
+        } else {
+          advance_comp<T>(dnp, dnpl, q.dp, q.dc, q.dpl, q.dcl, q.k);
+          advance_comp<T>(dnm, dnml, q.dpm, q.dcm, q.dpml, q.dcml, q.km);
+        }
+      } else if (kSteady) {
         q.dp = q.dc;
         q.dc = dnp;
         q.dpm = q.dcm;
@@ -170,11 +199,12 @@ __device__ __forceinline__ void pair_chunk(const T* __restrict__ cf,
   }
 }
 
-template <typename T>
+// xr: the rings' r = x_lo / x_hi, read only by the comp instantiation.
+template <typename T, bool kComp>
 __global__ void __launch_bounds__(kThreads)
     pair_analysis_kernel(const T* __restrict__ fnp, const T* __restrict__ sp,
                          const T* __restrict__ fnm, const T* __restrict__ sm,
-                         const T* __restrict__ x,
+                         const T* __restrict__ x, const T* __restrict__ xr,
                          const double* __restrict__ logch,
                          const double* __restrict__ logsh,
                          const double* __restrict__ seed,
@@ -182,6 +212,7 @@ __global__ void __launch_bounds__(kThreads)
                          int nhalf, int nm, int lmax, int s, int m0) {
   static_assert(LC % 2 == 0 && kRows % LC == 0,
                 "chunks keep the parity of l and tile the table");
+  static_assert(!kComp || sizeof(T) == 4, "comp is a float32 mode");
 
   __shared__ __align__(16) T tab[2][kRows][4];  // a1, a0, b, (pad)
   __shared__ T part[2][kWarps][V];
@@ -237,10 +268,12 @@ __global__ void __launch_bounds__(kThreads)
       const int ring = tile * kTile + (warp * kRings + r) * 32 + lane;
       p.dp = T(0);
       p.dpm = T(0);
+      if (kComp) p.r = p.dpl = p.dcl = p.dpml = p.dcml = T(0);
       if (ring < nhalf) {
         const size_t off = ((size_t(b) * nhalf + ring) * nm + mc) * 2;
         const double lch = logch[ring], lsh = logsh[ring];
         p.x = x[ring];
+        if (kComp) p.r = xr[ring];
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
           p.fa[c] = fnp[off + c] * inv;
@@ -286,9 +319,9 @@ __global__ void __launch_bounds__(kThreads)
         }
         const T* cf = &tab[tb][c * LC][0];
         if (__all_sync(0xffffffffu, steady)) {
-          pair_chunk<T, true>(cf, rings, acc);
+          pair_chunk<T, true, kComp>(cf, rings, acc);
         } else {
-          pair_chunk<T, false>(cf, rings, acc);
+          pair_chunk<T, false, kComp>(cf, rings, acc);
         }
 
         // k never decreases: a warp whose every exponent is still below -1
@@ -316,17 +349,19 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T>
+template <typename T, bool kComp>
 int launch(const void* fnp, const void* sp, const void* fnm, const void* sm,
-           const void* x, const void* logch, const void* logsh,
-           const void* seed, void* out_p, void* out_m, int batch, int nhalf,
-           int nm, int lmax, int spin, int m0, void* stream) {
+           const void* x, const void* xr, const void* logch,
+           const void* logsh, const void* seed, void* out_p, void* out_m,
+           int batch, int nhalf, int nm, int lmax, int spin, int m0,
+           void* stream) {
   if (batch == 0 || nm == 0) return int(cudaSuccess);
-  pair_analysis_kernel<T>
+  pair_analysis_kernel<T, kComp>
       <<<dim3(nm, batch), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const T*>(fnp), static_cast<const T*>(sp),
           static_cast<const T*>(fnm), static_cast<const T*>(sm),
-          static_cast<const T*>(x), static_cast<const double*>(logch),
+          static_cast<const T*>(x), static_cast<const T*>(xr),
+          static_cast<const double*>(logch),
           static_cast<const double*>(logsh), static_cast<const double*>(seed),
           static_cast<T*>(out_p), static_cast<T*>(out_m), nhalf, nm, lmax,
           spin, m0);
@@ -343,8 +378,9 @@ int heracles_analysis_pair_f32(const void* fnp, const void* sp,
                                const void* seed, void* out_p, void* out_m,
                                int batch, int nhalf, int nm, int lmax,
                                int spin, int m0, void* stream) {
-  return launch<float>(fnp, sp, fnm, sm, x, logch, logsh, seed, out_p, out_m,
-                       batch, nhalf, nm, lmax, spin, m0, stream);
+  return launch<float, false>(fnp, sp, fnm, sm, x, nullptr, logch, logsh,
+                              seed, out_p, out_m, batch, nhalf, nm, lmax, spin,
+                              m0, stream);
 }
 
 int heracles_analysis_pair_f64(const void* fnp, const void* sp,
@@ -353,18 +389,40 @@ int heracles_analysis_pair_f64(const void* fnp, const void* sp,
                                const void* seed, void* out_p, void* out_m,
                                int batch, int nhalf, int nm, int lmax,
                                int spin, int m0, void* stream) {
-  return launch<double>(fnp, sp, fnm, sm, x, logch, logsh, seed, out_p, out_m,
-                        batch, nhalf, nm, lmax, spin, m0, stream);
+  return launch<double, false>(fnp, sp, fnm, sm, x, nullptr, logch, logsh,
+                               seed, out_p, out_m, batch, nhalf, nm, lmax,
+                               spin, m0, stream);
+}
+
+// The compensated float32 launch: xr holds each ring's r = x_lo / x_hi.
+int heracles_analysis_pair_comp_f32(const void* fnp, const void* sp,
+                                    const void* fnm, const void* sm,
+                                    const void* x, const void* xr,
+                                    const void* logch, const void* logsh,
+                                    const void* seed, void* out_p,
+                                    void* out_m, int batch, int nhalf, int nm,
+                                    int lmax, int spin, int m0, void* stream) {
+  return launch<float, true>(fnp, sp, fnm, sm, x, xr, logch, logsh, seed,
+                             out_p, out_m, batch, nhalf, nm, lmax, spin, m0,
+                             stream);
 }
 
 // Resident blocks per SM of the pair analysis (its shared memory does not
-// depend on lmax), written to *blocks; returns the CUDA error code.
-int heracles_analysis_pair_blocks_per_sm(int is_double, void* blocks) {
+// depend on lmax), written to *blocks; variant 0 is the float32 kernel, 1
+// the float64 one, 2 the compensated float32 one.  Returns the CUDA error
+// code.
+int heracles_analysis_pair_blocks_per_sm(int variant, void* blocks) {
   int* n = static_cast<int*>(blocks);
-  return int(is_double ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                             n, pair_analysis_kernel<double>, kThreads, 0)
-                       : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                             n, pair_analysis_kernel<float>, kThreads, 0));
+  if (variant == 1) {
+    return int(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        n, pair_analysis_kernel<double, false>, kThreads, 0));
+  }
+  if (variant == 2) {
+    return int(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        n, pair_analysis_kernel<float, true>, kThreads, 0));
+  }
+  return int(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      n, pair_analysis_kernel<float, false>, kThreads, 0));
 }
 
 }  // extern "C"

@@ -65,6 +65,25 @@ __device__ __forceinline__ void rescale_deferred(T& dp, T& dc, int& k) {
   k += int(once) + int(twice);
 }
 
+// The same with the column's comp stream (wigner::step_lo), which takes
+// d's scale: lo stays ~(l - m) eps of d, so it neither overflows nor
+// turns subnormal where d does not.
+template <typename T>
+__device__ __forceinline__ void rescale_deferred(T& dp, T& dc, T& dpl, T& dcl,
+                                                 int& k) {
+  using R = wigner::Arith<T>;
+  const T a = fabs(dc);
+  const bool once = a > R::scale();
+  const bool twice = a > R::scale() * R::scale();
+  const T sc = twice ? R::inv_scale() * R::inv_scale()
+                     : (once ? R::inv_scale() : T(1));
+  dp *= sc;
+  dc *= sc;
+  dpl *= sc;
+  dcl *= sc;
+  k += int(once) + int(twice);
+}
+
 // The emit factor times 2^60: 2^60 at k = 0, 1 at k = -1, 0 below.
 template <typename T>
 __device__ __forceinline__ T emit_scaled(int k) {

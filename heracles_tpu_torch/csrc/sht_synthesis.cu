@@ -2,9 +2,10 @@
 //
 // Replaces the Pallas TPU kernel _synth_kernel of
 // heracles_tpu/ops/pallas_sht.py (:1704), behind synthesis_spin0_folded
-// (:2043).  The compensated and double-single variants (_comp :1828, _dd
-// :1933) map to the double instantiation.  (The spin pair,
-// _synth_pair_kernel :2161, is sht_synthesis_pair.cu.)
+// (:2043), and its compensated variant _synth_kernel_comp (:1828) as the
+// kComp instantiation.  The double-single variant (_dd :1933) maps to the
+// double instantiation.  (The spin pair, _synth_pair_kernel :2161, is
+// sht_synthesis_pair.cu.)
 //
 // What it computes, per batch element b, order m and northern ring r,
 // summed over l = m..lmax, with a the alm times sqrt((2l+1)/4pi) and lam
@@ -72,13 +73,19 @@
 //     bit for bit;
 //   * the recurrence itself (seed, coefficients, unfused step, rescale) is
 //     wigner_recurrence.cuh, shared with the other SHT kernels, and rounds
-//     as the plain version does.
+//     as the plain version does;
+//   * the compensated float32 instantiation (kComp) gives each ring r =
+//     x_lo / x_hi and a lo stream (wigner::step_lo_a0_zero, whose a1 x d
+//     is the step's own product), which shares d's rescales and paths and
+//     adds to d where it emits: 6 operations a triple more and 3
+//     registers a ring; kComp = false compiles to the plain kernel.
 //
 // C interface (loaded with ctypes): heracles_synthesis_spin0_{f32,f64}
+// and heracles_synthesis_spin0_comp_f32 (with the rings' r after x)
 // launch on the given stream and return cudaGetLastError();
 // heracles_synthesis_spin0_blocks_per_sm gives the resident blocks per SM;
-// heracles_synthesis_spin0_paths_f32 is a diagnostic launch that also
-// counts the warps' sub-chunks on each path (steady, dead, full).
+// heracles_synthesis_spin0_{,comp_}paths_f32 are diagnostic launches that
+// also count the warps' sub-chunks on each path (steady, dead, full).
 // Every launch takes the block of orders m0..m0+nm-1 into its columns
 // 0..nm-1 (the seed planes are the block's, indexed by column), so a
 // device mesh can give each shard its own block; m0 = 0 is every order
@@ -106,17 +113,20 @@ using sht_paths::Path;
 using sht_paths::PathCounts;
 using sht_paths::rescale_deferred;
 using wigner::advance;
+using wigner::advance_comp;
 using wigner::Arith;
 using wigner::coef_row;
 using wigner::kNoSeed;
 using wigner::norm_of;
 using wigner::seed_of;
 using wigner::step_a0_zero;
+using wigner::step_lo_a0_zero;
 
 template <typename T>
 struct Ring {
-  T x, dp, dc;  // cos(theta); d^{l-1}, d^l
-  int k;        // the 2^60 exponent
+  T x, dp, dc;    // cos(theta); d^{l-1}, d^l
+  int k;          // the 2^60 exponent
+  T r, dpl, dcl;  // comp only: x_lo / x_hi; the lo stream's l-1, l
 };
 
 template <typename T>
@@ -159,7 +169,7 @@ __device__ __forceinline__ void fill_row(T* row, int l, int m, int lmax,
 
 // One multipole for every ring of the thread: add its terms to ``par``,
 // the sums of this l's parity, and step the recurrence.
-template <typename T, Path P>
+template <typename T, Path P, bool kComp>
 __device__ __forceinline__ void synth_step(const T* __restrict__ row,
                                            Ring<T> (&rs)[kRings],
                                            T (&par)[kRings][NA]) {
@@ -169,13 +179,24 @@ __device__ __forceinline__ void synth_step(const T* __restrict__ row,
   for (int r = 0; r < kRings; ++r) {
     Ring<T>& q = rs[r];
     if (P != Path::kDead) {
-      const T lp = P == Path::kSteady ? q.dc : q.dc * emit_scaled<T>(q.k);
+      const T d = kComp ? Arith<T>::add(q.dc, q.dcl) : q.dc;
+      const T lp = P == Path::kSteady ? d : d * emit_scaled<T>(q.k);
       par[r][0] = madd(w.al[0], lp, par[r][0]);
       par[r][1] = madd(w.al[1], lp, par[r][1]);
     }
     const T a1x = Arith<T>::mul(w.a1, q.x);
     const T dn = step_a0_zero<T>(a1x, w.b, q.dc, q.dp);
-    if (P == Path::kFull) {
+    if (kComp) {
+      const T dnl = step_lo_a0_zero<T>(a1x, w.b, q.r, q.dc, q.dcl, q.dpl);
+      if (P == Path::kFull) {
+        advance_comp<T>(dn, dnl, q.dp, q.dc, q.dpl, q.dcl, q.k);
+      } else {
+        q.dp = q.dc;
+        q.dc = dn;
+        q.dpl = q.dcl;
+        q.dcl = dnl;
+      }
+    } else if (P == Path::kFull) {
       advance<T>(dn, q.dp, q.dc, q.k);
     } else {  // steady: no rescale is due; dead: it waits for synth_sub
       q.dp = q.dc;
@@ -185,20 +206,24 @@ __device__ __forceinline__ void synth_step(const T* __restrict__ row,
 }
 
 // kSub multipoles from ``rows`` on; the first has the parity of j0.
-template <typename T, Path P>
+template <typename T, Path P, bool kComp>
 __device__ __forceinline__ void synth_sub(const T* __restrict__ rows,
                                           Ring<T> (&rs)[kRings],
                                           T (&e0)[kRings][NA],
                                           T (&e1)[kRings][NA]) {
 #pragma unroll
   for (int t = 0; t < kSub; t += 2) {
-    synth_step<T, P>(rows + t * NR, rs, e0);
-    synth_step<T, P>(rows + (t + 1) * NR, rs, e1);
+    synth_step<T, P, kComp>(rows + t * NR, rs, e0);
+    synth_step<T, P, kComp>(rows + (t + 1) * NR, rs, e1);
   }
   if (P == Path::kDead) {
 #pragma unroll
     for (int r = 0; r < kRings; ++r) {
-      rescale_deferred<T>(rs[r].dp, rs[r].dc, rs[r].k);
+      if (kComp) {
+        rescale_deferred<T>(rs[r].dp, rs[r].dc, rs[r].dpl, rs[r].dcl, rs[r].k);
+      } else {
+        rescale_deferred<T>(rs[r].dp, rs[r].dc, rs[r].k);
+      }
     }
   }
 }
@@ -210,9 +235,11 @@ __device__ __forceinline__ void store2(double* p, double re, double im) {
   *reinterpret_cast<double2*>(p) = make_double2(re, im);
 }
 
-template <typename T, bool kCount>
+// xr: the rings' r = x_lo / x_hi, read only by the comp instantiation.
+template <typename T, bool kComp, bool kCount>
 __global__ void __launch_bounds__(kThreads)
     synthesis_kernel(const T* __restrict__ a0, const T* __restrict__ x,
+                     const T* __restrict__ xr,
                      const double* __restrict__ logch,
                      const double* __restrict__ logsh,
                      const double* __restrict__ seed, T* __restrict__ gn0,
@@ -220,6 +247,7 @@ __global__ void __launch_bounds__(kThreads)
                      int m0, unsigned long long* __restrict__ counts) {
   static_assert(kSub % 2 == 0 && LC % kSub == 0,
                 "sub-chunks keep the parity of l and tile the chunk");
+  static_assert(!kComp || sizeof(T) == 4, "comp is a float32 mode");
 
   __shared__ __align__(16) T tab[2][LC][NR];
 
@@ -267,11 +295,13 @@ __global__ void __launch_bounds__(kThreads)
       const int ring = tile * kTile + (warp * kRings + r) * 32 + lane;
       Ring<T>& q = rs[r];
       q.dp = T(0);
+      if (kComp) q.r = q.dpl = q.dcl = T(0);
 #pragma unroll
       for (int c = 0; c < NA; ++c) e0[r][c] = e1[r][c] = T(0);
       if (ring < nhalf) {
         const double lch = logch[ring], lsh = logsh[ring];
         q.x = x[ring];
+        if (kComp) q.r = xr[ring];
         seed_of<T>(logc_p, sign_p, pc, ps, lch, lsh, q.dc, q.k);
       } else {
         q.x = T(0);
@@ -303,11 +333,11 @@ __global__ void __launch_bounds__(kThreads)
         const T* rows = &tab[buf][t][0];
         tally.add(path);
         if (path == Path::kSteady) {
-          synth_sub<T, Path::kSteady>(rows, rs, e0, e1);
+          synth_sub<T, Path::kSteady, kComp>(rows, rs, e0, e1);
         } else if (path == Path::kDead) {
-          synth_sub<T, Path::kDead>(rows, rs, e0, e1);
+          synth_sub<T, Path::kDead, kComp>(rows, rs, e0, e1);
         } else {
-          synth_sub<T, Path::kFull>(rows, rs, e0, e1);
+          synth_sub<T, Path::kFull, kComp>(rows, rs, e0, e1);
         }
       }
       __syncthreads();
@@ -326,16 +356,17 @@ __global__ void __launch_bounds__(kThreads)
   tally.flush(counts, lane);
 }
 
-template <typename T, bool kCount>
-int launch(const void* a0, const void* x, const void* logch,
+template <typename T, bool kComp, bool kCount>
+int launch(const void* a0, const void* x, const void* xr, const void* logch,
            const void* logsh, const void* seed, void* gn0, void* gs0,
            int batch, int nhalf, int nm, int lmax, int m0, void* counts,
            void* stream) {
   if (batch == 0 || nm == 0 || nhalf == 0) return int(cudaSuccess);
-  synthesis_kernel<T, kCount>
+  synthesis_kernel<T, kComp, kCount>
       <<<dim3(nm, batch), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const T*>(a0), static_cast<const T*>(x),
-          static_cast<const double*>(logch), static_cast<const double*>(logsh),
+          static_cast<const T*>(xr), static_cast<const double*>(logch),
+          static_cast<const double*>(logsh),
           static_cast<const double*>(seed), static_cast<T*>(gn0),
           static_cast<T*>(gs0), nhalf, nm, lmax, m0,
           static_cast<unsigned long long*>(counts));
@@ -351,8 +382,9 @@ int heracles_synthesis_spin0_f32(const void* alm, const void* x,
                                  const void* seed, void* gn, void* gs,
                                  int batch, int nhalf, int nm, int lmax,
                                  int m0, void* stream) {
-  return launch<float, false>(alm, x, logch, logsh, seed, gn, gs, batch, nhalf,
-                              nm, lmax, m0, nullptr, stream);
+  return launch<float, false, false>(alm, x, nullptr, logch, logsh, seed, gn,
+                                     gs, batch, nhalf, nm, lmax, m0, nullptr,
+                                     stream);
 }
 
 int heracles_synthesis_spin0_f64(const void* alm, const void* x,
@@ -360,8 +392,20 @@ int heracles_synthesis_spin0_f64(const void* alm, const void* x,
                                  const void* seed, void* gn, void* gs,
                                  int batch, int nhalf, int nm, int lmax,
                                  int m0, void* stream) {
-  return launch<double, false>(alm, x, logch, logsh, seed, gn, gs, batch,
-                               nhalf, nm, lmax, m0, nullptr, stream);
+  return launch<double, false, false>(alm, x, nullptr, logch, logsh, seed, gn,
+                                      gs, batch, nhalf, nm, lmax, m0, nullptr,
+                                      stream);
+}
+
+// The compensated float32 launch: xr holds each ring's r = x_lo / x_hi.
+int heracles_synthesis_spin0_comp_f32(const void* alm, const void* x,
+                                      const void* xr, const void* logch,
+                                      const void* logsh, const void* seed,
+                                      void* gn, void* gs, int batch, int nhalf,
+                                      int nm, int lmax, int m0, void* stream) {
+  return launch<float, true, false>(alm, x, xr, logch, logsh, seed, gn, gs,
+                                    batch, nhalf, nm, lmax, m0, nullptr,
+                                    stream);
 }
 
 // The float32 launch with ``counts`` (3 x uint64, zeroed by the caller)
@@ -371,19 +415,39 @@ int heracles_synthesis_spin0_paths_f32(const void* alm, const void* x,
                                        const void* seed, void* gn, void* gs,
                                        void* counts, int batch, int nhalf,
                                        int nm, int lmax, int m0, void* stream) {
-  return launch<float, true>(alm, x, logch, logsh, seed, gn, gs, batch, nhalf,
-                             nm, lmax, m0, counts, stream);
+  return launch<float, false, true>(alm, x, nullptr, logch, logsh, seed, gn,
+                                    gs, batch, nhalf, nm, lmax, m0, counts,
+                                    stream);
+}
+
+// The compensated float32 launch with the path counts.
+int heracles_synthesis_spin0_comp_paths_f32(const void* alm, const void* x,
+                                            const void* xr, const void* logch,
+                                            const void* logsh,
+                                            const void* seed, void* gn,
+                                            void* gs, void* counts, int batch,
+                                            int nhalf, int nm, int lmax,
+                                            int m0, void* stream) {
+  return launch<float, true, true>(alm, x, xr, logch, logsh, seed, gn, gs,
+                                   batch, nhalf, nm, lmax, m0, counts, stream);
 }
 
 // Resident blocks per SM of the spin-0 synthesis (its shared memory does
-// not depend on lmax), written to *blocks; returns the CUDA error code.
-int heracles_synthesis_spin0_blocks_per_sm(int is_double, void* blocks) {
+// not depend on lmax), written to *blocks; variant 0 is the float32
+// kernel, 1 the float64 one, 2 the compensated float32 one.  Returns the
+// CUDA error code.
+int heracles_synthesis_spin0_blocks_per_sm(int variant, void* blocks) {
   int* n = static_cast<int*>(blocks);
-  return int(is_double
-                 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                       n, synthesis_kernel<double, false>, kThreads, 0)
-                 : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                       n, synthesis_kernel<float, false>, kThreads, 0));
+  if (variant == 1) {
+    return int(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        n, synthesis_kernel<double, false, false>, kThreads, 0));
+  }
+  if (variant == 2) {
+    return int(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        n, synthesis_kernel<float, true, false>, kThreads, 0));
+  }
+  return int(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      n, synthesis_kernel<float, false, false>, kThreads, 0));
 }
 
 }  // extern "C"

@@ -3,9 +3,10 @@
 // Replaces the Pallas TPU kernels _synth_pair_kernel (:2161) and its
 // l-chunked twin _synth_pair_kernel_lc (:2332, the same function with
 // another VMEM tiling) of heracles_tpu/ops/pallas_sht.py, behind
-// synthesis_pair_folded (:2829).  The compensated and double-single
-// variants (_comp :2501, _dd :2660) map to the double instantiation.  (The
-// spin-0 synthesis, _synth_kernel :1704, is sht_synthesis.cu.)
+// synthesis_pair_folded (:2829), and the compensated variant
+// _synth_pair_kernel_comp (:2501) as the kComp instantiation.  The
+// double-single variant (_dd :2660) maps to the double instantiation.
+// (The spin-0 synthesis, _synth_kernel :1704, is sht_synthesis.cu.)
 //
 // What it computes, per batch element b, order m and northern ring r,
 // summed over l = j0..lmax, with a_p / a_m the alms of the +-s columns
@@ -65,13 +66,19 @@
 //     them contiguous in m;
 //   * the recurrence itself (seed, coefficients, unfused step, rescale) is
 //     wigner_recurrence.cuh, shared with the other SHT kernels, and rounds
-//     as the plain version does.
+//     as the plain version does;
+//   * the compensated float32 instantiation (kComp) gives each ring r =
+//     x_lo / x_hi and a lo stream per column (wigner::step_lo), which
+//     shares its column's rescales and paths and adds to it where it
+//     emits: 14 operations a triple more (two lo steps of 6, two adds)
+//     and 5 registers a ring; kComp = false compiles to the plain kernel.
 //
-// C interface (loaded with ctypes): heracles_synthesis_pair_{f32,f64}
-// launch on the given stream and return cudaGetLastError();
+// C interface (loaded with ctypes): heracles_synthesis_pair_{f32,f64} and
+// heracles_synthesis_pair_comp_f32 (with the rings' r after x) launch on
+// the given stream and return cudaGetLastError();
 // heracles_synthesis_pair_blocks_per_sm gives the resident blocks per SM;
-// heracles_synthesis_pair_paths_f32 is a diagnostic launch that also counts
-// the warps' sub-chunks on each path (steady, dead, full).
+// heracles_synthesis_pair_{,comp_}paths_f32 are diagnostic launches that
+// also count the warps' sub-chunks on each path (steady, dead, full).
 // Every launch takes the block of orders m0..m0+nm-1 into its columns
 // 0..nm-1 (the seed planes are the block's, indexed by column), so a
 // device mesh can give each shard its own block; m0 = 0 is every order
@@ -98,17 +105,21 @@ using sht_paths::Path;
 using sht_paths::PathCounts;
 using sht_paths::rescale_deferred;
 using wigner::advance;
+using wigner::advance_comp;
 using wigner::Arith;
 using wigner::coef_row;
 using wigner::kNoSeed;
 using wigner::norm_of;
 using wigner::seed_of;
 using wigner::step;
+using wigner::step_lo;
 
 template <typename T>
 struct PairRing {
   T x, dp, dc, dpm, dcm;  // cos(theta); the +s and -s columns' d^{l-1}, d^l
   int k, km;              // their 2^60 exponents
+  // comp only: x_lo / x_hi; the lo streams of the +s and -s columns
+  T r, dpl, dcl, dpml, dcml;
 };
 
 template <typename T>
@@ -155,7 +166,7 @@ __device__ __forceinline__ void fill_row(T* row, int l, int j0, int m, int s,
 // One multipole for every ring of the thread: add its terms and step the
 // two recurrences.  ``gn`` takes the terms of every l (the northern sums),
 // ``par`` those whose sign is (-1)^l, for this l's parity.
-template <typename T, Path P>
+template <typename T, Path P, bool kComp>
 __device__ __forceinline__ void pair_step(const T* __restrict__ row,
                                           PairRing<T> (&rs)[kRings],
                                           T (&gn)[kRings][4],
@@ -166,8 +177,10 @@ __device__ __forceinline__ void pair_step(const T* __restrict__ row,
   for (int r = 0; r < kRings; ++r) {
     PairRing<T>& q = rs[r];
     if (P != Path::kDead) {
-      const T lp = P == Path::kSteady ? q.dc : q.dc * emit_scaled<T>(q.k);
-      const T lm = P == Path::kSteady ? q.dcm : q.dcm * emit_scaled<T>(q.km);
+      const T dp_ = kComp ? Arith<T>::add(q.dc, q.dcl) : q.dc;
+      const T dm_ = kComp ? Arith<T>::add(q.dcm, q.dcml) : q.dcm;
+      const T lp = P == Path::kSteady ? dp_ : dp_ * emit_scaled<T>(q.k);
+      const T lm = P == Path::kSteady ? dm_ : dm_ * emit_scaled<T>(q.km);
       gn[r][0] = madd(w.al[0], lp, gn[r][0]);
       gn[r][1] = madd(w.al[1], lp, gn[r][1]);
       par[r][0] = madd(w.al[0], lm, par[r][0]);
@@ -181,7 +194,23 @@ __device__ __forceinline__ void pair_step(const T* __restrict__ row,
     const T a1x = Arith<T>::mul(w.a1, q.x);
     const T dnp = step<T>(a1x, w.a0, w.b, q.dc, q.dp);
     const T dnm = step<T>(a1x, -w.a0, w.b, q.dcm, q.dpm);
-    if (P == Path::kFull) {
+    if (kComp) {
+      const T dnpl = step_lo<T>(a1x, w.a0, w.b, q.r, q.dc, q.dcl, q.dpl);
+      const T dnml = step_lo<T>(a1x, -w.a0, w.b, q.r, q.dcm, q.dcml, q.dpml);
+      if (P == Path::kFull) {
+        advance_comp<T>(dnp, dnpl, q.dp, q.dc, q.dpl, q.dcl, q.k);
+        advance_comp<T>(dnm, dnml, q.dpm, q.dcm, q.dpml, q.dcml, q.km);
+      } else {
+        q.dp = q.dc;
+        q.dc = dnp;
+        q.dpm = q.dcm;
+        q.dcm = dnm;
+        q.dpl = q.dcl;
+        q.dcl = dnpl;
+        q.dpml = q.dcml;
+        q.dcml = dnml;
+      }
+    } else if (P == Path::kFull) {
       advance<T>(dnp, q.dp, q.dc, q.k);
       advance<T>(dnm, q.dpm, q.dcm, q.km);
     } else {  // steady: no rescale is due; dead: it waits for pair_sub
@@ -193,7 +222,7 @@ __device__ __forceinline__ void pair_step(const T* __restrict__ row,
   }
 }
 
-template <typename T, Path P>
+template <typename T, Path P, bool kComp>
 __device__ __forceinline__ void pair_sub(const T* __restrict__ rows,
                                          PairRing<T> (&rs)[kRings],
                                          T (&gn)[kRings][4],
@@ -201,14 +230,20 @@ __device__ __forceinline__ void pair_sub(const T* __restrict__ rows,
                                          T (&e1)[kRings][4]) {
 #pragma unroll
   for (int t = 0; t < kSub; t += 2) {
-    pair_step<T, P>(rows + t * NR, rs, gn, e0);
-    pair_step<T, P>(rows + (t + 1) * NR, rs, gn, e1);
+    pair_step<T, P, kComp>(rows + t * NR, rs, gn, e0);
+    pair_step<T, P, kComp>(rows + (t + 1) * NR, rs, gn, e1);
   }
   if (P == Path::kDead) {
 #pragma unroll
     for (int r = 0; r < kRings; ++r) {
-      rescale_deferred<T>(rs[r].dp, rs[r].dc, rs[r].k);
-      rescale_deferred<T>(rs[r].dpm, rs[r].dcm, rs[r].km);
+      PairRing<T>& q = rs[r];
+      if (kComp) {
+        rescale_deferred<T>(q.dp, q.dc, q.dpl, q.dcl, q.k);
+        rescale_deferred<T>(q.dpm, q.dcm, q.dpml, q.dcml, q.km);
+      } else {
+        rescale_deferred<T>(q.dp, q.dc, q.k);
+        rescale_deferred<T>(q.dpm, q.dcm, q.km);
+      }
     }
   }
 }
@@ -220,10 +255,11 @@ __device__ __forceinline__ void store2(double* p, double re, double im) {
   *reinterpret_cast<double2*>(p) = make_double2(re, im);
 }
 
-template <typename T, bool kCount>
+// xr: the rings' r = x_lo / x_hi, read only by the comp instantiation.
+template <typename T, bool kComp, bool kCount>
 __global__ void __launch_bounds__(kThreads)
     pair_synthesis_kernel(const T* __restrict__ ap, const T* __restrict__ am,
-                          const T* __restrict__ x,
+                          const T* __restrict__ x, const T* __restrict__ xr,
                           const double* __restrict__ logch,
                           const double* __restrict__ logsh,
                           const double* __restrict__ seed, T* __restrict__ gnp,
@@ -233,6 +269,7 @@ __global__ void __launch_bounds__(kThreads)
                           unsigned long long* __restrict__ counts) {
   static_assert(kSub % 2 == 0 && LC % kSub == 0,
                 "sub-chunks keep the parity of l and tile the chunk");
+  static_assert(!kComp || sizeof(T) == 4, "comp is a float32 mode");
 
   __shared__ __align__(16) T tab[2][LC][NR];
 
@@ -285,11 +322,13 @@ __global__ void __launch_bounds__(kThreads)
       PairRing<T>& q = rs[r];
       q.dp = T(0);
       q.dpm = T(0);
+      if (kComp) q.r = q.dpl = q.dcl = q.dpml = q.dcml = T(0);
 #pragma unroll
       for (int c = 0; c < 4; ++c) gn[r][c] = e0[r][c] = e1[r][c] = T(0);
       if (ring < nhalf) {
         const double lch = logch[ring], lsh = logsh[ring];
         q.x = x[ring];
+        if (kComp) q.r = xr[ring];
         seed_of<T>(logc_p, sign_p, pc, ps, lch, lsh, q.dc, q.k);
         seed_of<T>(logc_m, sign_m, ps, pc, lch, lsh, q.dcm, q.km);
       } else {
@@ -322,11 +361,11 @@ __global__ void __launch_bounds__(kThreads)
         const Path path = sht_paths::warp_path(steady, dead);
         tally.add(path);
         if (path == Path::kSteady) {
-          pair_sub<T, Path::kSteady>(rows, rs, gn, e0, e1);
+          pair_sub<T, Path::kSteady, kComp>(rows, rs, gn, e0, e1);
         } else if (path == Path::kDead) {
-          pair_sub<T, Path::kDead>(rows, rs, gn, e0, e1);
+          pair_sub<T, Path::kDead, kComp>(rows, rs, gn, e0, e1);
         } else {
-          pair_sub<T, Path::kFull>(rows, rs, gn, e0, e1);
+          pair_sub<T, Path::kFull, kComp>(rows, rs, gn, e0, e1);
         }
       }
       __syncthreads();
@@ -348,16 +387,17 @@ __global__ void __launch_bounds__(kThreads)
   tally.flush(counts, lane);
 }
 
-template <typename T, bool kCount>
-int launch(const void* ap, const void* am, const void* x, const void* logch,
-           const void* logsh, const void* seed, void* gnp, void* gsp,
-           void* gnm, void* gsm, int batch, int nhalf, int nm, int lmax,
-           int spin, int m0, void* counts, void* stream) {
+template <typename T, bool kComp, bool kCount>
+int launch(const void* ap, const void* am, const void* x, const void* xr,
+           const void* logch, const void* logsh, const void* seed, void* gnp,
+           void* gsp, void* gnm, void* gsm, int batch, int nhalf, int nm,
+           int lmax, int spin, int m0, void* counts, void* stream) {
   if (batch == 0 || nm == 0 || nhalf == 0) return int(cudaSuccess);
-  pair_synthesis_kernel<T, kCount>
+  pair_synthesis_kernel<T, kComp, kCount>
       <<<dim3(nm, batch), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const T*>(ap), static_cast<const T*>(am),
-          static_cast<const T*>(x), static_cast<const double*>(logch),
+          static_cast<const T*>(x), static_cast<const T*>(xr),
+          static_cast<const double*>(logch),
           static_cast<const double*>(logsh), static_cast<const double*>(seed),
           static_cast<T*>(gnp), static_cast<T*>(gsp), static_cast<T*>(gnm),
           static_cast<T*>(gsm), nhalf, nm, lmax, spin, m0,
@@ -375,9 +415,9 @@ int heracles_synthesis_pair_f32(const void* alm_p, const void* alm_m,
                                 void* gnp, void* gsp, void* gnm, void* gsm,
                                 int batch, int nhalf, int nm, int lmax,
                                 int spin, int m0, void* stream) {
-  return launch<float, false>(alm_p, alm_m, x, logch, logsh, seed, gnp, gsp,
-                              gnm, gsm, batch, nhalf, nm, lmax, spin, m0,
-                              nullptr, stream);
+  return launch<float, false, false>(alm_p, alm_m, x, nullptr, logch, logsh,
+                                     seed, gnp, gsp, gnm, gsm, batch, nhalf,
+                                     nm, lmax, spin, m0, nullptr, stream);
 }
 
 int heracles_synthesis_pair_f64(const void* alm_p, const void* alm_m,
@@ -386,9 +426,22 @@ int heracles_synthesis_pair_f64(const void* alm_p, const void* alm_m,
                                 void* gnp, void* gsp, void* gnm, void* gsm,
                                 int batch, int nhalf, int nm, int lmax,
                                 int spin, int m0, void* stream) {
-  return launch<double, false>(alm_p, alm_m, x, logch, logsh, seed, gnp, gsp,
-                               gnm, gsm, batch, nhalf, nm, lmax, spin, m0,
-                               nullptr, stream);
+  return launch<double, false, false>(alm_p, alm_m, x, nullptr, logch, logsh,
+                                      seed, gnp, gsp, gnm, gsm, batch, nhalf,
+                                      nm, lmax, spin, m0, nullptr, stream);
+}
+
+// The compensated float32 launch: xr holds each ring's r = x_lo / x_hi.
+int heracles_synthesis_pair_comp_f32(const void* alm_p, const void* alm_m,
+                                     const void* x, const void* xr,
+                                     const void* logch, const void* logsh,
+                                     const void* seed, void* gnp, void* gsp,
+                                     void* gnm, void* gsm, int batch,
+                                     int nhalf, int nm, int lmax, int spin,
+                                     int m0, void* stream) {
+  return launch<float, true, false>(alm_p, alm_m, x, xr, logch, logsh, seed,
+                                    gnp, gsp, gnm, gsm, batch, nhalf, nm, lmax,
+                                    spin, m0, nullptr, stream);
 }
 
 // The float32 launch with ``counts`` (3 x uint64, zeroed by the caller)
@@ -400,20 +453,38 @@ int heracles_synthesis_pair_paths_f32(const void* alm_p, const void* alm_m,
                                       void* gsm, void* counts, int batch,
                                       int nhalf, int nm, int lmax, int spin,
                                       int m0, void* stream) {
-  return launch<float, true>(alm_p, alm_m, x, logch, logsh, seed, gnp, gsp,
-                             gnm, gsm, batch, nhalf, nm, lmax, spin, m0, counts,
-                             stream);
+  return launch<float, false, true>(alm_p, alm_m, x, nullptr, logch, logsh,
+                                    seed, gnp, gsp, gnm, gsm, batch, nhalf, nm,
+                                    lmax, spin, m0, counts, stream);
+}
+
+// The compensated float32 launch with the path counts.
+int heracles_synthesis_pair_comp_paths_f32(
+    const void* alm_p, const void* alm_m, const void* x, const void* xr,
+    const void* logch, const void* logsh, const void* seed, void* gnp,
+    void* gsp, void* gnm, void* gsm, void* counts, int batch, int nhalf,
+    int nm, int lmax, int spin, int m0, void* stream) {
+  return launch<float, true, true>(alm_p, alm_m, x, xr, logch, logsh, seed,
+                                   gnp, gsp, gnm, gsm, batch, nhalf, nm, lmax,
+                                   spin, m0, counts, stream);
 }
 
 // Resident blocks per SM of the pair synthesis (its shared memory does not
-// depend on lmax), written to *blocks; returns the CUDA error code.
-int heracles_synthesis_pair_blocks_per_sm(int is_double, void* blocks) {
+// depend on lmax), written to *blocks; variant 0 is the float32 kernel, 1
+// the float64 one, 2 the compensated float32 one.  Returns the CUDA error
+// code.
+int heracles_synthesis_pair_blocks_per_sm(int variant, void* blocks) {
   int* n = static_cast<int*>(blocks);
-  return int(is_double
-                 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                       n, pair_synthesis_kernel<double, false>, kThreads, 0)
-                 : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                       n, pair_synthesis_kernel<float, false>, kThreads, 0));
+  if (variant == 1) {
+    return int(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        n, pair_synthesis_kernel<double, false, false>, kThreads, 0));
+  }
+  if (variant == 2) {
+    return int(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        n, pair_synthesis_kernel<float, true, false>, kThreads, 0));
+  }
+  return int(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      n, pair_synthesis_kernel<float, false, false>, kThreads, 0));
 }
 
 }  // extern "C"

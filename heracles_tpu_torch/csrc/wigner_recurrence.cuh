@@ -121,4 +121,49 @@ __device__ __forceinline__ void advance(T dn, T& dp, T& dc, int& k) {
   k += over ? 1 : 0;
 }
 
+// The compensated (comp) mode of the float32 kernels: x = cos(theta)
+// enters the recurrence rounded to float32, x_hi, and that truncation is
+// the dominant systematic error of a long float32 chain (it dephases the
+// recurrence coherently, ~(l - m) eps x / sin(theta)).  A second value per
+// column, lo, obeys the same recurrence with the truncation's forcing
+// r (a1 x_hi) d^l, r = x_lo / x_hi (formed by the caller, 0 where x_hi
+// is 0):
+//   lo^{l+1} = (a1 x + a0) lo^l + r (a1 x d^l) - b lo^{l-1},
+// unfused and in this order; d itself (step) is unchanged, so the paths
+// and exponents are those of the plain kernel.  lo starts at 0 at the
+// seed, shares d's 2^60 rescales, and a function emits d + lo.  Only the
+// x term is corrected: the m s middle term is <= s / l of it, as in the
+// reference's _pair_kernel_comp (heracles_tpu/ops/pallas_sht.py:1218).
+// With r = 0, lo stays 0 and d + lo is d: the plain kernel's values.
+template <typename T>
+__device__ __forceinline__ T step_lo(T a1x, T a0, T b, T r, T dc, T dcl,
+                                     T dpl) {
+  using R = Arith<T>;
+  return R::sub(R::add(R::mul(R::add(a1x, a0), dcl), R::mul(r, R::mul(a1x, dc))),
+                R::mul(b, dpl));
+}
+
+// step_lo for a column with m s = 0 (see step_a0_zero).
+template <typename T>
+__device__ __forceinline__ T step_lo_a0_zero(T a1x, T b, T r, T dc, T dcl,
+                                             T dpl) {
+  using R = Arith<T>;
+  return R::sub(R::add(R::mul(a1x, dcl), R::mul(r, R::mul(a1x, dc))),
+                R::mul(b, dpl));
+}
+
+// advance for a column with its lo stream: the rescale d decides scales
+// both.
+template <typename T>
+__device__ __forceinline__ void advance_comp(T dn, T dnl, T& dp, T& dc,
+                                             T& dpl, T& dcl, int& k) {
+  const bool over = fabs(dn) > Arith<T>::scale();
+  const T sc = over ? Arith<T>::inv_scale() : T(1);
+  dp = dc * sc;
+  dc = dn * sc;
+  dpl = dcl * sc;
+  dcl = dnl * sc;
+  k += over ? 1 : 0;
+}
+
 }  // namespace wigner

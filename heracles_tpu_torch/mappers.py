@@ -42,9 +42,10 @@ class HealpixMapper:
     alms are complex of the same precision.  Maps and alms live on
     ``device``, by default the CUDA card.  ``dd`` goes to every
     ``map2alm`` and ``alm2map`` the mapper runs (``transform`` with its
-    Jacobi iterations, ``synthesize``): True or ``"comp"`` run the Wigner
-    recurrence of float32 transforms in float64 and still return
-    complex64 alms and float32 maps; it is ignored for float64 maps.
+    Jacobi iterations, ``synthesize``): True runs the Wigner recurrence
+    of float32 transforms in float64, ``"comp"`` in the kernels'
+    compensated float32 instantiation, and both still return complex64
+    alms and float32 maps; it is ignored for float64 maps.
     ``device_maps`` is the reference's switch between host maps and
     device-resident ones: this mapper always returns a :class:`DeviceMap`
     (the reference's ``device_maps=True``), so True and None are accepted
@@ -336,11 +337,14 @@ class DiscreteMapper:
     and the spreading grid live on ``device``, by default the CUDA card.
     The exact path runs blocks of ``point_block`` points, each sorted by
     colatitude (the sum does not depend on the order, and neighbours in a
-    warp then share their recurrence's path).
+    warp then share their recurrence's path).  ``nthreads`` is accepted
+    and ignored, as the reference does (upstream's ducc mapper hands it to
+    ducc's host threads; the kernels here have none to set).
     """
 
-    def __init__(self, lmax, *, dtype=torch.complex128, point_block=1 << 16,
-                 epsilon=None, method="auto", device="cuda"):
+    def __init__(self, lmax, *, dtype=torch.complex128, nthreads=0,
+                 point_block=1 << 16, epsilon=None, method="auto",
+                 device="cuda"):
         if dtype not in (torch.complex64, torch.complex128):
             raise TypeError(f"alm dtype must be complex64 or complex128, got "
                             f"{dtype}")

@@ -50,18 +50,27 @@ _SIGNATURES = {
     "heracles_analysis_spin0_f32": (_I, [_P] * 7 + [_I] * 5 + [_P]),
     "heracles_analysis_spin0_f64": (_I, [_P] * 7 + [_I] * 5 + [_P]),
     "heracles_analysis_spin0_paths_f32": (_I, [_P] * 8 + [_I] * 5 + [_P]),
+    "heracles_analysis_spin0_comp_f32": (_I, [_P] * 8 + [_I] * 5 + [_P]),
+    "heracles_analysis_spin0_comp_paths_f32": (_I, [_P] * 9 + [_I] * 5 + [_P]),
     "heracles_analysis_spin0_blocks_per_sm": (_I, [_I, _P]),
     "heracles_cuda_error_string": (ctypes.c_char_p, [_I]),
     "heracles_analysis_pair_f32": (_I, [_P] * 10 + [_I] * 6 + [_P]),
     "heracles_analysis_pair_f64": (_I, [_P] * 10 + [_I] * 6 + [_P]),
+    "heracles_analysis_pair_comp_f32": (_I, [_P] * 11 + [_I] * 6 + [_P]),
     "heracles_analysis_pair_blocks_per_sm": (_I, [_I, _P]),
     "heracles_synthesis_spin0_f32": (_I, [_P] * 7 + [_I] * 5 + [_P]),
     "heracles_synthesis_spin0_f64": (_I, [_P] * 7 + [_I] * 5 + [_P]),
     "heracles_synthesis_spin0_paths_f32": (_I, [_P] * 8 + [_I] * 5 + [_P]),
+    "heracles_synthesis_spin0_comp_f32": (_I, [_P] * 8 + [_I] * 5 + [_P]),
+    "heracles_synthesis_spin0_comp_paths_f32": (_I, [_P] * 9 + [_I] * 5
+                                                + [_P]),
     "heracles_synthesis_spin0_blocks_per_sm": (_I, [_I, _P]),
     "heracles_synthesis_pair_f32": (_I, [_P] * 10 + [_I] * 6 + [_P]),
     "heracles_synthesis_pair_f64": (_I, [_P] * 10 + [_I] * 6 + [_P]),
     "heracles_synthesis_pair_paths_f32": (_I, [_P] * 11 + [_I] * 6 + [_P]),
+    "heracles_synthesis_pair_comp_f32": (_I, [_P] * 11 + [_I] * 6 + [_P]),
+    "heracles_synthesis_pair_comp_paths_f32": (_I, [_P] * 12 + [_I] * 6
+                                               + [_P]),
     "heracles_synthesis_pair_blocks_per_sm": (_I, [_I, _P]),
     "heracles_gram_f64": (_I, [_P] * 4 + [_I] * 3 + [_P]),
     "heracles_fma_peak_f32": (_I, [_P] * 3 + [_I] * 4 + [_P]),
@@ -86,13 +95,13 @@ class KernelLibrary:
             msg = self.lib.heracles_cuda_error_string(err).decode()
             raise RuntimeError(f"CUDA kernel launch failed: {msg} ({err})")
 
-    def blocks_per_sm(self, kernel, is_double):
+    def blocks_per_sm(self, kernel, is_double, comp=False):
         """Resident blocks per SM of ``analysis_spin0``, ``analysis_pair``,
         ``synthesis_spin0`` or ``synthesis_pair`` (none's shared memory
-        grows with lmax)."""
+        grows with lmax); ``comp``: the compensated float32 instantiation."""
         n = ctypes.c_int(0)
         fn = getattr(self.lib, f"heracles_{kernel}_blocks_per_sm")
-        self.check(fn(int(is_double), ctypes.addressof(n)))
+        self.check(fn(2 if comp else int(is_double), ctypes.addressof(n)))
         return n.value
 
 

@@ -383,17 +383,27 @@ def spread_padded(theta, phi, values, lmax, w, pad):
     return pad
 
 
-def spread_torus(theta, phi, values, lmax, w, device="cuda"):
+def spread_torus(theta, phi, values, lmax, w, grid=None, *, device="cuda"):
     """Spread weighted points onto the (ntheta, nphi) torus grid.
 
     ``values``: (nrows, npts) real or complex.  Returns a (nrows, ntheta,
-    nphi) float64 or complex128 tensor on ``device``.
+    nphi) float64 or complex128 tensor on ``device``; given ``grid``, a
+    tensor of that shape, adds into it in place (on its device) and
+    returns it, as the reference accumulates into its ``grid``.
     """
     values = torch.as_tensor(values)
     nrows = values.reshape(-1, np.shape(theta)[-1]).shape[0]
+    if grid is not None:
+        device = grid.device
     pad = alloc_padded(nrows, lmax, w, values.is_complex(), device)
     spread_padded(theta, phi, values, lmax, w, pad)
-    return fold_padded(pad, lmax, w)
+    out = fold_padded(pad, lmax, w)
+    if grid is None:
+        return out
+    if tuple(grid.shape) != tuple(out.shape):
+        raise ValueError(f"spread_torus: grid {tuple(grid.shape)} is not the "
+                         f"torus grid {tuple(out.shape)} of lmax {lmax}")
+    return grid.add_(out)
 
 
 @functools.lru_cache(maxsize=8)

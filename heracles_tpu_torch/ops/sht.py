@@ -10,8 +10,11 @@ Counterpart of :mod:`heracles_tpu.ops.sht`:
 * synthesis (:func:`alm2map`) runs the two phases in reverse, and
   ``map2alm(iterations=N)`` refines the analysis by N Jacobi steps;
 * ``dd=True`` runs the colatitude phase of a float32 transform in float64
-  (the float64 instantiation of the kernels); the ring FFTs, the weights
-  and the Jacobi residual stay in float32, as do the results.
+  (the float64 instantiation of the kernels), and ``dd="comp"`` in the
+  kernels' compensated float32 instantiation, which corrects the float32
+  truncation of cos(theta) with its float32 residual (:func:`_x_lo`); the
+  ring FFTs, the weights and the Jacobi residual stay in float32, as do
+  the results.
 
 Conventions (HEALPix/healpy): alms are healpy-packed at the API boundary
 (index = m*(2*lmax+1-m)//2 + l) and rectangular (lmax+1, mmax+1)
@@ -189,6 +192,25 @@ def _geometry(nside, device):
                  for a in _geom_arrays(nside))
 
 
+@functools.lru_cache(maxsize=32)
+def _x_lo_array(nside):
+    """float32 residual of the float64 northern-ring cos(theta): the comp
+    recurrence's correction (the reference's ``_x_lo_array``)."""
+    x64 = _geom_arrays(nside)[0][: 2 * nside]
+    return (x64 - x64.astype(np.float32).astype(np.float64)).astype(np.float32)
+
+
+def _x_lo(nside, dd, device):
+    """``x_lo`` for the kernels: the residual where ``dd`` is "comp"."""
+    return ringfft._upload(_x_lo_array(nside), device) if dd == "comp" else None
+
+
+def _dd_mode(dd):
+    """The reference's reading of ``dd``: "comp", or else True / False
+    (None is False: no environment switch)."""
+    return "comp" if isinstance(dd, str) and dd == "comp" else bool(dd)
+
+
 def _folded_inputs(Fw, ns, m0=0):
     """The folded kernel inputs for full-ring spectra ``Fw`` of columns ``ns``.
 
@@ -211,39 +233,24 @@ def _folded_inputs(Fw, ns, m0=0):
     return FNp, FSp * msign, FNm, FSm * msign
 
 
-def _widen(arrays, dd):
-    """(arrays, dtype to return to): complex64 operands widened for ``dd``.
-
-    ``dd`` only matters for complex64 operands; complex128 ones pass as
-    they are and nothing is cast back (the second value is None).
-    """
-    if dd and arrays[0].dtype == torch.complex64:
-        return tuple(a.to(torch.complex128) for a in arrays), torch.complex64
-    return arrays, None
-
-
-def _narrow(arrays, dtype):
-    return arrays if dtype is None else tuple(a.to(dtype) for a in arrays)
-
-
 def _analysis_rect(Fw, lmax, ns, dd=False, m0=0):
     """Folded Wigner analysis of full-ring spectra; tuple of rect alms.
 
-    Column c of ``Fw`` and of the alms is the order ``m0`` + c.  With
-    ``dd`` the folded complex64 spectra are widened to complex128, so the
-    recurrence and the ring sums run in float64, and the alms come back as
-    complex64.
+    Column c of ``Fw`` and of the alms is the order ``m0`` + c.  ``dd``
+    goes to the kernels (:mod:`.sht_kernels`): on complex64 spectra True
+    runs the recurrence and the ring sums in float64 and "comp" the
+    compensated float32 kernel; the alms come back as complex64.
     """
     nside = (Fw[0].shape[-2] + 1) // 4
-    x, logch, logsh = _geometry(nside, Fw[0].device)
-    args, back = _widen(_folded_inputs(Fw, ns, m0), dd)
+    dev = Fw[0].device
+    x, logch, logsh = _geometry(nside, dev)
+    args = _folded_inputs(Fw, ns, m0)
+    kw = dict(dd=dd, x_lo=_x_lo(nside, dd, dev))
     if len(ns) == 1:
-        out = (sht_kernels.analysis_spin0_folded(*args, x, logch, logsh, lmax,
-                                                 m0),)
-    else:
-        out = sht_kernels.analysis_pair_folded(*args, x, logch, logsh, lmax,
-                                               abs(int(ns[0])), m0)
-    return _narrow(out, back)
+        return (sht_kernels.analysis_spin0_folded(*args, x, logch, logsh,
+                                                  lmax, m0, **kw),)
+    return sht_kernels.analysis_pair_folded(*args, x, logch, logsh, lmax,
+                                            abs(int(ns[0])), m0, **kw)
 
 
 def _point_geometry(theta):
@@ -299,18 +306,18 @@ def _synthesis_rect(alms, lmax, ns, nside, dd=False, m0=0):
 
     ``alms``: one (..., lmax+1, nm) array per spin column n in ``ns``,
     column c being the order ``m0`` + c; returns one (..., nrings, nm)
-    array each.  With ``dd`` complex64 alms are widened to complex128 for
-    the recurrence and its sums, and the ring spectra come back as
-    complex64.
+    array each.  ``dd`` as for :func:`_analysis_rect`: complex64 alms give
+    complex64 ring spectra in every mode.
     """
-    x, logch, logsh = _geometry(nside, alms[0].device)
-    alms, back = _widen(tuple(alms), dd)
+    dev = alms[0].device
+    x, logch, logsh = _geometry(nside, dev)
+    kw = dict(dd=dd, x_lo=_x_lo(nside, dd, dev))
     if len(ns) == 1:
-        GN, GS = _narrow(sht_kernels.synthesis_spin0_folded(
-            alms[0], x, logch, logsh, lmax, m0), back)
+        GN, GS = sht_kernels.synthesis_spin0_folded(alms[0], x, logch, logsh,
+                                                    lmax, m0, **kw)
         return (_unfold_rings(GN, GS),)
-    GNp, GSp, GNm, GSm = _narrow(sht_kernels.synthesis_pair_folded(
-        alms[0], alms[1], x, logch, logsh, lmax, abs(int(ns[0])), m0), back)
+    GNp, GSp, GNm, GSm = sht_kernels.synthesis_pair_folded(
+        alms[0], alms[1], x, logch, logsh, lmax, abs(int(ns[0])), m0, **kw)
     return _unfold_rings(GNp, GSp), _unfold_rings(GNm, GSm)
 
 
@@ -328,8 +335,10 @@ def map2alm(maps, lmax=None, mmax=None, *, spin=0, weights="ring",
     ``dd``: True runs the Wigner recurrence and its ring sums of a float32
     transform in float64 (the kernels' float64 instantiation) while the
     ring FFTs, the weights and the residual stay in float32 and the alms
-    come back as complex64; ``"comp"`` runs as True; None and False run
-    in float32.  It is ignored for float64 maps.  (The reference's
+    come back as complex64; ``"comp"`` runs the compensated float32
+    kernels (the float32 recurrence plus a stream that corrects the
+    float32 truncation of cos(theta)); None and False run the plain
+    float32 kernels.  It is ignored for float64 maps.  (The reference's
     ``HERACLES_TPU_SHT_DD`` environment switch is not carried over.)
     Returns packed alms (..., nlm) for spin 0, or (..., 2, nlm) (E, B) for
     spin 2 (``packed=False``: rectangular (..., lmax+1, mmax+1)).
@@ -338,7 +347,7 @@ def map2alm(maps, lmax=None, mmax=None, *, spin=0, weights="ring",
     nside = npix2nside(maps.shape[-1])
     lmax = resolve_lmax(nside, lmax)
     mmax = lmax if mmax is None else int(mmax)
-    dd = bool(dd)  # None is False, "comp" runs as True
+    dd = _dd_mode(dd)
     out = _map2alm_once(maps, nside, lmax, mmax, spin, weights, dd)
     for _ in range(int(iterations)):
         resid = maps - alm2map(out, nside, lmax, mmax, spin=spin, packed=False,
@@ -378,12 +387,13 @@ def alm2map(alm, nside, lmax=None, mmax=None, *, spin=0, packed=True,
     ``alm``: packed (..., nlm) complex for spin 0, (..., 2, nlm) (E, B)
     for spin 2; rectangular (..., lmax+1, mmax+1) with ``packed=False``.
     Runs on the alms' device and in their precision (complex64 -> float32
-    maps, complex128 -> float64).  ``dd``: as for :func:`map2alm`, the
-    recurrence of a complex64 synthesis in float64 with float32 maps
-    returned; ignored for complex128 alms.  Returns (..., npix) or
+    maps, complex128 -> float64).  ``dd``: as for :func:`map2alm` (True
+    the recurrence of a complex64 synthesis in float64, "comp" the
+    compensated float32 kernels, float32 maps returned); ignored for
+    complex128 alms.  Returns (..., npix) or
     (..., 2, npix) [Q, U].
     """
-    dd = bool(dd)  # None is False, "comp" runs as True
+    dd = _dd_mode(dd)
     spin = abs(int(spin))
     nside = int(nside)
     if lmax is None:

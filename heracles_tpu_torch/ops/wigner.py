@@ -23,7 +23,12 @@ those kernels (:func:`analysis_spin0_folded_plain`,
 :func:`synthesis_pair_folded_plain`): one Python loop over l on tensors
 (:func:`_lambda_rows`), vectorised over rings, lanes and the batch.  The seed is evaluated in
 float64 and the recurrence coefficients are computed in float64, then
-both are rounded to the working type, exactly as the kernels do.
+both are rounded to the working type, exactly as the kernels do.  Given
+``x_lo``, the float32 residual of float64 cos(theta), a plain version runs
+the kernels' compensated (comp) recurrence: a second stream per lane that
+corrects the float32 truncation of x (:func:`comp_ratio`,
+``csrc/wigner_recurrence.cuh``), step by step as the kernels' comp
+instantiations do.
 
 The mixing matrices' host-f64 tables (:func:`wigner_table_host`,
 :func:`legendre_sum_host`) are numpy, carried over unchanged.
@@ -55,7 +60,9 @@ __all__ = [
     "wigner_table",
     "wigner_table_host",
     "legendre_sum_host",
+    "comp_ratio",
     "PLAIN_RUNS",
+    "PLAIN_RUNS_BY_PRECISION",
 ]
 
 _SCALE_LOG2 = 60
@@ -64,8 +71,33 @@ _INV_SCALE = 2.0**-_SCALE_LOG2
 _NO_SEED = -(2**30)
 
 # runs of the plain kernel versions, by kernel name (a run on the card
-# shows that the main path did not go through its kernel)
+# shows that the main path did not go through its kernel), and the same
+# runs by (name, "f32", "f64" or "f32c"), the last the comp recurrence
 PLAIN_RUNS = collections.Counter()
+PLAIN_RUNS_BY_PRECISION = collections.Counter()
+
+
+def _count_run(name, dtype, x_lo):
+    PLAIN_RUNS[name] += 1
+    prec = "f64" if dtype == torch.complex128 else "f32"
+    PLAIN_RUNS_BY_PRECISION[name, prec + ("c" if x_lo is not None else "")] += 1
+
+
+def comp_ratio(x, x_lo, device):
+    """r = x_lo / x_hi of each ring, float32 on ``device``: the forcing of
+    the comp recurrence's lo stream.
+
+    ``x_hi`` is ``x`` rounded to float32, as the kernels read it; ``x_lo``
+    is the float32 residual of float64 cos(theta) (None: zeros, which give
+    the plain recurrence's values).  Formed as the reference forms it,
+    ``where(x_hi != 0, x_lo / x_hi, 0)`` in float32
+    (``heracles_tpu/ops/pallas_sht.py:3150-3160``).
+    """
+    xf = x.to(device=device, dtype=torch.float32)
+    if x_lo is None:
+        return torch.zeros_like(xf)
+    xl = torch.as_tensor(x_lo).to(device=device, dtype=torch.float32)
+    return torch.where(xf != 0, xl / xf, torch.zeros_like(xf))
 
 
 @functools.lru_cache(maxsize=8)
@@ -244,7 +276,8 @@ def _sorted_lanes(ms, ns):
     return ms[order], ns[order], j0[order], order
 
 
-def _recurrence_rows(ms, ns, j0, x, logch, logsh, lmax, dtype, device):
+def _recurrence_rows(ms, ns, j0, x, logch, logsh, lmax, dtype, device,
+                     x_lo=None):
     """The scaled recurrence in l that every plain version runs.
 
     Lanes (ms[i], ns[i]) must be in order of j0 (:func:`_sorted_lanes`).
@@ -253,7 +286,10 @@ def _recurrence_rows(ms, ns, j0, x, logch, logsh, lmax, dtype, device):
     ``mant`` (nr, n) times 2^(60 ``k``), ``k`` (nr, n) int32.  Both are
     views that the next step overwrites.  The seed is evaluated in float64
     and the coefficients computed in float64, then both are rounded to
-    ``dtype``, as the kernels do.
+    ``dtype``, as the kernels do.  With ``x_lo`` each lane also carries
+    the comp stream lo (zero at the seed, scaled with d), stepped as
+    ``((a1 x + a0) lo + r (a1 x d)) - b lo'`` with r from
+    :func:`comp_ratio`, and ``mant`` is d + lo.
     """
     mant, kseed = _lane_seeds(ms, ns, logch, logsh, dtype)
     A1, A0, B = _coeff_tables(ms, ns, j0, lmax, dtype, device)
@@ -263,6 +299,11 @@ def _recurrence_rows(ms, ns, j0, x, logch, logsh, lmax, dtype, device):
     dp = torch.zeros((nr, nlanes), dtype=dtype, device=device)
     dc = torch.zeros_like(dp)
     k = torch.full((nr, nlanes), _NO_SEED, dtype=torch.int32, device=device)
+    comp = x_lo is not None
+    if comp:
+        xr = comp_ratio(x, x_lo, device).to(dtype)[:, None]
+        lp = torch.zeros_like(dp)  # the lo stream at l - 1 and l
+        lc = torch.zeros_like(dp)
     ells = np.arange(lmax + 1)
     n_live = np.searchsorted(j0, ells, side="right")
     n_old = np.searchsorted(j0, ells, side="left")
@@ -276,29 +317,39 @@ def _recurrence_rows(ms, ns, j0, x, logch, logsh, lmax, dtype, device):
             dc[:, s0:n] = mant[:, s0:n]
             dp[:, s0:n] = 0.0
             k[:, s0:n] = kseed[:, s0:n]
-        yield ell, dc[:, :n], k[:, :n]
+            if comp:
+                lc[:, s0:n] = 0.0
+                lp[:, s0:n] = 0.0
+        yield ell, (dc[:, :n] + lc[:, :n]) if comp else dc[:, :n], k[:, :n]
         if ell == lmax:
             break
         dcl, dpl = dc[:, :n], dp[:, :n]
-        dn = (A1[ell + 1, :n] * xs + A0[ell + 1, :n]) * dcl - B[ell + 1, :n] * dpl
+        a1x = A1[ell + 1, :n] * xs
+        a = a1x + A0[ell + 1, :n]
+        dn = a * dcl - B[ell + 1, :n] * dpl
         over = dn.abs() > _SCALE
         sc = torch.where(over, inv_scale, one)
+        if comp:
+            ln = (a * lc[:, :n] + xr * (a1x * dcl)) - B[ell + 1, :n] * lp[:, :n]
+            lp[:, :n] = lc[:, :n] * sc
+            lc[:, :n] = ln * sc
         dp[:, :n] = dcl * sc
         dc[:, :n] = dn * sc
         k[:, :n] += over.to(torch.int32)
 
 
-def _lambda_rows(ms, ns, j0, x, logch, logsh, lmax, dtype, device):
+def _lambda_rows(ms, ns, j0, x, logch, logsh, lmax, dtype, device,
+                 x_lo=None):
     """The loop over l shared by every plain analysis and synthesis.
 
     Yields ``(ell, lam)`` for each row of :func:`_recurrence_rows`, ``lam``
     (nr, n) being the emitted functions: the mantissa at k = 0, times 2^-60
-    at k = -1, zero below.
+    at k = -1, zero below (with ``x_lo``, the comp recurrence's d + lo).
     """
     one = torch.ones((), dtype=dtype, device=device)
     inv_scale = torch.full((), _INV_SCALE, dtype=dtype, device=device)
     for ell, mant, k in _recurrence_rows(ms, ns, j0, x, logch, logsh, lmax,
-                                         dtype, device):
+                                         dtype, device, x_lo):
         emit = torch.where(k == 0, one, torch.where(k == -1, inv_scale, 0.0))
         yield ell, mant * emit
 
@@ -311,13 +362,14 @@ def _unsort(outs, order, device):
     return [o.index_select(-1, inv) for o in outs]
 
 
-def _folded_scan(ms, ns, x, logch, logsh, lmax, Fa, Fb, split):
+def _folded_scan(ms, ns, x, logch, logsh, lmax, Fa, Fb, split, x_lo=None):
     """The plain folded analysis.
 
     Lanes are (ms[i], ns[i]); ``Fa``/``Fb``: (..., nr, lanes) complex.
     ``split=False``: returns sum_r lam * (Fa on even l, Fb on odd l);
     ``split=True``: returns the pair (sum_r lam * Fa, sum_r lam * Fb).
-    Outputs are (..., lmax+1, lanes) complex.
+    Outputs are (..., lmax+1, lanes) complex.  ``x_lo``: the comp
+    recurrence (:func:`_recurrence_rows`).
     """
     ms, ns, j0, order = _sorted_lanes(ms, ns)
     device = Fa.device
@@ -337,7 +389,7 @@ def _folded_scan(ms, ns, x, logch, logsh, lmax, Fa, Fb, split):
         for _ in range(2 if split else 1)
     ]
     for ell, lam in _lambda_rows(ms, ns, j0, x, logch, logsh, lmax, dtype,
-                                 device):
+                                 device, x_lo):
         n = lam.shape[1]
         lam = lam[:, :, None]
         norm = math.sqrt((2 * ell + 1) / (4 * math.pi))
@@ -351,13 +403,14 @@ def _folded_scan(ms, ns, x, logch, logsh, lmax, Fa, Fb, split):
     return tuple(outs) if split else outs[0]
 
 
-def _folded_synth(ms, ns, x, logch, logsh, lmax, a, aS):
+def _folded_synth(ms, ns, x, logch, logsh, lmax, a, aS, x_lo=None):
     """The plain folded synthesis: (sum_l a lam, sum_l (-1)^l aS lam).
 
     Lanes are (ms[i], ns[i]); ``a``/``aS``: (..., lmax+1, lanes) complex
     alms.  Each is multiplied by sqrt((2l+1)/4pi) (rounded from float64 to
     the working type, as the kernels do) before the sums.  Returns
-    (GN, S), each (..., nr, lanes) complex, nr = len(x).
+    (GN, S), each (..., nr, lanes) complex, nr = len(x).  ``x_lo``: the
+    comp recurrence (:func:`_recurrence_rows`).
     """
     ms, ns, j0, order = _sorted_lanes(ms, ns)
     device = a.device
@@ -375,7 +428,7 @@ def _folded_synth(ms, ns, x, logch, logsh, lmax, a, aS):
     GN = torch.zeros(batch + (x.shape[0], ms.size, 2), dtype=dtype, device=device)
     S = torch.zeros_like(GN)
     for ell, lam in _lambda_rows(ms, ns, j0, x, logch, logsh, lmax, dtype,
-                                 device):
+                                 device, x_lo):
         n = lam.shape[1]
         lam = lam[:, :, None]
         GN[..., :n, :] += ar[..., ell, None, :n, :] * lam
@@ -396,7 +449,7 @@ def _swap_blocks(arr, dim=-1):
 
 
 def lambda_analysis_scan_folded(ms, ns, x, logch, logsh, lmax, FN, FS,
-                                cross=False):
+                                cross=False, *, x_lo=None):
     """Ring-pair-folded analysis: half the rings, parity-split spectra.
 
     ``FN``: (..., nhalf, lanes) northern ring spectra; ``FS``: the mirrored
@@ -404,30 +457,32 @@ def lambda_analysis_scan_folded(ms, ns, x, logch, logsh, lmax, FN, FS,
     contracts FN + FS on even l and FN - FS on odd l; with ``cross=True``
     the lanes are two equal +-n blocks and the southern term of each lane
     goes to its partner lane of the other block with the sign (-1)^l.
-    Returns (..., lmax+1, lanes) complex.
+    Returns (..., lmax+1, lanes) complex.  ``x_lo``: the float32
+    residual of float64 cos(theta), for the comp recurrence.
     """
     if not cross:
         return _folded_scan(ms, ns, x, logch, logsh, lmax, FN + FS, FN - FS,
-                            split=False)
+                            split=False, x_lo=x_lo)
     north, south = _folded_scan(ms, ns, x, logch, logsh, lmax, FN, FS,
-                                split=True)
+                                split=True, x_lo=x_lo)
     sign = torch.ones(lmax + 1, 1, dtype=north.real.dtype, device=north.device)
     sign[1::2] = -1.0
     return north + sign * _swap_blocks(south)
 
 
 def lambda_synthesis_scan_folded(ms, ns, x, logch, logsh, lmax, alm,
-                                 cross=False):
+                                 cross=False, *, x_lo=None):
     """Ring-pair-folded synthesis: (GN, GS), each (..., nhalf, lanes).
 
     ``alm``: (..., lmax+1, lanes) complex.  GN holds the ring spectra on
     the northern rings, GS those of their mirrored southern partners,
     GS[L] = (-1)^{m_L} sum_l (-1)^l alm[l, P(L)] lam[l, L] routed back to
     column L (P is the swap of the two +-n lane blocks when ``cross``,
-    the identity otherwise).
+    the identity otherwise).  ``x_lo``: the comp recurrence, as for
+    :func:`lambda_analysis_scan_folded`.
     """
     almP = _swap_blocks(alm) if cross else alm
-    GN, S = _folded_synth(ms, ns, x, logch, logsh, lmax, alm, almP)
+    GN, S = _folded_synth(ms, ns, x, logch, logsh, lmax, alm, almP, x_lo)
     GS = _swap_blocks(S) if cross else S
     msign = torch.as_tensor(_msign(ms), dtype=GN.real.dtype, device=GN.device)
     return GN, GS * msign
@@ -501,65 +556,73 @@ def lambda_power_scan(ms, ns, x, logch, logsh, lmax, Fw, weights):
     return out
 
 
-def analysis_spin0_folded_plain(Fe, Fo, x, logch, logsh, lmax, m0=0):
+# The plain versions of the four kernels.  ``x_lo`` (the float32 residual
+# of float64 cos(theta), a (nhalf,) tensor) runs the comp recurrence, the
+# plain version of the kernels' compensated float32 instantiation; None
+# the plain recurrence.
+
+
+def analysis_spin0_folded_plain(Fe, Fo, x, logch, logsh, lmax, m0=0, *,
+                                x_lo=None):
     """Plain version of the spin-0 analysis kernel (same signature).
 
     alm[..., l, m] = sum_r lam_lm(x_r) (Fe on even l, Fo on odd l)[..., r, m],
     column c holding the order m0 + c (zeros for an order above lmax).
     """
-    PLAIN_RUNS["analysis_spin0_folded"] += 1
+    _count_run("analysis_spin0_folded", Fe.dtype, x_lo)
     nm = Fe.shape[-1]
     return _folded_scan(m0 + np.arange(nm), 0, x, logch, logsh, lmax, Fe, Fo,
-                        split=False)
+                        split=False, x_lo=x_lo)
 
 
 def analysis_pair_folded_plain(FNp, Sp, FNm, Sm, x, logch, logsh, lmax, spin,
-                               m0=0):
+                               m0=0, *, x_lo=None):
     """Plain version of the spin-pair analysis kernel (same signature).
 
     a_p = sum lam_p FNp + (-1)^l sum lam_m Sp and
     a_m = sum lam_m FNm + (-1)^l sum lam_p Sm; returns (a_p, a_m), column
     c holding the order m0 + c.
     """
-    PLAIN_RUNS["analysis_pair_folded"] += 1
+    _count_run("analysis_pair_folded", FNp.dtype, x_lo)
     nm = FNp.shape[-1]
     ms = np.tile(m0 + np.arange(nm), 2)
     ns = np.repeat(np.asarray([spin, -spin], np.int64), nm)
     out = lambda_analysis_scan_folded(
         ms, ns, x, logch, logsh, lmax,
         torch.cat([FNp, FNm], dim=-1), torch.cat([Sm, Sp], dim=-1),
-        cross=True,
+        cross=True, x_lo=x_lo,
     )
     return out[..., :nm], out[..., nm:]
 
 
-def synthesis_spin0_folded_plain(alm, x, logch, logsh, lmax, m0=0):
+def synthesis_spin0_folded_plain(alm, x, logch, logsh, lmax, m0=0, *,
+                                 x_lo=None):
     """Plain version of the spin-0 synthesis kernel (same signature).
 
     GN = sum_l alm lam and GS = (-1)^m sum_l (-1)^l alm lam, each
     (..., nhalf, nm), column c holding the order m0 + c.
     """
-    PLAIN_RUNS["synthesis_spin0_folded"] += 1
+    _count_run("synthesis_spin0_folded", alm.dtype, x_lo)
     nm = alm.shape[-1]
     return lambda_synthesis_scan_folded(m0 + np.arange(nm), 0, x, logch,
-                                        logsh, lmax, alm)
+                                        logsh, lmax, alm, x_lo=x_lo)
 
 
 def synthesis_pair_folded_plain(alm_p, alm_m, x, logch, logsh, lmax, spin,
-                                m0=0):
+                                m0=0, *, x_lo=None):
     """Plain version of the spin-pair synthesis kernel (same signature).
 
     GNp = sum a_p lam_p, GSp = (-1)^m sum (-1)^l a_p lam_m,
     GNm = sum a_m lam_m, GSm = (-1)^m sum (-1)^l a_m lam_p; returns
     (GNp, GSp, GNm, GSm), column c holding the order m0 + c.
     """
-    PLAIN_RUNS["synthesis_pair_folded"] += 1
+    _count_run("synthesis_pair_folded", alm_p.dtype, x_lo)
     nm = alm_p.shape[-1]
     ms = np.tile(m0 + np.arange(nm), 2)
     ns = np.repeat(np.asarray([spin, -spin], np.int64), nm)
     GN, GS = lambda_synthesis_scan_folded(
         ms, ns, x, logch, logsh, lmax, torch.cat([alm_p, alm_m], dim=-1),
-        cross=True,
+        cross=True, x_lo=x_lo,
     )
     return GN[..., :nm], GS[..., :nm], GN[..., nm:], GS[..., nm:]
 

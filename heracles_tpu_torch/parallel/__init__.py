@@ -256,14 +256,15 @@ def map2alm_sharded(mesh, maps, lmax, *, weights="ring", spin=0,
     spin pair, a tensor, a DeviceMap or a numpy array.  Returns
     rectangular alms (nbins[, 2], lmax+1, per * n_m) on the mesh's first
     device, the trailing axis padded past lmax with zero orders (the
-    reference's layout).  ``weights`` as for ``sht.map2alm``; ``dd`` runs
-    the Wigner stage of float32 maps in the kernels' float64
-    instantiation and returns complex64.
+    reference's layout).  ``weights`` and ``dd`` as for ``sht.map2alm``
+    (True: the Wigner stage of float32 maps in the kernels' float64
+    instantiation; "comp": their compensated float32 one; complex64
+    returned).
     """
     _check_engine(engine)
     maps = _whole(maps)
     nside = npix2nside(maps.shape[-1])
-    lmax, spin, dd = int(lmax), abs(int(spin)), bool(dd)
+    lmax, spin, dd = int(lmax), abs(int(spin)), sht._dd_mode(dd)
     nb, n_m = mesh.shape["batch"], mesh.shape["m"]
     per = _m_block(lmax, n_m)
     w = sht._weights_arr(nside, weights)
@@ -303,7 +304,7 @@ def alm2map_sharded(mesh, alms, nside, *, lmax=None, spin=0, engine="auto",
     """
     _check_engine(engine)
     alms = _whole(alms)
-    spin, nside, dd = abs(int(spin)), int(nside), bool(dd)
+    spin, nside, dd = abs(int(spin)), int(nside), sht._dd_mode(dd)
     lmax = alms.shape[-2] - 1 if lmax is None else int(lmax)
     nb, n_m = mesh.shape["batch"], mesh.shape["m"]
     per = _m_block(lmax, n_m)
@@ -346,7 +347,7 @@ def pipeline_step(mesh, maps, lmax, maps2=None, *, engine="auto", dd=None):
     maps = _whole(maps)
     maps2 = None if maps2 is None else _whole(maps2)
     nside = npix2nside(maps.shape[-1])
-    lmax, dd = int(lmax), bool(dd)
+    lmax, dd = int(lmax), sht._dd_mode(dd)
     nb, n_m = mesh.shape["batch"], mesh.shape["m"]
     for what, a in (("maps", maps), ("maps2", maps2)):
         if a is not None and a.shape[0] % nb:

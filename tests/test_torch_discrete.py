@@ -110,6 +110,41 @@ def test_plain_spreader_matches_reference(points, complex_vals):
     _close(nufft.fold_padded(pad, LMAX, w), want, 1e-13)
 
 
+@pytest.mark.parametrize("complex_vals", [False, True])
+def test_spread_torus_adds_into_a_given_grid(points, complex_vals):
+    """``spread_torus(grid=)``: the reference accumulates into a given
+    grid and returns it; so does the port, in place, on the grid's
+    device."""
+    theta, phi, v = points
+    vals = (v[0] + 1j * v[1])[None] if complex_vals else v
+    w = nufft.kernel_width(1e-9)
+    start = np.random.default_rng(12).normal(
+        size=(vals.shape[0],) + nufft.grid_shape(LMAX))
+    start = start.astype(vals.dtype)
+    want = jnufft.spread_torus(theta, phi, vals, LMAX, w, grid=start.copy())
+    grid = torch.as_tensor(start.copy())
+    got = nufft.spread_torus(theta, phi, torch.as_tensor(vals), LMAX, w,
+                             grid)
+    assert got is grid
+    _close(got, want, 1e-13)
+    with pytest.raises(ValueError, match="not the torus grid"):
+        nufft.spread_torus(theta, phi, torch.as_tensor(vals), LMAX, w,
+                           grid[..., :-1])
+
+
+def test_discrete_mapper_takes_nthreads(points):
+    """``DiscreteMapper(nthreads=)``: the reference accepts it and ignores
+    it; the port's mapper takes it and gives the same alms as without."""
+    theta, phi, v = points
+    want = np.asarray(jh.DiscreteMapper(LMAX, nthreads=4)._adjoint_synthesis(
+        theta, phi, v, spin=0))
+    mapper = th.DiscreteMapper(LMAX, nthreads=4, device="cpu")
+    got = mapper._adjoint_synthesis(theta, phi, v, 0)
+    _close(got, want, 1e-10)
+    assert torch.equal(got, th.DiscreteMapper(LMAX, device="cpu")
+                       ._adjoint_synthesis(theta, phi, v, 0))
+
+
 def test_helpers_match_reference():
     for eps in (1e-3, 1e-5, 1e-9, 1e-12, 1e-17):
         assert nufft.kernel_width(eps) == jnufft.kernel_width(eps)

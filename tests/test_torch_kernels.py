@@ -928,3 +928,125 @@ def test_mesh_of_distinct_cards(cuda):
     got = mapper.adjoint_synthesis_sharded(mesh, theta, phi, v, spin=2)
     _assert_close(got, mapper._adjoint_synthesis(theta, phi, v, 2),
                   torch.complex128)
+
+
+# -- the compensated (comp) float32 instantiations ------------------------------
+
+
+def _x_lo(geom):
+    """The float32 residual of the rings' float64 cos(theta)."""
+    x = geom[0].double()
+    return (x - x.float().double()).float()
+
+
+@pytest.mark.parametrize("nside,lmax,batch", CASES)
+@pytest.mark.parametrize("name", _NAMES)
+def test_comp_kernels_match_plain(cuda, name, nside, lmax, batch):
+    """Each comp kernel against its plain version (the comp recurrence of
+    ``ops/wigner.py``) at the float32 bar, launched under "f32c", and
+    repeated bit for bit."""
+    ins, geom, extra = _kernel_operands(name, nside, lmax, torch.complex64,
+                                        cuda, 31)
+    ins = [t[:batch] for t in ins]
+    x_lo = _x_lo(geom)
+    kernel = getattr(sht_kernels, name)
+    plain = getattr(wigner, name + "_plain")
+    want = _as_tuple(plain(*ins, *geom, lmax, *extra, x_lo=x_lo))
+    sht_kernels.reset_counts()
+    got = _as_tuple(kernel(*ins, *geom, lmax, *extra, dd="comp", x_lo=x_lo))
+    torch.cuda.synchronize()
+    assert dict(sht_kernels.LAUNCHES_BY_PRECISION) == {(name, "f32c"): 1}
+    tol32 = (3e-5, 3e-4) if name == "synthesis_pair_folded" else (2e-5, 2e-4)
+    for g, w in zip(got, want, strict=True):
+        assert g.dtype == torch.complex64
+        _assert_close(g, w, torch.complex64, tol32)
+    again = _as_tuple(kernel(*ins, *geom, lmax, *extra, dd="comp", x_lo=x_lo))
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+
+
+@pytest.mark.parametrize("name", _NAMES)
+def test_comp_zero_stream_is_the_plain_kernel(cuda, name):
+    """``dd="comp"`` without ``x_lo`` (a zero stream) launches the comp
+    kernel and gives the plain float32 kernel's outputs bit for bit."""
+    nside, lmax = 64, 191
+    ins, geom, extra = _kernel_operands(name, nside, lmax, torch.complex64,
+                                        cuda, 32)
+    kernel = getattr(sht_kernels, name)
+    plain = _as_tuple(kernel(*ins, *geom, lmax, *extra))
+    sht_kernels.reset_counts()
+    comp = _as_tuple(kernel(*ins, *geom, lmax, *extra, dd="comp"))
+    torch.cuda.synchronize()
+    assert dict(sht_kernels.LAUNCHES_BY_PRECISION) == {(name, "f32c"): 1}
+    for c, p in zip(comp, plain, strict=True):
+        assert torch.equal(c, p)
+
+
+@pytest.mark.parametrize("m0", [0, 64, 160, 192])
+@pytest.mark.parametrize("name", _NAMES)
+def test_comp_kernels_on_a_block_of_orders(cuda, name, m0):
+    """A comp launch of the orders m0..m0+63 gives the full comp launch's
+    columns bit for bit and zeros above lmax."""
+    nside, lmax, width = 64, 191, 64
+    ins, geom, extra = _kernel_operands(name, nside, lmax, torch.complex64,
+                                        cuda, 33)
+    kernel = getattr(sht_kernels, name)
+    kw = dict(dd="comp", x_lo=_x_lo(geom))
+    full = _as_tuple(kernel(*ins, *geom, lmax, *extra, **kw))
+    block = [torch.nn.functional.pad(t[..., m0:m0 + width],
+                                     (0, max(0, m0 + width - lmax - 1)))
+             for t in ins]
+    got = _as_tuple(kernel(*block, *geom, lmax, *extra, m0, **kw))
+    torch.cuda.synchronize()
+    real = max(0, min(width, lmax + 1 - m0))
+    for g, f in zip(got, full, strict=True):
+        assert torch.equal(g[..., :real], f[..., m0:m0 + real])
+        assert not g[..., real:].any()
+
+
+@pytest.mark.parametrize("name", ["analysis_spin0_folded",
+                                  "synthesis_spin0_folded",
+                                  "synthesis_pair_folded"])
+def test_comp_path_counts(cuda, name):
+    """The comp kernels choose their paths by d alone, as the plain ones
+    do: the same counts on the same inputs."""
+    nside, lmax = 256, 191
+    ins, geom, extra = _kernel_operands(name, nside, lmax, torch.complex64,
+                                        cuda, 34)
+    plain = sht_kernels.path_counts(name, *ins, *geom, lmax, *extra)
+    comp = sht_kernels.path_counts(name, *ins, *geom, lmax, *extra,
+                                   dd="comp", x_lo=_x_lo(geom))
+    assert comp == plain and comp["steady"] > 0
+
+
+def test_comp_transform_launches_the_comp_kernels(cuda):
+    """``dd="comp"`` on float32 maps: the comp instantiations run (none of
+    float64), complex64 comes back, and the result is the CPU's comp
+    transform at the float32 bar."""
+    from heracles_tpu_torch.ops import sht
+
+    nside, lmax = 32, 48
+    rng = np.random.default_rng(35)
+    host = torch.as_tensor(rng.normal(size=(2, 12 * nside**2)),
+                           dtype=torch.float32)
+    maps = host.to(cuda)
+    for spin, name in ((0, "spin0"), (2, "pair")):
+        sht_kernels.reset_counts()
+        got = sht.map2alm(maps, lmax, spin=spin, iterations=1, dd="comp")
+        torch.cuda.synchronize()
+        assert got.dtype == torch.complex64
+        assert dict(sht_kernels.LAUNCHES_BY_PRECISION) == {
+            (f"analysis_{name}_folded", "f32c"): 2,
+            (f"synthesis_{name}_folded", "f32c"): 1}
+        assert not wigner.PLAIN_RUNS
+        want = sht.map2alm(host, lmax, spin=spin, iterations=1, dd="comp")
+        _assert_close(got, want, torch.complex64)
+
+
+def test_comp_blocks_per_sm(cuda):
+    from heracles_tpu_torch.ops import _build
+
+    kl = _build.load_library()
+    for kernel in ("analysis_spin0", "analysis_pair", "synthesis_spin0",
+                   "synthesis_pair"):
+        assert kl.blocks_per_sm(kernel, False, comp=True) >= 1

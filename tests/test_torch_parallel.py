@@ -267,6 +267,22 @@ def test_transform_sharded_iterations(mesh, maps):
     _close(tmapper.transform_sharded(mesh, m), tmapper.transform(m))
 
 
+@pytest.mark.parametrize("spin", [0, 2])
+def test_transform_sharded_iterations_match_the_reference(mesh, maps, spin):
+    """The reference's ``transform_sharded`` drops the mapper's Jacobi
+    iterations (heracles_tpu/mappers.py:325-327) though it promises the
+    alms of ``transform``; the port's sharded iterated transform gives
+    what it promises: the reference's unsharded ``transform`` of the same
+    maps."""
+    m = maps[spin // 2][:4]
+    want = jh.HealpixMapper(NSIDE, LMAX, deconvolve=False,
+                            iterations=2).transform(m.copy(), spin=spin)
+    tmapper = th.HealpixMapper(NSIDE, LMAX, deconvolve=False, iterations=2,
+                               device="cpu")
+    got = tmapper.transform_sharded(mesh, torch.as_tensor(m), spin=spin)
+    _close(got.array, np.asarray(want))
+
+
 def _fields(pkg, **kw):
     mapper = pkg.HealpixMapper(NSIDE, LMAX, deconvolve=False, **kw)
     return {
@@ -532,6 +548,55 @@ _RENAMED = {
                                               "spin0_seed_planes"),
     ("ops.pallas_sht", "pair_seed_planes"): ("ops.wigner", "pair_seed_planes"),
 }
+# keywords of the reference that its twin drops on purpose, by (reference
+# module, keyword)
+_DROPPED_KEYWORDS = {
+    ("healpix", "xp"): "the array module (numpy or jax.numpy) of the "
+                       "reference's dual functions; the port's are torch",
+    ("ops.nufft", "complex_vals"): "fold_padded reads it from the grid's "
+                                   "dtype",
+    ("ops.ringfft", "plan"): "precomputed ring-FFT plans passed through a "
+                             "jit boundary; the port plans per call",
+    ("ops.ringfft", "chirps"): "precomputed chirp FFTs passed through a jit "
+                               "boundary; the port's Bluestein FFT takes none",
+    ("ops.sht", "m_chunk"): "the TPU's order tile; the port pads orders "
+                            "only for a device mesh (sht.DEFAULT_M_CHUNK)",
+    ("ops.sht", "fft_chirps"): "as ringfft's chirps",
+    ("ops.sht", "fft_chirps_synth"): "as ringfft's chirps",
+    ("ops.wigner", "seed"): "host seed planes for the float32 scans; the "
+                            "port evaluates every seed in float64 itself",
+    ("ops.wigner", "dd"): "the jnp scans' double-single mode; the port's "
+                          "scans run in their input's dtype, float64 "
+                          "natively",
+    ("ops.wigner", "x_lo"): "the residual the scans' double-single mode "
+                            "reads",
+    ("ops.df32", "a_tile"): "VMEM tiling of the TPU Gram kernel",
+    ("ops.df32", "b_tile"): "VMEM tiling of the TPU Gram kernel",
+    ("ops.df32", "k_chunk"): "VMEM tiling of the TPU Gram kernel",
+    ("ops.df32", "interpret"): "Pallas interpret mode",
+    ("ops.df32", "block"): "the TPU Gram kernel's blocking read-back; the "
+                           "port's gram returns a tensor on the card",
+    ("ops.df32", "P"): "matmul_df32(P, Q) is the port's gram(P.T, Q), "
+                       "whose operands are named A and B",
+    ("ops.df32", "Q"): "as P",
+    ("ops.pallas_sht", "m_chunk"): "VMEM tiling of the TPU kernels",
+    ("ops.pallas_sht", "ring_block"): "VMEM tiling of the TPU kernels",
+    ("ops.pallas_sht", "l_chunk"): "the l-chunked VMEM tiling of the TPU "
+                                   "pair synthesis (_synth_pair_kernel_lc)",
+    ("ops.pallas_sht", "contract"): "the TPU kernels' ring-contraction "
+                                    "strategy (a halving tree or FMAs)",
+    ("ops.pallas_sht", "skip"): "the TPU synthesis' block-skip heuristic",
+    ("ops.pallas_sht", "interpret"): "Pallas interpret mode",
+    ("ops.pallas_sht", "nb"): "maps sharing one recurrence: speed only, "
+                              "perf_opt work (ROADMAP B-next 3)",
+    ("ops.pallas_sht", "logch_lo"): "float32 residuals of the seed's logs: "
+                                    "the kernels read the logs in float64",
+    ("ops.pallas_sht", "logsh_lo"): "as logch_lo",
+    ("ops.pallas_sht", "seed_planes"): "host seed constants; the wrappers "
+                                       "compute them for their block of "
+                                       "orders (m0)",
+}
+
 # names that only emulate on the TPU what the H100 has natively, or that
 # the port has no use for
 _EMULATION_ONLY = {
@@ -574,7 +639,9 @@ def test_every_public_name_has_a_twin():
     """Every public name of every heracles_tpu module has its twin in the
     port (same module and name, or a listed rename), or is listed as
     emulation-only with its reason; every public method of a class has
-    one too, and every ``mesh=`` of a function or method."""
+    one too, and every keyword of a function, method or constructor
+    (``mesh=`` among them) is taken by its twin or listed in
+    ``_DROPPED_KEYWORDS`` with its reason."""
     missing = []
     for rel, ref in sorted(_reference_modules().items()):
         twin = _MODULE_TWINS.get(rel, rel)
@@ -599,6 +666,7 @@ def test_every_public_name_has_a_twin():
                           getattr(pobj, meth, None)) for meth in dir(robj)
                          if not meth.startswith("_")
                          and inspect.isfunction(getattr(robj, meth))]
+                funcs.append((f"{name}()", robj.__init__, pobj.__init__))
             else:
                 funcs = [(name, robj, pobj)]
             for label, rf, pf in funcs:
@@ -606,9 +674,14 @@ def test_every_public_name_has_a_twin():
                     continue
                 try:
                     rp = inspect.signature(rf).parameters
+                    pp = inspect.signature(pf).parameters
                 except (TypeError, ValueError):
                     continue
-                if "mesh" in rp and "mesh" not in inspect.signature(
-                        pf).parameters:
-                    missing.append(f"{rel}.{label}(mesh=)")
+                if any(p.kind == p.VAR_KEYWORD for p in pp.values()):
+                    continue
+                for kw, p in rp.items():
+                    if (p.kind not in (p.VAR_POSITIONAL, p.VAR_KEYWORD)
+                            and kw not in pp
+                            and (rel, kw) not in _DROPPED_KEYWORDS):
+                        missing.append(f"{rel}.{label}({kw}=)")
     assert not missing, missing

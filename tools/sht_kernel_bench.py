@@ -1,13 +1,15 @@
 """Time the four SHT kernels of one checkout of the port on the card.
 
     python3 tools/sht_kernel_bench.py [--root DIR] [--label NAME]
-                                      [--nside 4096] [--lmax 3000] [--double]
+                                      [--nside 4096] [--lmax 3000]
+                                      [--double | --comp]
 
 Builds the kernels of the ``heracles_tpu_torch`` package under ``--root``
 (default: this checkout), runs the spin-0 and spin-pair analysis and
-synthesis in float32 (float64 with ``--double``) on seeded random inputs at
-one map's shapes (2 nside northern rings, lmax + 1 orders), and prints, on
-lines that start with ``--label``:
+synthesis in float32 (float64 with ``--double``, the compensated float32
+instantiations with ``--comp``) on seeded random inputs at one map's
+shapes (2 nside northern rings, lmax + 1 orders), and prints, on lines
+that start with ``--label``:
 
 * ptxas' registers and spills of the SHT kernels;
 * per kernel the times of three launches after a warm-up (ms, CUDA
@@ -36,13 +38,19 @@ def main():
     parser.add_argument("--nside", type=int, default=4096)
     parser.add_argument("--lmax", type=int, default=3000)
     parser.add_argument("--seed", type=int, default=5)
-    parser.add_argument("--double", action="store_true")
+    mode = parser.add_mutually_exclusive_group()
+    mode.add_argument("--double", action="store_true")
+    mode.add_argument("--comp", action="store_true")
     args = parser.parse_args()
     sys.path.insert(0, args.root)
 
     import torch
 
     from heracles_tpu_torch.ops import _build, sht, sht_kernels
+
+    # the comp instantiations' keywords (packages without them take none)
+    kw = dict(dd="comp", x_lo=sht._x_lo(args.nside, "comp", "cuda")) \
+        if args.comp else {}
 
     if not torch.cuda.is_available():
         raise SystemExit("sht_kernel_bench: torch sees no CUDA device")
@@ -94,13 +102,13 @@ def main():
 
     kernels = {
         "analysis_spin0_folded": lambda: sht_kernels.analysis_spin0_folded(
-            F[0], F[1], x, lch, lsh, lmax),
+            F[0], F[1], x, lch, lsh, lmax, **kw),
         "analysis_pair_folded": lambda: sht_kernels.analysis_pair_folded(
-            *F, x, lch, lsh, lmax, 2),
+            *F, x, lch, lsh, lmax, 2, **kw),
         "synthesis_spin0_folded": lambda: sht_kernels.synthesis_spin0_folded(
-            A[0], x, lch, lsh, lmax),
+            A[0], x, lch, lsh, lmax, **kw),
         "synthesis_pair_folded": lambda: sht_kernels.synthesis_pair_folded(
-            *A, x, lch, lsh, lmax, 2),
+            *A, x, lch, lsh, lmax, 2, **kw),
     }
     result = {}
     for name, fn in kernels.items():
@@ -113,17 +121,20 @@ def main():
         # the spin-0 synthesis has paths only in later versions of the package
         synth0 = "heracles_synthesis_spin0_paths_f32" in _build._SIGNATURES
         print(label, "paths analysis_spin0_folded", sht_kernels.path_counts(
-            "analysis_spin0_folded", F[0], F[1], x, lch, lsh, lmax))
+            "analysis_spin0_folded", F[0], F[1], x, lch, lsh, lmax, **kw))
         if synth0:
             print(label, "paths synthesis_spin0_folded", sht_kernels.path_counts(
-                "synthesis_spin0_folded", A[0], x, lch, lsh, lmax))
+                "synthesis_spin0_folded", A[0], x, lch, lsh, lmax, **kw))
         print(label, "paths synthesis_pair_folded", sht_kernels.path_counts(
-            "synthesis_pair_folded", *A, x, lch, lsh, lmax, 2))
+            "synthesis_pair_folded", *A, x, lch, lsh, lmax, 2, **kw))
         for kernel in ("analysis_spin0", "analysis_pair",
                        *(("synthesis_spin0",) if synth0 else ()),
                        "synthesis_pair"):
-            print(label, kernel, "blocks per SM (f32, f64):",
-                  kl.blocks_per_sm(kernel, False), kl.blocks_per_sm(kernel, True))
+            blocks = [kl.blocks_per_sm(kernel, False),
+                      kl.blocks_per_sm(kernel, True)]
+            if args.comp:
+                blocks.append(kl.blocks_per_sm(kernel, False, comp=True))
+            print(label, kernel, "blocks per SM (f32, f64[, comp]):", *blocks)
 
 
 if __name__ == "__main__":
