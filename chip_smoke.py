@@ -110,7 +110,16 @@ with its seconds:
    (times, agreement, bound) beside the plain float32 kernel's time on the
    same inputs, the path shares of the comp spin-0 analysis and of either
    comp synthesis (equal to the plain kernels' counts), and one comp block
-   of orders (m0 = 1536) bit for bit the full comp launch's columns.
+   of orders (m0 = 1536) bit for bit the full comp launch's columns;
+13. the device trace (``tools/torch_trace_capture.py``, torch.profiler):
+   bin 0's spin-0 ``map2alm`` and phase 7's refined transform of bin 0's
+   POS and SHE maps, each traced once with the port's stages labelled from
+   outside the package; the trace must hold device events, its launches of
+   B1-B5 must equal the kernels' launch counts over the same window, B1's
+   device time per launch must lie within 10% of phase 4's CUDA-event
+   time, busy + idle must equal the window, and no stage label may be dead;
+   prints each trace's idle share, top 10 ops and top 5 idle gaps by the
+   host work that made the card wait.
 
 Then a JSON line of the kernels (with each one's bound: the least time
 the card could take for the same work), the card line, and the result
@@ -402,18 +411,19 @@ def ptxas_summary(log):
     return "; ".join(out)
 
 
-def catalog_arrays():
-    """bench.py's pipeline catalogue recipe, one array per bin."""
+def catalog_arrays(rows=NROWS):
+    """bench.py's pipeline catalogue recipe, one array of ``rows`` rows per
+    bin."""
     rng = np.random.default_rng(8)
     dtype = [(n, "f8") for n in ("RA", "DEC", "G1", "G2", "W")]
     out = []
     for _ in range(NBINS):
-        arr = np.empty(NROWS, dtype)
-        arr["RA"] = rng.uniform(0, 360, NROWS)
-        arr["DEC"] = np.degrees(np.arcsin(rng.uniform(-1, 1, NROWS)))
-        arr["G1"] = rng.normal(0, 0.1, NROWS)
-        arr["G2"] = rng.normal(0, 0.1, NROWS)
-        arr["W"] = rng.uniform(0.5, 1.0, NROWS)
+        arr = np.empty(rows, dtype)
+        arr["RA"] = rng.uniform(0, 360, rows)
+        arr["DEC"] = np.degrees(np.arcsin(rng.uniform(-1, 1, rows)))
+        arr["G1"] = rng.normal(0, 0.1, rows)
+        arr["G2"] = rng.normal(0, 0.1, rows)
+        arr["W"] = rng.uniform(0.5, 1.0, rows)
         out.append(arr)
     return out
 
@@ -922,12 +932,11 @@ def phase8(dev, maps, page, a32, a64, smi):
           f"({time.perf_counter() - t:.1f} s)", flush=True)
 
 
-def _dices_inputs(dev):
+def _dices_inputs(dev, nside=DICES_NSIDE, lmax=DICES_LMAX):
     """bench.py's ``build_dices_real`` maps (seed 9) as float32 DeviceMaps
-    on the card, its fields, and a function of the region map."""
+    on ``dev``, its fields, and a function of the region map."""
     import heracles_tpu_torch as th
 
-    nside, lmax = DICES_NSIDE, DICES_LMAX
     npix = 12 * nside**2
     rng = np.random.default_rng(9)
     mapper = th.HealpixMapper(nside, lmax, deconvolve=False,
@@ -2101,6 +2110,105 @@ def phase12(dev, smi, p3):
     return report, comp_launches
 
 
+# phase 13: the trace's B1 time per launch against phase 4's CUDA events
+TRACE_B1_TOL = 0.10
+# the trace's table labels of the kernels that count their launches
+TRACE_TAGS = {"B1": "analysis_spin0_folded", "B2": "analysis_pair_folded",
+              "B3": "synthesis_spin0_folded", "B4": "synthesis_pair_folded",
+              "B5": "gram"}
+
+
+def _trace_tool():
+    """``tools/torch_trace_capture.py`` of this checkout, as a module."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "tools" / "torch_trace_capture.py"
+    spec = importlib.util.spec_from_file_location("torch_trace_capture", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase13(dev, smi, p3, b1_ms):
+    """The device trace of bin 0's spin-0 map2alm and of phase 7's refined
+    transform of bin 0's POS and SHE maps, held against the launch counts
+    and phase 4's B1 time ``b1_ms``."""
+    import tempfile
+
+    import heracles_tpu_torch as th
+    from heracles_tpu_torch.ops import sht
+
+    ttc = _trace_tool()
+    t = time.perf_counter()
+    pos, she = p3["pos"][0], p3["she"][0]
+    mapper = th.HealpixMapper(NSIDE, LMAX, dtype=torch.float32, device=dev,
+                              iterations=ITERATIONS)
+    cases = {
+        "spin0 map2alm": (lambda: sht.map2alm(pos, LMAX), "spin0"),
+        f"transform ({ITERATIONS} iterations) POS+SHE": (
+            lambda: (mapper.transform(pos, spin=0),
+                     mapper.transform(she, spin=2)), "transform"),
+    }
+    lines = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for case, (fn, op) in cases.items():
+            fn()  # warm
+            torch.cuda.synchronize()
+            path = Path(tmp) / f"{op}.trace.json"
+            reset_counts()
+            stages = ttc.capture(fn, 1, dev, path)
+            launches, plain_runs = counts()
+            nbytes = path.stat().st_size
+            summary = ttc.summarise(ttc.load_trace(path))  # raises on none
+            path.unlink()
+            by_tag = ttc.launches_by_table(summary)
+            got = {TRACE_TAGS[k]: int(v) for k, v in by_tag.items()
+                   if k in TRACE_TAGS}
+            want = {k: v for k, v in launches.items()
+                    if k in TRACE_TAGS.values() and v}
+            check(got == want, f"phase 13 {case}: trace launches {got}, "
+                  f"launch counts {want}")
+            check(sum(plain_runs.values()) == 0, f"plain versions ran: "
+                  f"{plain_runs}")
+            window = summary["window_ms"]
+            check(abs(summary["busy_ms"] + summary["idle_ms"] - window)
+                  <= 1e-9 * window, f"phase 13 {case}: busy "
+                  f"{summary['busy_ms']} + idle {summary['idle_ms']} != "
+                  f"window {window}")
+            dead = stages.dead(ttc.OP_LABELS[op])
+            check(not dead, f"phase 13 {case}: dead stage labels {dead}")
+            b1 = ttc.device_ms_by_table(summary)["B1"] / by_tag["B1"]
+            check(abs(b1 - b1_ms) <= TRACE_B1_TOL * b1_ms,
+                  f"phase 13 {case}: B1 {b1:.3f} ms a launch in the trace, "
+                  f"{b1_ms:.3f} ms by CUDA events (phase 4)")
+            top = "; ".join(f"{ms:.2f} {name[:70]}" for name, ms in
+                            list(summary["device_ms"].items())[:10])
+            gaps = "; ".join(f"{g['ms']:.2f} ({g['n']:g}) {lab[:70]}"
+                             for lab, g in list(summary["gaps"].items())[:5])
+            stage_ms = "; ".join(f"{ms:.2f} {lab}" for lab, ms in
+                                 summary["device_ms_by_label"].items())
+            host_ms = "; ".join(f"{ms:.2f} {lab}" for lab, ms in list(
+                summary["idle_ms_by_host_label"].items())[:5])
+            lines.append(
+                f"phase 13 trace {case}: window {window:.2f} ms, busy "
+                f"{summary['busy_ms']:.2f} ms, idle {summary['idle_ms']:.2f} "
+                f"ms, idle share {summary['idle_share']:.4f}; launches "
+                f"{got} equal the launch counts; B1 {b1:.3f} ms a launch "
+                f"against phase 4's {b1_ms:.3f} ms; no dead label of "
+                f"{len(ttc.OP_LABELS[op])}; launch-to-start skew "
+                f"{summary['launch_skew_us']:.1f} us as recorded (device "
+                f"clock moved {summary['clock_shift_us']:.1f} us); "
+                f"{summary['events']} events, {nbytes} bytes")
+            lines.append(f"phase 13 {case} top ops (ms): {top}")
+            lines.append(f"phase 13 {case} device ms by stage: {stage_ms}")
+            lines.append(f"phase 13 {case} top idle gaps (ms, count, host "
+                         f"work): {gaps}; idle ms by the host's stage: "
+                         f"{host_ms}")
+    for line in lines:
+        print(line)
+    print(f"phase 13 card {smi} ({time.perf_counter() - t:.1f} s)", flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch sees no CUDA device; this script "
@@ -2422,6 +2530,10 @@ def main():
     comp_report, comp_launches = phase12(dev, smi, p3)
     report.update(comp_report)
     launches.update(comp_launches)
+
+    # -- phase 13: the device trace of the spin-0 analysis and the refined
+    # transform ----------------------------------------------------------
+    phase13(dev, smi, p3, report["analysis_spin0_folded"]["ms"])
     del p3
 
     def mean(key):
