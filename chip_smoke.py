@@ -8,11 +8,12 @@ with its seconds:
 
 0. the card (``nvidia-smi`` name and power limit), torch and CUDA;
 1. build the Hopper kernels from ``heracles_tpu_torch/csrc`` (ptxas'
-   registers and spills, none allowed in the spin-0 synthesis; the Gram
-   kernel's DMMA instruction count and the spreader's shared atomics,
-   compare-and-swap loops (none allowed) and global reductions from their
-   SASS, the resident blocks per SM of the analysis and synthesis
-   kernels);
+   registers and spills, none allowed in the spin-0 synthesis and in the
+   analyses' grouped instantiations; the Gram kernel's DMMA instruction
+   count and the spreader's shared atomics, compare-and-swap loops (none
+   allowed) and global reductions from their SASS, the resident blocks
+   per SM of the analysis and synthesis kernels and of each group of
+   maps);
 2. each kernel against its plain PyTorch version on the same CUDA
    tensors: the analysis and synthesis kernels in float32 and float64 at
    three shapes (all four and the Gram kernel also repeated bit for bit),
@@ -67,7 +68,9 @@ with its seconds:
    file mode twice (the second call launches no SHT kernel and returns the
    same spectra), delete-2 debiasing and shrinkage towards the Gaussian
    covariance; the two analysis kernels at the DICES batch against their
-   plain versions, with their bounds;
+   plain versions, at every group of maps ``nb`` (each bit for bit its
+   ``nb = 1``, timed beside its bound); the region alms run with the
+   automatic groups, whose launches are counted by ``nb``;
 10. pixel-free alms (``DiscreteMapper``, ``ops.nufft``) at the
    configurations of ``discrete_alm_l1000`` (65536 points, lmax 1000,
    float32: the exact spin-0 and spin-2 paths through the analysis kernels
@@ -119,11 +122,18 @@ with its seconds:
    device time per launch must lie within 10% of phase 4's CUDA-event
    time, busy + idle must equal the window, and no stage label may be dead;
    prints each trace's idle share, top 10 ops and top 5 idle gaps by the
-   host work that made the card wait.
+   host work that made the card wait;
+14. the analyses' groups of maps at full width: B1 on a stack of 4 maps
+   and B2 on 2 (the reference's groups at lmax 3000), at every ``nb``
+   dividing the stack, each bit for bit its ``nb = 1`` and timed beside
+   its bound, the automatic group named; float64 and comp at every ``nb``
+   at a small shape (600 rings, orders 7..46, 8 maps), bit for bit their
+   ``nb = 1``.
 
 Then a JSON line of the kernels (with each one's bound: the least time
-the card could take for the same work), the card line, and the result
-line.
+the card could take for the same work; the grouped launches of phase 9's
+region alms as ``<kernel>_nb<n>`` rows, timed at the DICES batch), the
+card line, and the result line.
 """
 
 import collections
@@ -261,6 +271,10 @@ FP64_TENSOR_PEAK = 67e12
 # step, (a1 x + a0) lo, r (a1 x d), +, b lo', - (a1 x d is the spin-0
 # step's own product, a new one in a pair: 5 at spin 0, 6 a pair column)
 # and the emit's d + lo: 15 and 41.
+# Of these, the recurrence and the emit are shared by the maps of a group
+# (nb > 1, the analyses' grouped launches): 5 of B1's 9 (4 + 1), 11 of
+# B2's 27 (9 + 2), 11 of B1 comp's 15, 25 of B2 comp's 41; each map pays
+# its contraction.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOP_PER_S = {torch.float32: 67e12, torch.float64: 67e12}
 FLOP_PER_TRIPLE = {"analysis_spin0_folded": 9, "analysis_pair_folded": 27,
@@ -269,6 +283,9 @@ FLOP_PER_TRIPLE = {"analysis_spin0_folded": 9, "analysis_pair_folded": 27,
                    "analysis_pair_folded_comp": 41,
                    "synthesis_spin0_folded_comp": 15,
                    "synthesis_pair_folded_comp": 41}
+FLOP_SHARED = {"analysis_spin0_folded": 5, "analysis_pair_folded": 11,
+               "analysis_spin0_folded_comp": 11,
+               "analysis_pair_folded_comp": 25}
 
 
 def check(ok, msg):
@@ -304,6 +321,30 @@ def event_ms(fn):
     return out, start.elapsed_time(stop)
 
 
+def best_ms(fn, reps=3):
+    """(result, least milliseconds of ``reps`` timed calls) after a warm-up
+    call (CUDA events)."""
+    fn()
+    out, times = None, []
+    for _ in range(reps):
+        out, ms = event_ms(fn)
+        times.append(ms)
+    return out, min(times)
+
+
+def same_bits(got, want):
+    """Whether two tuples of tensors hold the same bits (signed zeros
+    included)."""
+    def bits(t):
+        real = torch.view_as_real(t) if t.is_complex() else t
+        return real.view(torch.int32 if real.element_size() == 4
+                         else torch.int64)
+
+    return len(got) == len(want) and all(
+        g.shape == w.shape and torch.equal(bits(g), bits(w))
+        for g, w in zip(got, want))
+
+
 def compare(got, want, atol, rtol=0.0, what="kernel"):
     """(max |got - want|, that / max |want|); raises outside tolerance.
 
@@ -336,6 +377,14 @@ def kernel_label(entry):
     m = re.search(r"pair_analysis_kernelI([fd])Lb([01])E", entry)
     if m:
         return f"analy/pair/{prec(m.group(1))}{tail(m.group(2))}"
+    # the analyses on groups of nb maps: template <typename T, bool kComp,
+    # int NB>
+    m = re.search(r"(pair|analysis)_group_kernelI([fd])Lb([01])ELi(\d)E",
+                  entry)
+    if m:
+        kind = "pair" if m.group(1) == "pair" else "spin0"
+        return (f"group/{kind}/{prec(m.group(2))}/nb{m.group(4)}"
+                f"{tail(m.group(3))}")
     m = re.search(r"pair_synthesis_kernelI([fd])Lb([01])ELb([01])E", entry)
     if m:
         return f"synth/pair/{prec(m.group(1))}{tail(*m.group(2, 3))}"
@@ -450,11 +499,16 @@ def counts():
     return launches, plain
 
 
-def ring_tensors(nside, dev):
-    """cos(theta), log cos(theta/2), log sin(theta/2) of the northern rings."""
+def ring_geometry_z(nside):
+    """cos(theta) of the northern rings, float64 numpy."""
     from heracles_tpu_torch.healpix import ring_geometry
 
-    z = ring_geometry(nside)["z"][:2 * nside]
+    return ring_geometry(nside)["z"][:2 * nside]
+
+
+def ring_tensors(nside, dev):
+    """cos(theta), log cos(theta/2), log sin(theta/2) of the northern rings."""
+    z = ring_geometry_z(nside)
     return [torch.as_tensor(a, device=dev) for a in (
         z, 0.5 * np.log((1.0 + z) / 2.0), 0.5 * np.log((1.0 - z) / 2.0))]
 
@@ -642,10 +696,11 @@ def sht_triples(batch, nhalf, nm, lmax, spin, m0=0):
     return float(batch) * nhalf * float(np.clip(lmax + 1 - j0, 0, None).sum())
 
 
-def sht_bound(name, batch, nhalf, nm, lmax, cdtype, m0=0):
+def sht_bound(name, batch, nhalf, nm, lmax, cdtype, m0=0, nb=1):
     """The bound of one SHT kernel launch of the orders m0..m0+nm-1: ring
     spectra and alms moved once (a ``*_comp`` name: the compensated
-    kernel, which also reads each ring's r)."""
+    kernel, which also reads each ring's r); an analysis on groups of
+    ``nb`` maps runs its shared operations once per group."""
     pair = "pair_folded" in name
     nring, nalm = (4, 2) if pair else (2, 1)
     item = torch.empty((), dtype=cdtype).element_size()
@@ -653,8 +708,9 @@ def sht_bound(name, batch, nhalf, nm, lmax, cdtype, m0=0):
               + nhalf * (item // 2 + 16))  # x, log cos, log sin
     if name.endswith("_comp"):
         nbytes += nhalf * 4
-    flops = FLOP_PER_TRIPLE[name] * sht_triples(batch, nhalf, nm, lmax,
-                                                2 if pair else 0, m0)
+    shared = FLOP_SHARED.get(name, 0) if nb > 1 else 0
+    flops = (shared / nb + FLOP_PER_TRIPLE[name] - shared) * sht_triples(
+        batch, nhalf, nm, lmax, 2 if pair else 0, m0)
     real = torch.float32 if cdtype == torch.complex64 else torch.float64
     return bound(nbytes, flops, real)
 
@@ -983,8 +1039,10 @@ def _same_cls(got, want, what, rtol=DICES_RTOL):
 
 def phase9(dev, smi):
     """DICES at full width: the path, its checks, and the two analysis
-    kernels at the DICES batch against their plain versions.  Returns the
-    file-mode run's host alms of 8 regions (for phase 11)."""
+    kernels at the DICES batch against their plain versions, at every
+    group of maps.  Returns the file-mode run's host alms of 8 regions
+    (for phase 11), the kernels' reports at the DICES batch (by nb under
+    ``by_nb``) and the device-mode run's launches by (kernel, nb)."""
     import shutil
 
     import heracles_tpu_torch as th
@@ -1009,6 +1067,11 @@ def phase9(dev, smi):
     cache, secs["alms"] = sync_time(lambda: dices.compute_jk_alms(
         data, vmaps, jk, fields, dir=None, region_batch=DICES_BATCH))
     launches, plain_runs = counts()
+    # the automatic groups of maps (sht_kernels.pick_nb) of that run
+    by_nb = dict(sht_kernels.LAUNCHES_BY_NB)
+    for name in DICES_KERNELS:
+        check(any(nb > 1 for (n, nb) in by_nb if n == name),
+              f"{name} ran no grouped launch in DICES: {by_nb}")
     nbatch = -(-njk // DICES_BATCH)
     # k = 0: one launch per map; then one per map key and batch of regions
     want = {"analysis_spin0_folded": 2 + 2 * nbatch,
@@ -1176,40 +1239,56 @@ def phase9(dev, smi):
                                    lmax + 1, weight=w)
     pair_args = sht._folded_inputs((Fp, Fn.conj()), (2, -2))
     del F, Fp, Fn, pos, she
+    # (each nb the kernel has: bit for bit its nb = 1, which is held
+    # against the plain version; CUDA-event time, best of 3; the bound at
+    # that nb)
     report = {}
+    dims = (DICES_BATCH, x.shape[0], lmax + 1)
     for name, args, extra in (("analysis_spin0_folded", spin0_args, ()),
                               ("analysis_pair_folded", pair_args, (2,))):
         kernel = getattr(sht_kernels, name)
         plain = getattr(wigner, name + "_plain")
-        event_ms(lambda: kernel(*args, x, lch, lsh, lmax, *extra))  # warm
-        got, ms = event_ms(lambda: kernel(*args, x, lch, lsh, lmax, *extra))
         want_k, plain_ms = event_ms(lambda: plain(*args, x, lch, lsh, lmax,
                                                   *extra))
-        if name == "analysis_spin0_folded":
-            got, want_k = (got,), (want_k,)
-        errs = [compare(g, p, *TOL[torch.complex64], what=f"{name} DICES batch")
-                for g, p in zip(got, want_k)]
-        dims = (DICES_BATCH, x.shape[0], lmax + 1)
-        bound_ms, bound_by = sht_bound(name, *dims, lmax, torch.complex64)
+        want_k = want_k if isinstance(want_k, tuple) else (want_k,)
+        rows, base = {}, None
+        for nb in wigner.GROUP_SIZES[name]:
+            got, ms = best_ms(lambda: kernel(*args, x, lch, lsh, lmax, *extra,
+                                             nb=nb))
+            got = got if isinstance(got, tuple) else (got,)
+            if base is None:
+                errs = [compare(g, p, *TOL[torch.complex64],
+                                what=f"{name} DICES batch")
+                        for g, p in zip(got, want_k)]
+                base = got
+            else:
+                check(same_bits(got, base), f"{name} nb={nb} is not nb=1 "
+                      "bit for bit at the DICES batch")
+            bound_ms, bound_by = sht_bound(name, *dims, lmax, torch.complex64,
+                                           nb=nb)
+            rows[nb] = dict(ms=ms, bound_ms=bound_ms, bound_by=bound_by)
+            del got
         report[name] = dict(max_abs_err=max(e[0] for e in errs),
-                            rel=max(e[1] for e in errs), ms=ms,
-                            plain_ms=plain_ms, bound_ms=bound_ms,
-                            bound_by=bound_by)
-        del got, want_k
+                            rel=max(e[1] for e in errs), plain_ms=plain_ms,
+                            by_nb=rows, **rows[1])
+        del want_k, base
 
     stage_txt = ", ".join(f"{k} {v:.2f} s" for k, v in secs.items())
     kern_txt = "; ".join(
-        f"{n} at batch {DICES_BATCH}: kernel {r['ms']:.2f} ms, plain "
-        f"{r['plain_ms']:.1f} ms, bound {r['bound_ms']:.2f} ms "
-        f"({r['bound_by']}), max|d| {r['max_abs_err']:.2e} "
-        f"({r['rel']:.1e} of max)" for n, r in report.items())
+        f"{n} at batch {DICES_BATCH}: plain {r['plain_ms']:.1f} ms, nb=1 "
+        f"max|d| {r['max_abs_err']:.2e} ({r['rel']:.1e} of max), every nb "
+        f"bit for bit nb=1; " + ", ".join(
+            f"nb={nb} {row['ms']:.2f} ms (bound {row['bound_ms']:.2f} ms, "
+            f"{row['bound_by']})" for nb, row in r["by_nb"].items())
+        for n, r in report.items())
     print(f"phase 9 DICES n{nside} l{lmax} f32, {njk} regions in batches of "
           f"{DICES_BATCH}, device mode (alm cache {need / 1e9:.2f} GB <= "
           f"budget {budget / 2**30:.0f} GiB, so dir=None keeps it on the "
           f"card): {stage_txt}; setup {setup:.1f} s; launches {dict(launches)} "
-          f"(k = 0 and {nbatch} batches), none in the spectra stage, no plain "
-          f"run; peak {peak / 2**30:.2f} GiB; spectra stage split: one batch "
-          f"of {nsample} samples' grids and Results {t_grids:.2f} s, one "
+          f"(k = 0 and {nbatch} batches; by (kernel, nb) {by_nb}), none in "
+          f"the spectra stage, no plain run; peak {peak / 2**30:.2f} GiB; "
+          f"spectra stage split: one batch of {nsample} samples' grids and "
+          f"Results {t_grids:.2f} s, one "
           f"jackknife_fsky on the host {t_fsky * 1e3:.0f} ms (2 a sample), "
           f"one _n_regions {t_unique:.2f} s (1 a call); {len(cls1)} finite delete-1 "
           f"samples, {len(cov)} covariance blocks, POS auto against np.cov "
@@ -1221,7 +1300,7 @@ def phase9(dev, smi):
           f"delete-2: {len(cls8_2)} samples, diagonal correction; shrinkage "
           f"factor {lam:.4f}, variances kept to {shrink_err:.1e}; {kern_txt}; "
           f"card {smi} ({time.perf_counter() - t:.1f} s)", flush=True)
-    return alms8
+    return alms8, report, by_nb
 
 
 def point_bound(name, npts, lmax, cdtype):
@@ -2209,6 +2288,99 @@ def phase13(dev, smi, p3, b1_ms):
     print(f"phase 13 card {smi} ({time.perf_counter() - t:.1f} s)", flush=True)
 
 
+# phase 14: the grouped analyses at full width (stacks of the reference's
+# limits at lmax 3000, pallas_sht.py:3081-3090: 4 spin-0 maps, 2 spin
+# pairs), and float64 and comp at every nb at a small shape: 600 rings (a
+# tile of 512 and a ragged one), orders 7..46, a batch of 8
+GROUP_STACK = {"analysis_spin0_folded": 4, "analysis_pair_folded": 2}
+GROUP_SMALL = dict(nside=300, lmax=200, nm=40, m0=7, batch=8)
+
+
+def phase14(dev, smi):
+    """The analyses on groups of maps at full width: each nb that divides
+    the stack bit for bit its nb = 1, timed (best of 3) beside its bound;
+    the automatic group named.  Then float64 and comp at every nb at a
+    small shape, bit for bit their nb = 1.  Returns the full-width times
+    by (kernel, nb)."""
+    from heracles_tpu_torch.ops import sht, sht_kernels, wigner
+
+    t = time.perf_counter()
+    x, lch, lsh = sht._geometry(NSIDE, dev)
+    nhalf, nm = x.shape[0], LMAX + 1
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(14)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, parts = {}, []
+    for name, B in GROUP_STACK.items():
+        pair = name == "analysis_pair_folded"
+        F = [torch.randn((B, nhalf, nm), generator=gen, device=dev,
+                         dtype=torch.complex64)
+             for _ in range(4 if pair else 2)]
+        extra = (2,) if pair else ()
+        kernel = getattr(sht_kernels, name)
+        auto = sht_kernels.pick_nb(B, LMAX, name)
+        base, row = None, []
+        for nb in (n for n in wigner.GROUP_SIZES[name] if B % n == 0):
+            got, ms = best_ms(lambda: kernel(*F, x, lch, lsh, LMAX, *extra,
+                                             nb=nb))
+            got = got if isinstance(got, tuple) else (got,)
+            check(all(bool(torch.isfinite(g).all()) for g in got),
+                  f"{name} nb={nb} at full width: not finite")
+            if base is None:
+                base = got
+            else:
+                check(same_bits(got, base), f"{name} nb={nb} at full width "
+                      "is not nb=1 bit for bit")
+            del got
+            bound_ms, bound_by = sht_bound(name, B, nhalf, nm, LMAX,
+                                           torch.complex64, nb=nb)
+            times[name, nb] = ms
+            row.append(f"nb={nb}{' (auto)' if nb == auto else ''} {ms:.2f} "
+                       f"ms, bound {bound_ms:.2f} ms ({bound_by})")
+        parts.append(f"{name} on {B} maps: " + ", ".join(row))
+        del F, base
+    peak = torch.cuda.max_memory_allocated()
+
+    c = GROUP_SMALL
+    z = torch.as_tensor(ring_geometry_z(c["nside"]))
+    x_lo = (z - z.float().double()).float()
+    geom = ring_tensors(c["nside"], dev)
+    small = []
+    for name in DICES_KERNELS:
+        pair = name == "analysis_pair_folded"
+        kernel = getattr(sht_kernels, name)
+        for mode in ("f64", "comp"):
+            cdtype = torch.complex128 if mode == "f64" else torch.complex64
+            F = [torch.randn((c["batch"], 2 * c["nside"], c["nm"]),
+                             generator=gen, device=dev, dtype=cdtype)
+                 for _ in range(4 if pair else 2)]
+            kw = dict(m0=c["m0"])
+            if mode == "comp":
+                kw.update(dd="comp", x_lo=x_lo)
+            args = (*F, *geom, c["lmax"], *((2,) if pair else ()))
+            base = None
+            for nb in wigner.GROUP_SIZES[name]:
+                got = kernel(*args, nb=nb, **kw)
+                got = got if isinstance(got, tuple) else (got,)
+                if base is None:
+                    base = got
+                else:
+                    check(same_bits(got, base), f"{name} {mode} nb={nb} is "
+                          "not nb=1 bit for bit")
+            sizes = ",".join(map(str, wigner.GROUP_SIZES[name]))
+            small.append(f"{name} {mode} nb={sizes}")
+    torch.cuda.synchronize()
+    print(f"phase 14 groups of maps at n{NSIDE} l{LMAX} f32, each bit for "
+          f"bit nb=1: {'; '.join(parts)}; peak {peak / 2**30:.2f} GiB above "
+          f"what earlier phases hold; "
+          f"bit for bit nb=1 at nside {c['nside']} l{c['lmax']} orders "
+          f"{c['m0']}..{c['m0'] + c['nm'] - 1} batch {c['batch']}: "
+          f"{'; '.join(small)}; card {smi} "
+          f"({time.perf_counter() - t:.1f} s)", flush=True)
+    return times
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch sees no CUDA device; this script "
@@ -2253,6 +2425,11 @@ def main():
         f"{kl.blocks_per_sm(kernel, False, comp=True)} (comp)"
         for kernel in ("analysis_spin0", "analysis_pair", "synthesis_spin0",
                        "synthesis_pair"))
+    blocks += "; groups of nb maps (f32, f64, comp): " + "; ".join(
+        f"{name.rsplit('_', 1)[0]} nb{nb} " + "/".join(
+            str(kl.blocks_per_sm(name.rsplit("_", 1)[0], d, comp=c, nb=nb))
+            for d, c in ((False, False), (True, False), (False, True)))
+        for name in DICES_KERNELS for nb in wigner.GROUP_SIZES[name][1:])
     # an existing build has no compiler log to read
     ptxas = ptxas_summary(kl.log) if kl.seconds else "ptxas: no log, built before"
     rows = ptxas.split("; ")
@@ -2262,9 +2439,18 @@ def main():
     check(not kl.seconds or (len(synth0) == 3 and all(
         row.endswith(", 0 B stack, 0 B spill") for row in synth0)),
           f"the spin-0 synthesis spills, or an instantiation is missing: {synth0}")
-    comp_rows = [row for row in rows if "/comp" in row]
+    comp_rows = [row for row in rows if "/comp" in row
+                 and not row.startswith("group/")]
     check(not kl.seconds or len(comp_rows) == 7,
           f"a comp instantiation is missing: {comp_rows}")
+    # every grouped instantiation (f32, f64, comp at each nb > 1), none
+    # spilling
+    group_rows = [row for row in rows if row.startswith("group/")]
+    n_groups = 3 * sum(len(wigner.GROUP_SIZES[n]) - 1 for n in DICES_KERNELS)
+    check(not kl.seconds or (len(group_rows) == n_groups and all(
+        row.endswith(", 0 B spill") for row in group_rows)),
+          f"a grouped analysis spills, or an instantiation is missing: "
+          f"{group_rows}")
     print(f"phase 1 build: nvcc {kl.seconds:.1f} s -> {kl.path.name}; "
           f"{ptxas}; gram DMMA instructions {dmma}; spread SASS (shared "
           f"atomics, compare-and-swap, global reductions) {spread_txt}; blocks "
@@ -2516,7 +2702,7 @@ def main():
     del maps, alms, cls, mms, inv, mixed, pos_alms, page
 
     # -- phase 9: DICES, its own path --------------------------------------
-    dices_alms = phase9(dev, smi)
+    dices_alms, dices_report, dices_by_nb = phase9(dev, smi)
 
     # -- phase 10: pixel-free alms, its own path ---------------------------
     report["spread"], discrete_launches, discrete = phase10(dev, smi)
@@ -2535,6 +2721,9 @@ def main():
     # transform ----------------------------------------------------------
     phase13(dev, smi, p3, report["analysis_spin0_folded"]["ms"])
     del p3
+
+    # -- phase 14: the analyses' groups of maps at full width -------------
+    phase14(dev, smi)
 
     def mean(key):
         return float(np.mean([c[key] for c in contractions.values()]))
@@ -2565,6 +2754,18 @@ def main():
         }
         for name, (source, replaces) in KERNELS.items()
     ]
+    # the grouped launches of the DICES path (phase 9), timed at its batch
+    for (name, nb), n in sorted(dices_by_nb.items()):
+        if nb == 1:
+            continue
+        source, replaces = KERNELS[name]
+        r = dices_report[name]
+        kernels.append({
+            "name": f"{name}_nb{nb}", "route": "cuda", "source": source,
+            "replaces": replaces, "launches": n,
+            "max_abs_err": r["max_abs_err"], "ms": r["by_nb"][nb]["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["by_nb"][nb]["bound_ms"],
+            "bound_by": r["by_nb"][nb]["bound_by"], "library_ms": None})
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} never launched on its path")
     print(json.dumps({"kernels": kernels}))

@@ -65,13 +65,25 @@
 //     x_hi and one lo stream (wigner::step_lo) beside d, shares d's
 //     rescales and paths, and emits d + lo.  It costs 7 operations a
 //     triple more (the lo step's 6 and the emit's add) and 3 registers a
-//     ring; kComp = false compiles to the plain kernel.
+//     ring; kComp = false compiles to the plain kernel;
+//   * a batch runs in groups of NB = 1, 2, 4 or 8 maps, the twin of the
+//     reference's nb program (_kernel's nb, pallas_sht.py:714): NB = 1 is
+//     the kernel above, one block per (order, map); NB > 1 is
+//     analysis_group_kernel, one block per (order, group), which runs the
+//     recurrence once for the group (5 of a map-triple's 9 operations)
+//     and contracts it against each map's spectra from a shared-memory
+//     copy of the ring tile (its comment below says why every output is
+//     the NB = 1 kernel's, bit for bit).  Its shared memory, the tile's
+//     spectra and the warps' sums of a section for NB maps, is 12 KB a
+//     map in float32, 24 KB in float64, and sets its blocks per SM.
 //
 // C interface (loaded with ctypes): heracles_analysis_spin0_{f32,f64} and
-// heracles_analysis_spin0_comp_f32 (with the rings' r after x) launch on
-// the given stream and return cudaGetLastError();
-// heracles_analysis_spin0_blocks_per_sm gives the resident blocks per SM
-// (the shared memory does not depend on lmax);
+// heracles_analysis_spin0_comp_f32 (with the rings' r after x) launch the
+// batch in groups of nb maps (1, 2, 4 or 8, dividing the batch, else
+// cudaErrorInvalidValue) on the given stream and return
+// cudaGetLastError(); heracles_analysis_spin0_blocks_per_sm gives the
+// resident blocks per SM of a variant and nb (the shared memory does not
+// depend on lmax);
 // heracles_analysis_spin0_{,comp_}paths_f32 are diagnostic launches that
 // also count the warps' sub-chunks on each path (steady, dead, full).
 // Every launch takes the block of orders m0..m0+nm-1 into its columns
@@ -103,6 +115,7 @@ using sht_paths::madd;
 using sht_paths::Path;
 using sht_paths::PathCounts;
 using sht_paths::rescale_deferred;
+using warp_reduce::reduce_pairs;
 using warp_reduce::reduce_scatter;
 using wigner::advance;
 using wigner::advance_comp;
@@ -156,12 +169,40 @@ struct Ring {
   T r, dpl, dcl;  // comp only: x_lo / x_hi; the lo stream's l-1, l
 };
 
-// kSub multipoles of a chunk, from its multipole kOff on.
-template <typename T, Path P, int kOff, bool kComp>
-__device__ __forceinline__ void spin0_sub(const T* __restrict__ cf,
-                                          Ring<T> (&rs)[kRings], T (&acc)[V]) {
+// The NB = 1 kernel's use of each emitted value: its 2 FMAs into the
+// chunk's sums, at the chunk's multipole kOff + t.
+template <typename T, int kOff>
+struct Contract {
+  const Ring<T> (&rs)[kRings];
+  T (&acc)[V];
+  __device__ __forceinline__ void operator()(int t, int r, T lam) const {
+    const int u = kOff + t;
+    // chunks start at j0's parity
+    const T fre = (u & 1) ? rs[r].fb[0] : rs[r].fa[0];
+    const T fim = (u & 1) ? rs[r].fb[1] : rs[r].fa[1];
+    acc[2 * u] = madd(lam, fre, acc[2 * u]);
+    acc[2 * u + 1] = madd(lam, fim, acc[2 * u + 1]);
+  }
+};
+
+// The grouped kernel's: keep it for the group's maps.
+template <typename T>
+struct Keep {
+  T (&lam)[kSub][kRings];
+  __device__ __forceinline__ void operator()(int t, int r, T v) const {
+    lam[t][r] = v;
+  }
+};
+
+// kSub steps of the recurrence of the thread's rings from the coefficient
+// row cf on; on a path that emits, emit(t, r, value) takes step t's value
+// of ring r before the step.
+template <typename T, Path P, bool kComp, typename Emit>
+__device__ __forceinline__ void spin0_steps(const T* __restrict__ cf,
+                                            Ring<T> (&rs)[kRings],
+                                            const Emit& emit) {
 #pragma unroll
-  for (int t = kOff; t < kOff + kSub; ++t) {
+  for (int t = 0; t < kSub; ++t) {
     T a1, a0, bb;
     load_row(cf + 4 * t, a1, a0, bb);
 #pragma unroll
@@ -169,12 +210,7 @@ __device__ __forceinline__ void spin0_sub(const T* __restrict__ cf,
       Ring<T>& q = rs[r];
       if (P != Path::kDead) {
         const T d = kComp ? Arith<T>::add(q.dc, q.dcl) : q.dc;
-        const T lam = P == Path::kSteady ? d : d * emit_scaled<T>(q.k);
-        // chunks start at j0's parity
-        const T fre = (t & 1) ? q.fb[0] : q.fa[0];
-        const T fim = (t & 1) ? q.fb[1] : q.fa[1];
-        acc[2 * t] = madd(lam, fre, acc[2 * t]);
-        acc[2 * t + 1] = madd(lam, fim, acc[2 * t + 1]);
+        emit(t, r, P == Path::kSteady ? d : d * emit_scaled<T>(q.k));
       }
       const T a1x = Arith<T>::mul(a1, q.x);
       const T dn = step<T>(a1x, a0, bb, q.dc, q.dp);
@@ -208,26 +244,50 @@ __device__ __forceinline__ void spin0_sub(const T* __restrict__ cf,
   }
 }
 
-template <typename T, int kOff, bool kCount, bool kComp>
-__device__ __forceinline__ void spin0_sub_any(const T* __restrict__ cf,
-                                              Ring<T> (&rs)[kRings],
-                                              T (&acc)[V],
-                                              PathCounts<kCount>& tally) {
+// The warp's path for its next sub-chunk (sht_paths.cuh).
+template <typename T>
+__device__ __forceinline__ Path sub_path(const Ring<T> (&rs)[kRings]) {
   bool steady = true, dead = true;
 #pragma unroll
   for (int r = 0; r < kRings; ++r) {
     steady = steady && sht_paths::is_steady(rs[r].k);
     dead = dead && sht_paths::is_dead(rs[r].k);
   }
-  const Path path = sht_paths::warp_path(steady, dead);
-  tally.add(path);
+  return sht_paths::warp_path(steady, dead);
+}
+
+// kSub steps on the warp's path, emit taking the values.
+template <typename T, bool kComp, typename Emit>
+__device__ __forceinline__ void spin0_sub_on(Path path, const T* __restrict__ cf,
+                                             Ring<T> (&rs)[kRings],
+                                             const Emit& emit) {
   if (path == Path::kSteady) {
-    spin0_sub<T, Path::kSteady, kOff, kComp>(cf, rs, acc);
+    spin0_steps<T, Path::kSteady, kComp>(cf, rs, emit);
   } else if (path == Path::kDead) {
-    spin0_sub<T, Path::kDead, kOff, kComp>(cf, rs, acc);
+    spin0_steps<T, Path::kDead, kComp>(cf, rs, emit);
   } else {
-    spin0_sub<T, Path::kFull, kOff, kComp>(cf, rs, acc);
+    spin0_steps<T, Path::kFull, kComp>(cf, rs, emit);
   }
+}
+
+// Whether any ring of the warp emits from here on: k never decreases, so
+// a warp whose every exponent is still below -1 emitted only zeros.
+template <typename T>
+__device__ __forceinline__ bool warp_live(const Ring<T> (&rs)[kRings]) {
+  bool live = false;
+#pragma unroll
+  for (int r = 0; r < kRings; ++r) live = live || rs[r].k >= -1;
+  return __any_sync(0xffffffffu, live);
+}
+
+template <typename T, int kOff, bool kCount, bool kComp>
+__device__ __forceinline__ void spin0_sub_any(const T* __restrict__ cf,
+                                              Ring<T> (&rs)[kRings],
+                                              T (&acc)[V],
+                                              PathCounts<kCount>& tally) {
+  const Path path = sub_path(rs);
+  tally.add(path);
+  spin0_sub_on<T, kComp>(path, cf + 4 * kOff, rs, Contract<T, kOff>{rs, acc});
 }
 
 // xr: the rings' r = x_lo / x_hi, read only by the comp instantiation.
@@ -336,13 +396,9 @@ __global__ void __launch_bounds__(kThreads)
         spin0_sub_any<T, 0, kCount, kComp>(cf, rings, acc, tally);
         spin0_sub_any<T, kSub, kCount, kComp>(cf, rings, acc, tally);
 
-        // k never decreases: a warp whose every exponent is still below -1
-        // emitted only zeros in this chunk and skips its reduction
-        bool live = false;
-#pragma unroll
-        for (int r = 0; r < kRings; ++r) live = live || rings[r].k >= -1;
+        // a warp that emitted only zeros in this chunk skips its reduction
         T sum = T(0);
-        if (__any_sync(0xffffffffu, live)) {
+        if (warp_live(rings)) {
           reduce_scatter<T, V>(acc, lane);
           sum = acc[0];
         }
@@ -367,6 +423,202 @@ __global__ void __launch_bounds__(kThreads)
   tally.flush(counts, lane);
 }
 
+// A quad (re, im of F at j0's parity, re, im at the other) of a ring's
+// spectra in the grouped kernel's shared tile.
+__device__ __forceinline__ void load4(const float* p, float (&f)[4]) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  f[0] = v.x;
+  f[1] = v.y;
+  f[2] = v.z;
+  f[3] = v.w;
+}
+__device__ __forceinline__ void load4(const double* p, double (&f)[4]) {
+  load2(p, f[0], f[1]);
+  load2(p + 2, f[2], f[3]);
+}
+__device__ __forceinline__ void store4(float* p, const float (&f)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(f[0], f[1], f[2], f[3]);
+}
+__device__ __forceinline__ void store4(double* p, const double (&f)[4]) {
+  store2(p, f[0], f[1]);
+  store2(p + 2, f[2], f[3]);
+}
+
+// Dynamic shared memory of the grouped kernel: the tile's spectra of the
+// NB maps, fs[NB][kRings][kThreads][4], and the warps' sums of a section,
+// part[kWarps][NB][kRows * NC].
+template <typename T, int NB>
+constexpr size_t group_smem() {
+  return sizeof(T) * NB * (kRings * kThreads * 4 + kWarps * kRows * NC);
+}
+
+// The grouped kernel (NB > 1), the twin of the reference's nb program:
+// one block per (order, group of NB maps) runs the recurrence of its rings
+// once and contracts it against all NB maps' spectra.  Per sub-chunk of
+// kSub multipoles a thread keeps the kSub x kRings emitted values
+// (Keep), then, map by map, reads that map's quads of its rings from the
+// shared tile (each thread reads only what it wrote, so the tile needs no
+// barrier), runs the same FMAs in the same order into the sub-chunk's 16
+// sums and reduces them across the warp (reduce_pairs: the pairs of lanes
+// and the order of stages of reduce_scatter, so each sum is the same
+// number).  The warps' sums meet in part[] once per section as in the
+// NB = 1 kernel, summed in the same order and flushed the same way; part[]
+// has one buffer (NB copies of two would not leave room for a second
+// block), so a second barrier closes the flush.  Every output is
+// therefore the NB = 1 kernel's, bit for bit.  The path of a sub-chunk is
+// a property of the rings, so one decision serves the group, and a dead
+// sub-chunk costs nothing per map.  A sub-chunk that emitted only zeros
+// writes zeros, the sum its reduction would give.
+template <typename T, bool kComp, int NB>
+__global__ void __launch_bounds__(kThreads)
+    analysis_group_kernel(const T* __restrict__ f0, const T* __restrict__ f1,
+                          const T* __restrict__ x, const T* __restrict__ xr,
+                          const double* __restrict__ logch,
+                          const double* __restrict__ logsh,
+                          const double* __restrict__ seed, T* __restrict__ out,
+                          int nhalf, int nm, int lmax, int m0) {
+  static_assert(NB > 1 && kRows % kSub == 0 && 2 * kSub == 16,
+                "a group of maps; sub-chunks tile the section; 16 sums of a "
+                "sub-chunk per map");
+  static_assert(!kComp || sizeof(T) == 4, "comp is a float32 mode");
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* const fs = reinterpret_cast<T*>(smem);
+  T* const part = fs + NB * kRings * kThreads * 4;
+  __shared__ __align__(16) T tab[2][kRows][4];  // a1, a0, b, (pad)
+
+  const int mc = blockIdx.x;  // the column: this order's place in the block
+  const int m = m0 + mc;      // the order
+  const int g0 = blockIdx.y * NB;  // the group's first map
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int s = 0;
+  const int j0 = m;
+  const int ntiles = (nhalf + kTile - 1) / kTile;
+  // output (g0 + j, l, m) at col + j plane + l rs, (re, im) adjacent
+  const size_t plane = size_t(lmax + 1) * nm * 2;
+  const size_t col = size_t(g0) * plane + size_t(mc) * 2;
+  const size_t rs = size_t(nm) * 2;
+
+  const int lz = (j0 <= lmax && ntiles > 0) ? j0 : lmax + 1;
+  for (int l = tid; l < lz; l += kThreads) {
+    for (int j = 0; j < NB; ++j) store2(out + col + j * plane + l * rs, T(0), T(0));
+  }
+  if (lz > lmax) return;
+
+  const int n = lmax - j0 + 1;
+  const int nsec = (n + kRows - 1) / kRows;
+
+  coef_row<T>(j0 + tid + 1, j0, m, s, lmax, &tab[0][tid][0], &tab[0][tid][1],
+              &tab[0][tid][2]);
+  __syncthreads();
+
+  int q = 0;  // running section count: selects the table buffer
+  for (int tile = 0; tile < ntiles; ++tile) {
+    // what only a tile's start reads is read there again, to keep it out
+    // of the registers of the sections
+    const T inv = Arith<T>::inv_scale();
+    const T* const fe = (j0 & 1) ? f1 : f0;  // F of j0's parity
+    const T* const fo = (j0 & 1) ? f0 : f1;
+    Ring<T> rings[kRings];
+#pragma unroll
+    for (int r = 0; r < kRings; ++r) {
+      Ring<T>& p = rings[r];
+      const int ring = tile * kTile + (warp * kRings + r) * 32 + lane;
+      p.dp = T(0);
+      if (kComp) p.dpl = p.dcl = p.r = T(0);
+      T f[4] = {T(0), T(0), T(0), T(0)};
+      if (ring < nhalf) {
+        const double lch = logch[ring], lsh = logsh[ring];
+        p.x = x[ring];
+        if (kComp) p.r = xr[ring];
+        // seed exponents of cos(t/2) and sin(t/2): both m
+        seed_of<T>(seed[mc], seed[nm + mc], double(m), double(m), lch, lsh,
+                   p.dc, p.k);
+      } else {
+        p.x = T(0);
+        p.dc = T(0);
+        p.k = kNoSeed;
+      }
+      for (int j = 0; j < NB; ++j) {
+        if (ring < nhalf) {
+          const size_t off = ((size_t(g0 + j) * nhalf + ring) * nm + mc) * 2;
+          load2(fe + off, f[0], f[1]);
+          load2(fo + off, f[2], f[3]);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) f[c] *= inv;
+        }
+        store4(fs + ((j * kRings + r) * kThreads + tid) * 4, f);
+      }
+    }
+
+    for (int sec = 0; sec < nsec; ++sec, ++q) {
+      const int tb = q & 1;
+      const int sn = (sec + 1 < nsec) ? sec + 1 : 0;
+      coef_row<T>(j0 + sn * kRows + tid + 1, j0, m, s, lmax,
+                  &tab[tb ^ 1][tid][0], &tab[tb ^ 1][tid][1],
+                  &tab[tb ^ 1][tid][2]);
+
+      const int nsub = (min(kRows, n - sec * kRows) + kSub - 1) / kSub;
+      for (int u = 0; u < nsub; ++u) {
+        T lam[kSub][kRings];
+        const Path path = sub_path(rings);
+        spin0_sub_on<T, kComp>(path, &tab[tb][u * kSub][0], rings,
+                               Keep<T>{lam});
+        const bool emitted = path != Path::kDead && warp_live(rings);
+#pragma unroll 1
+        for (int j = 0; j < NB; ++j) {
+          T sum = T(0);
+          if (emitted) {
+            T acc[2 * kSub];
+#pragma unroll
+            for (int i = 0; i < 2 * kSub; ++i) acc[i] = T(0);
+#pragma unroll
+            for (int r = 0; r < kRings; ++r) {
+              T f[4];
+              load4(fs + ((j * kRings + r) * kThreads + tid) * 4, f);
+#pragma unroll
+              for (int t = 0; t < kSub; ++t) {
+                // sub-chunks start at j0's parity
+                acc[2 * t] = madd(lam[t][r], f[(t & 1) * 2], acc[2 * t]);
+                acc[2 * t + 1] =
+                    madd(lam[t][r], f[(t & 1) * 2 + 1], acc[2 * t + 1]);
+              }
+            }
+            reduce_pairs(acc, lane);
+            sum = acc[0];
+          }
+          // lanes 2i and 2i + 1 hold value i: row i / 2, component i % 2
+          if ((lane & 1) == 0) {
+            part[(warp * NB + j) * (kRows * NC) + u * 2 * kSub + (lane >> 1)] =
+                sum;
+          }
+        }
+      }
+      __syncthreads();
+      const int lf = j0 + sec * kRows + tid;
+      if (lf <= lmax) {
+        const T norm = norm_of<T>(lf);
+        for (int j = 0; j < NB; ++j) {
+          T* const fo_row = out + col + j * plane + lf * rs;
+          T prev[2] = {T(0), T(0)};
+          if (tile > 0) load2(fo_row, prev[0], prev[1]);
+          T re = T(0), im = T(0);
+#pragma unroll
+          for (int w = 0; w < kWarps; ++w) {
+            T pr, pi;
+            load2(&part[(w * NB + j) * (kRows * NC) + NC * tid], pr, pi);
+            re += pr;
+            im += pi;
+          }
+          store2(fo_row, prev[0] + re * norm, prev[1] + im * norm);
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
 template <typename T, bool kComp, bool kCount>
 int launch(const void* f0, const void* f1, const void* x, const void* xr,
            const void* logch, const void* logsh, const void* seed, void* out,
@@ -384,6 +636,89 @@ int launch(const void* f0, const void* f1, const void* x, const void* xr,
   return int(cudaGetLastError());
 }
 
+// Lets the grouped kernel take its shared memory, and returns it.
+template <typename T, bool kComp, int NB>
+cudaError_t group_smem_attr(size_t* smem) {
+  *smem = group_smem<T, NB>();
+  return cudaFuncSetAttribute(analysis_group_kernel<T, kComp, NB>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              int(*smem));
+}
+
+template <typename T, bool kComp, int NB>
+int launch_group(const void* f0, const void* f1, const void* x,
+                 const void* xr, const void* logch, const void* logsh,
+                 const void* seed, void* out, int batch, int nhalf, int nm,
+                 int lmax, int m0, void* stream) {
+  if (batch == 0 || nm == 0) return int(cudaSuccess);
+  size_t smem = 0;
+  const cudaError_t err = group_smem_attr<T, kComp, NB>(&smem);
+  if (err != cudaSuccess) return int(err);
+  analysis_group_kernel<T, kComp, NB>
+      <<<dim3(nm, batch / NB), kThreads, smem,
+         static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const T*>(f0), static_cast<const T*>(f1),
+          static_cast<const T*>(x), static_cast<const T*>(xr),
+          static_cast<const double*>(logch),
+          static_cast<const double*>(logsh), static_cast<const double*>(seed),
+          static_cast<T*>(out), nhalf, nm, lmax, m0);
+  return int(cudaGetLastError());
+}
+
+// The launch of groups of nb maps: nb = 1 is the kernel above, 2, 4 and 8
+// the grouped kernel; any other nb, or one that does not divide the batch,
+// is refused.
+template <typename T, bool kComp>
+int launch_nb(const void* f0, const void* f1, const void* x, const void* xr,
+              const void* logch, const void* logsh, const void* seed,
+              void* out, int batch, int nhalf, int nm, int lmax, int m0,
+              int nb, void* stream) {
+  if (nb < 1 || batch % nb != 0) return int(cudaErrorInvalidValue);
+  switch (nb) {
+    case 1:
+      return launch<T, kComp, false>(f0, f1, x, xr, logch, logsh, seed, out,
+                                     batch, nhalf, nm, lmax, m0, nullptr,
+                                     stream);
+    case 2:
+      return launch_group<T, kComp, 2>(f0, f1, x, xr, logch, logsh, seed, out,
+                                       batch, nhalf, nm, lmax, m0, stream);
+    case 4:
+      return launch_group<T, kComp, 4>(f0, f1, x, xr, logch, logsh, seed, out,
+                                       batch, nhalf, nm, lmax, m0, stream);
+    case 8:
+      return launch_group<T, kComp, 8>(f0, f1, x, xr, logch, logsh, seed, out,
+                                       batch, nhalf, nm, lmax, m0, stream);
+    default:
+      return int(cudaErrorInvalidValue);
+  }
+}
+
+template <typename T, bool kComp, int NB>
+int group_blocks(int* n) {
+  size_t smem = 0;
+  const cudaError_t err = group_smem_attr<T, kComp, NB>(&smem);
+  if (err != cudaSuccess) return int(err);
+  return int(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      n, analysis_group_kernel<T, kComp, NB>, kThreads, smem));
+}
+
+template <typename T, bool kComp>
+int blocks_nb(int nb, int* n) {
+  switch (nb) {
+    case 1:
+      return int(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          n, analysis_kernel<T, kComp, false>, kThreads, 0));
+    case 2:
+      return group_blocks<T, kComp, 2>(n);
+    case 4:
+      return group_blocks<T, kComp, 4>(n);
+    case 8:
+      return group_blocks<T, kComp, 8>(n);
+    default:
+      return int(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -391,21 +726,19 @@ extern "C" {
 int heracles_analysis_spin0_f32(const void* fe, const void* fo, const void* x,
                                 const void* logch, const void* logsh,
                                 const void* seed, void* out, int batch,
-                                int nhalf, int nm, int lmax, int m0,
+                                int nhalf, int nm, int lmax, int m0, int nb,
                                 void* stream) {
-  return launch<float, false, false>(fe, fo, x, nullptr, logch, logsh, seed,
-                                     out, batch, nhalf, nm, lmax, m0, nullptr,
-                                     stream);
+  return launch_nb<float, false>(fe, fo, x, nullptr, logch, logsh, seed, out,
+                                 batch, nhalf, nm, lmax, m0, nb, stream);
 }
 
 int heracles_analysis_spin0_f64(const void* fe, const void* fo, const void* x,
                                 const void* logch, const void* logsh,
                                 const void* seed, void* out, int batch,
-                                int nhalf, int nm, int lmax, int m0,
+                                int nhalf, int nm, int lmax, int m0, int nb,
                                 void* stream) {
-  return launch<double, false, false>(fe, fo, x, nullptr, logch, logsh, seed,
-                                      out, batch, nhalf, nm, lmax, m0, nullptr,
-                                      stream);
+  return launch_nb<double, false>(fe, fo, x, nullptr, logch, logsh, seed, out,
+                                  batch, nhalf, nm, lmax, m0, nb, stream);
 }
 
 // The compensated float32 launch: xr holds each ring's r = x_lo / x_hi.
@@ -414,10 +747,9 @@ int heracles_analysis_spin0_comp_f32(const void* fe, const void* fo,
                                      const void* logch, const void* logsh,
                                      const void* seed, void* out, int batch,
                                      int nhalf, int nm, int lmax, int m0,
-                                     void* stream) {
-  return launch<float, true, false>(fe, fo, x, xr, logch, logsh, seed, out,
-                                    batch, nhalf, nm, lmax, m0, nullptr,
-                                    stream);
+                                     int nb, void* stream) {
+  return launch_nb<float, true>(fe, fo, x, xr, logch, logsh, seed, out, batch,
+                                nhalf, nm, lmax, m0, nb, stream);
 }
 
 // The float32 launch with ``counts`` (3 x uint64, zeroed by the caller)
@@ -445,22 +777,15 @@ int heracles_analysis_spin0_comp_paths_f32(const void* fe, const void* fo,
                                    batch, nhalf, nm, lmax, m0, counts, stream);
 }
 
-// Resident blocks per SM of the spin-0 analysis (its shared memory does not
-// depend on lmax), written to *blocks; variant 0 is the float32 kernel, 1
-// the float64 one, 2 the compensated float32 one.  Returns the CUDA error
-// code.
-int heracles_analysis_spin0_blocks_per_sm(int variant, void* blocks) {
+// Resident blocks per SM of the spin-0 analysis in groups of nb maps (its
+// shared memory does not depend on lmax), written to *blocks; variant 0 is
+// the float32 kernel, 1 the float64 one, 2 the compensated float32 one.
+// Returns the CUDA error code.
+int heracles_analysis_spin0_blocks_per_sm(int variant, int nb, void* blocks) {
   int* n = static_cast<int*>(blocks);
-  if (variant == 1) {
-    return int(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        n, analysis_kernel<double, false, false>, kThreads, 0));
-  }
-  if (variant == 2) {
-    return int(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        n, analysis_kernel<float, true, false>, kThreads, 0));
-  }
-  return int(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      n, analysis_kernel<float, false, false>, kThreads, 0));
+  if (variant == 1) return blocks_nb<double, false>(nb, n);
+  if (variant == 2) return blocks_nb<float, true>(nb, n);
+  return blocks_nb<float, false>(nb, n);
 }
 
 const char* heracles_cuda_error_string(int err) {

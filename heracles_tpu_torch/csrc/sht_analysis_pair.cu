@@ -62,12 +62,23 @@
 //     x_lo / x_hi and a lo stream per column (wigner::step_lo), which
 //     shares its column's rescales and adds to it at emission.  It costs
 //     14 operations a triple more (two lo steps of 6, two emit adds) and 5
-//     registers a ring; kComp = false compiles to the plain kernel.
+//     registers a ring; kComp = false compiles to the plain kernel;
+//   * a batch runs in groups of NB = 1, 2 or 4 maps (the reference's pair
+//     limit, pallas_sht.py:1603), the twin of _pair_kernel's nb
+//     (pallas_sht.py:1051): NB = 1 is the kernel above, NB > 1
+//     pair_group_kernel, one block per (order, group), which runs both
+//     columns' recurrences once for the group (11 of a map-triple's 27
+//     operations) and contracts them against each map's spectra from a
+//     shared-memory copy of the ring tile, every output the NB = 1
+//     kernel's bit for bit.  Its shared memory is 17 KB a map in float32,
+//     34 KB in float64.
 //
 // C interface (loaded with ctypes): heracles_analysis_pair_{f32,f64} and
-// heracles_analysis_pair_comp_f32 (with the rings' r after x) launch on
-// the given stream and return cudaGetLastError();
-// heracles_analysis_pair_blocks_per_sm gives the resident blocks per SM.
+// heracles_analysis_pair_comp_f32 (with the rings' r after x) launch the
+// batch in groups of nb maps (1, 2 or 4, dividing the batch, else
+// cudaErrorInvalidValue) on the given stream and return
+// cudaGetLastError(); heracles_analysis_pair_blocks_per_sm gives the
+// resident blocks per SM of a variant and nb.
 // Every launch takes the block of orders m0..m0+nm-1 into its columns
 // 0..nm-1 (the seed planes are the block's, indexed by column), so a
 // device mesh can give each shard its own block; m0 = 0 is every order
@@ -90,6 +101,7 @@ constexpr int NC = 4;                     // (re, im) of a_p and a_m
 constexpr int LC = 8;                     // multipoles per chunk
 constexpr int V = NC * LC;                // register sums per thread
 
+using warp_reduce::reduce_pairs;
 using warp_reduce::reduce_scatter;
 using wigner::advance;
 using wigner::advance_comp;
@@ -143,12 +155,45 @@ struct PairRing {
   T r, dpl, dcl, dpml, dcml;
 };
 
-template <typename T, bool kSteady, bool kComp>
-__device__ __forceinline__ void pair_chunk(const T* __restrict__ cf,
+// The NB = 1 kernel's use of a step's values: its 8 FMAs into the chunk's
+// sums, at the chunk's multipole t.
+template <typename T>
+struct PairContract {
+  const PairRing<T> (&rs)[kRings];
+  T (&acc)[V];
+  __device__ __forceinline__ void operator()(int t, int r, T lp, T lm) const {
+    const PairRing<T>& q = rs[r];
+    // (-1)^l = (-1)^j0 (-1)^t: the (-1)^j0 is in fb and fd
+    const T lps = (t & 1) ? -lp : lp;
+    const T lms = (t & 1) ? -lm : lm;
+    const int o = NC * t;
+    acc[o] = madd(lms, q.fb[0], madd(lp, q.fa[0], acc[o]));
+    acc[o + 1] = madd(lms, q.fb[1], madd(lp, q.fa[1], acc[o + 1]));
+    acc[o + 2] = madd(lps, q.fd[0], madd(lm, q.fc[0], acc[o + 2]));
+    acc[o + 3] = madd(lps, q.fd[1], madd(lm, q.fc[1], acc[o + 3]));
+  }
+};
+
+// The grouped kernel's: keep them for the group's maps.
+template <typename T, int kSteps>
+struct PairKeep {
+  T (&lp)[kSteps][kRings];
+  T (&lm)[kSteps][kRings];
+  __device__ __forceinline__ void operator()(int t, int r, T vp, T vm) const {
+    lp[t][r] = vp;
+    lm[t][r] = vm;
+  }
+};
+
+// kSteps steps of both columns' recurrences of the thread's rings from the
+// coefficient row cf on; emit(t, r, lp, lm) takes step t's values of ring
+// r before the step.
+template <typename T, bool kSteady, bool kComp, int kSteps, typename Emit>
+__device__ __forceinline__ void pair_steps(const T* __restrict__ cf,
                                            PairRing<T> (&rs)[kRings],
-                                           T (&acc)[V]) {
+                                           const Emit& emit) {
 #pragma unroll
-  for (int t = 0; t < LC; ++t) {
+  for (int t = 0; t < kSteps; ++t) {
     T a1, a0, bb;
     load_row(cf + 4 * t, a1, a0, bb);
 #pragma unroll
@@ -156,16 +201,8 @@ __device__ __forceinline__ void pair_chunk(const T* __restrict__ cf,
       PairRing<T>& q = rs[r];
       const T dp_ = kComp ? Arith<T>::add(q.dc, q.dcl) : q.dc;
       const T dm_ = kComp ? Arith<T>::add(q.dcm, q.dcml) : q.dcm;
-      const T lp = kSteady ? dp_ : dp_ * emit_scaled<T>(q.k);
-      const T lm = kSteady ? dm_ : dm_ * emit_scaled<T>(q.km);
-      // (-1)^l = (-1)^j0 (-1)^t: the (-1)^j0 is in fb and fd
-      const T lps = (t & 1) ? -lp : lp;
-      const T lms = (t & 1) ? -lm : lm;
-      const int o = NC * t;
-      acc[o] = madd(lms, q.fb[0], madd(lp, q.fa[0], acc[o]));
-      acc[o + 1] = madd(lms, q.fb[1], madd(lp, q.fa[1], acc[o + 1]));
-      acc[o + 2] = madd(lps, q.fd[0], madd(lm, q.fc[0], acc[o + 2]));
-      acc[o + 3] = madd(lps, q.fd[1], madd(lm, q.fc[1], acc[o + 3]));
+      emit(t, r, kSteady ? dp_ : dp_ * emit_scaled<T>(q.k),
+           kSteady ? dm_ : dm_ * emit_scaled<T>(q.km));
       // the -s column's a0 is minus the +s column's
       const T a1x = Arith<T>::mul(a1, q.x);
       const T dnp = step<T>(a1x, a0, bb, q.dc, q.dp);
@@ -197,6 +234,29 @@ __device__ __forceinline__ void pair_chunk(const T* __restrict__ cf,
       }
     }
   }
+}
+
+// Whether the warp's rings all sit at k = -1 for both columns.
+template <typename T>
+__device__ __forceinline__ bool warp_steady(const PairRing<T> (&rs)[kRings]) {
+  bool steady = true;
+#pragma unroll
+  for (int r = 0; r < kRings; ++r) {
+    steady = steady && rs[r].k == -1 && rs[r].km == -1;
+  }
+  return __all_sync(0xffffffffu, steady);
+}
+
+// Whether any ring of the warp emits from here on: k never decreases, so
+// a warp whose every exponent is still below -1 emitted only zeros.
+template <typename T>
+__device__ __forceinline__ bool warp_live(const PairRing<T> (&rs)[kRings]) {
+  bool live = false;
+#pragma unroll
+  for (int r = 0; r < kRings; ++r) {
+    live = live || rs[r].k >= -1 || rs[r].km >= -1;
+  }
+  return __any_sync(0xffffffffu, live);
 }
 
 // xr: the rings' r = x_lo / x_hi, read only by the comp instantiation.
@@ -312,26 +372,17 @@ __global__ void __launch_bounds__(kThreads)
         T acc[V];
 #pragma unroll
         for (int i = 0; i < V; ++i) acc[i] = T(0);
-        bool steady = true;
-#pragma unroll
-        for (int r = 0; r < kRings; ++r) {
-          steady = steady && rings[r].k == -1 && rings[r].km == -1;
-        }
         const T* cf = &tab[tb][c * LC][0];
-        if (__all_sync(0xffffffffu, steady)) {
-          pair_chunk<T, true, kComp>(cf, rings, acc);
+        if (warp_steady(rings)) {
+          pair_steps<T, true, kComp, LC>(cf, rings,
+                                         PairContract<T>{rings, acc});
         } else {
-          pair_chunk<T, false, kComp>(cf, rings, acc);
+          pair_steps<T, false, kComp, LC>(cf, rings,
+                                          PairContract<T>{rings, acc});
         }
 
-        // k never decreases: a warp whose every exponent is still below -1
-        // emitted only zeros in this chunk and skips its reduction
-        bool live = false;
-#pragma unroll
-        for (int r = 0; r < kRings; ++r) {
-          live = live || rings[r].k >= -1 || rings[r].km >= -1;
-        }
-        if (__any_sync(0xffffffffu, live)) {
+        // a warp that emitted only zeros in this chunk skips its reduction
+        if (warp_live(rings)) {
           reduce_scatter<T, V>(acc, lane);
           part[g & 1][warp][lane] = acc[0];
         } else {
@@ -343,6 +394,245 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
           for (int w = 0; w < kWarps; ++w) sum += part[g & 1][w][tid];
           fout[fo] = prev + sum * norm_of<T>(lf);
+        }
+      }
+    }
+  }
+}
+
+// A quad of a ring's spectra in the grouped kernel's shared tile: (FNp,
+// Sp) or (FNm, Sm), each (re, im), scaled as the NB = 1 kernel holds them.
+__device__ __forceinline__ void load4(const float* p, float (&f)[4]) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  f[0] = v.x;
+  f[1] = v.y;
+  f[2] = v.z;
+  f[3] = v.w;
+}
+__device__ __forceinline__ void load4(const double* p, double (&f)[4]) {
+  const double2 a = *reinterpret_cast<const double2*>(p);
+  const double2 b = *reinterpret_cast<const double2*>(p + 2);
+  f[0] = a.x;
+  f[1] = a.y;
+  f[2] = b.x;
+  f[3] = b.y;
+}
+__device__ __forceinline__ void store4(float* p, const float (&f)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(f[0], f[1], f[2], f[3]);
+}
+__device__ __forceinline__ void store4(double* p, const double (&f)[4]) {
+  *reinterpret_cast<double2*>(p) = make_double2(f[0], f[1]);
+  *reinterpret_cast<double2*>(p + 2) = make_double2(f[2], f[3]);
+}
+
+// Dynamic shared memory of the grouped kernel: the tile's spectra of the
+// NB maps, fs[NB][kRings][2][kThreads][4], and the warps' sums of a chunk,
+// part[2][kWarps][NB * V].
+template <typename T, int NB>
+constexpr size_t group_smem() {
+  return sizeof(T) * NB * (kRings * 2 * kThreads * 4 + 2 * kWarps * V);
+}
+
+// The grouped kernel (NB > 1), the twin of the reference's nb program:
+// one block per (order, group of NB maps) runs both columns' recurrences
+// of its rings once and contracts them against all NB maps' spectra.  Per
+// half chunk of LC / 2 multipoles a thread keeps the emitted values of
+// both columns (PairKeep, 32 values), then, map by map, reads that map's
+// two quads of each ring from the shared tile (each thread reads only
+// what it wrote), runs the same 8 FMAs in the same order into the half
+// chunk's 16 sums and reduces them across the warp (reduce_pairs, which
+// gives each sum the number reduce_scatter gives it).  The warps' sums
+// meet in part[] at the end of each chunk and are summed and flushed as
+// in the NB = 1 kernel, by NB times as many threads, so every output is
+// the NB = 1 kernel's, bit for bit.  The steady check is a property of
+// the rings and serves the whole group; a half chunk that emitted only
+// zeros writes zeros, the sum its reduction would give.
+template <typename T, bool kComp, int NB>
+__global__ void __launch_bounds__(kThreads)
+    pair_group_kernel(const T* __restrict__ fnp, const T* __restrict__ sp,
+                      const T* __restrict__ fnm, const T* __restrict__ sm,
+                      const T* __restrict__ x, const T* __restrict__ xr,
+                      const double* __restrict__ logch,
+                      const double* __restrict__ logsh,
+                      const double* __restrict__ seed, T* __restrict__ out_p,
+                      T* __restrict__ out_m, int nhalf, int nm, int lmax,
+                      int s, int m0) {
+  constexpr int kHalf = LC / 2;  // multipoles per half chunk
+  constexpr int kFlush = (NB * V + kThreads - 1) / kThreads;
+  static_assert(NB > 1 && NC * kHalf == 16,
+                "a group of maps; 16 sums of a half chunk per map");
+  static_assert(!kComp || sizeof(T) == 4, "comp is a float32 mode");
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* const fs = reinterpret_cast<T*>(smem);
+  T* const part = fs + NB * kRings * 2 * kThreads * 4;
+  __shared__ __align__(16) T tab[2][kRows][4];  // a1, a0, b, (pad)
+
+  const int mc = blockIdx.x;  // the column: this order's place in the block
+  const int m = m0 + mc;      // the order
+  const int g0 = blockIdx.y * NB;  // the group's first map
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int j0 = max(m, s);
+  const int ntiles = (nhalf + kTile - 1) / kTile;
+  // output (g0 + j, l, m) at col + j plane + l rs, (re, im) adjacent
+  const size_t plane = size_t(lmax + 1) * nm * 2;
+  const size_t col = size_t(g0) * plane + size_t(mc) * 2;
+  const size_t rs = size_t(nm) * 2;
+
+  const int lz = (j0 <= lmax && ntiles > 0) ? j0 : lmax + 1;
+  for (int l = tid; l < lz; l += kThreads) {
+    for (int j = 0; j < NB; ++j) {
+      const size_t o = col + j * plane + l * rs;
+      out_p[o] = out_p[o + 1] = out_m[o] = out_m[o + 1] = T(0);
+    }
+  }
+  if (lz > lmax) return;
+
+  const int n = lmax - j0 + 1;
+  const int nsec = (n + kRows - 1) / kRows;
+
+  coef_row<T>(j0 + tid + 1, j0, m, s, lmax, &tab[0][tid][0], &tab[0][tid][1],
+              &tab[0][tid][2]);
+  __syncthreads();
+
+  int g = 0;  // running chunk count: selects the part buffer
+  int q = 0;  // running section count: selects the table buffer
+  for (int tile = 0; tile < ntiles; ++tile) {
+    // what only a tile's start reads is read there again, to keep it out
+    // of the registers of the chunks: seed exponents of cos(t/2) and
+    // sin(t/2), (m+s, |m-s|) for +s and swapped for -s
+    const double pc = double(m + s);
+    const double ps = fabs(double(m - s));
+    const T par = (j0 & 1) ? -Arith<T>::inv_scale() : Arith<T>::inv_scale();
+    const T inv = Arith<T>::inv_scale();
+    PairRing<T> rings[kRings];
+#pragma unroll
+    for (int r = 0; r < kRings; ++r) {
+      PairRing<T>& p = rings[r];
+      const int ring = tile * kTile + (warp * kRings + r) * 32 + lane;
+      p.dp = T(0);
+      p.dpm = T(0);
+      if (kComp) p.r = p.dpl = p.dcl = p.dpml = p.dcml = T(0);
+      T fa[4] = {T(0), T(0), T(0), T(0)};
+      T fc[4] = {T(0), T(0), T(0), T(0)};
+      if (ring < nhalf) {
+        const double lch = logch[ring], lsh = logsh[ring];
+        p.x = x[ring];
+        if (kComp) p.r = xr[ring];
+        seed_of<T>(seed[mc], seed[nm + mc], pc, ps, lch, lsh, p.dc, p.k);
+        seed_of<T>(seed[2 * nm + mc], seed[3 * nm + mc], ps, pc, lch, lsh,
+                   p.dcm, p.km);
+      } else {
+        p.x = T(0);
+        p.dc = T(0);
+        p.dcm = T(0);
+        p.k = kNoSeed;
+        p.km = kNoSeed;
+      }
+      for (int j = 0; j < NB; ++j) {
+        if (ring < nhalf) {
+          const size_t off = ((size_t(g0 + j) * nhalf + ring) * nm + mc) * 2;
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            fa[c] = fnp[off + c] * inv;
+            fa[2 + c] = par * sp[off + c];
+            fc[c] = fnm[off + c] * inv;
+            fc[2 + c] = par * sm[off + c];
+          }
+        }
+        T* const quad = fs + ((j * kRings + r) * 2 * kThreads + tid) * 4;
+        store4(quad, fa);
+        store4(quad + kThreads * 4, fc);
+      }
+    }
+
+    for (int sec = 0; sec < nsec; ++sec, ++q) {
+      const int tb = q & 1;
+      const int sn = (sec + 1 < nsec) ? sec + 1 : 0;
+      coef_row<T>(j0 + sn * kRows + tid + 1, j0, m, s, lmax,
+                  &tab[tb ^ 1][tid][0], &tab[tb ^ 1][tid][1],
+                  &tab[tb ^ 1][tid][2]);
+      const int nch = (min(kRows, n - sec * kRows) + LC - 1) / LC;
+      for (int c = 0; c < nch; ++c, ++g) {
+        // the values this thread flushes, v = tid + i kThreads: map v / V,
+        // the chunk's value v % V (row offset v % V / NC, component
+        // v % NC); their sums over the earlier tiles, read before the
+        // compute
+        T prev[kFlush];
+#pragma unroll
+        for (int i = 0; i < kFlush; ++i) {
+          const int v = tid + i * kThreads, iv = v % V;
+          const int lf = j0 + sec * kRows + c * LC + iv / NC;
+          const bool flush = v < NB * V && lf <= lmax;
+          T* const fout = (iv % NC) < 2 ? out_p : out_m;
+          const size_t fo = col + (v / V) * plane + lf * rs + (iv & 1);
+          prev[i] = (flush && tile > 0) ? fout[fo] : T(0);
+        }
+
+        T* const pw = part + ((g & 1) * kWarps + warp) * (NB * V);
+        const bool steady = warp_steady(rings);
+        for (int h = 0; h < 2; ++h) {
+          T lp[kHalf][kRings], lm[kHalf][kRings];
+          const T* cf = &tab[tb][c * LC + h * kHalf][0];
+          if (steady) {
+            pair_steps<T, true, kComp, kHalf>(cf, rings,
+                                              PairKeep<T, kHalf>{lp, lm});
+          } else {
+            pair_steps<T, false, kComp, kHalf>(cf, rings,
+                                               PairKeep<T, kHalf>{lp, lm});
+          }
+          const bool live = warp_live(rings);
+#pragma unroll 1
+          for (int j = 0; j < NB; ++j) {
+            T sum = T(0);
+            if (live) {
+              T acc[NC * kHalf];
+#pragma unroll
+              for (int i = 0; i < NC * kHalf; ++i) acc[i] = T(0);
+#pragma unroll
+              for (int r = 0; r < kRings; ++r) {
+                const T* const quad =
+                    fs + ((j * kRings + r) * 2 * kThreads + tid) * 4;
+                T fa[4], fc[4];
+                load4(quad, fa);
+                load4(quad + kThreads * 4, fc);
+#pragma unroll
+                for (int t = 0; t < kHalf; ++t) {
+                  // (-1)^l = (-1)^j0 (-1)^t (half chunks start at an even
+                  // t): the (-1)^j0 is in the S quads
+                  const T vp = lp[t][r], vm = lm[t][r];
+                  const T lps = (t & 1) ? -vp : vp;
+                  const T lms = (t & 1) ? -vm : vm;
+                  const int o = NC * t;
+                  acc[o] = madd(lms, fa[2], madd(vp, fa[0], acc[o]));
+                  acc[o + 1] = madd(lms, fa[3], madd(vp, fa[1], acc[o + 1]));
+                  acc[o + 2] = madd(lps, fc[2], madd(vm, fc[0], acc[o + 2]));
+                  acc[o + 3] = madd(lps, fc[3], madd(vm, fc[1], acc[o + 3]));
+                }
+              }
+              reduce_pairs(acc, lane);
+              sum = acc[0];
+            }
+            // lanes 2i and 2i + 1 hold the half chunk's value i
+            if ((lane & 1) == 0) pw[j * V + h * 16 + (lane >> 1)] = sum;
+          }
+        }
+        __syncthreads();
+#pragma unroll
+        for (int i = 0; i < kFlush; ++i) {
+          const int v = tid + i * kThreads, iv = v % V;
+          const int lf = j0 + sec * kRows + c * LC + iv / NC;
+          if (v < NB * V && lf <= lmax) {
+            T* const fout = (iv % NC) < 2 ? out_p : out_m;
+            const size_t fo = col + (v / V) * plane + lf * rs + (iv & 1);
+            T sum = T(0);
+#pragma unroll
+            for (int w = 0; w < kWarps; ++w) {
+              sum += part[((g & 1) * kWarps + w) * (NB * V) + v];
+            }
+            fout[fo] = prev[i] + sum * norm_of<T>(lf);
+          }
         }
       }
     }
@@ -368,6 +658,90 @@ int launch(const void* fnp, const void* sp, const void* fnm, const void* sm,
   return int(cudaGetLastError());
 }
 
+// Lets the grouped kernel take its shared memory, and returns it.
+template <typename T, bool kComp, int NB>
+cudaError_t group_smem_attr(size_t* smem) {
+  *smem = group_smem<T, NB>();
+  return cudaFuncSetAttribute(pair_group_kernel<T, kComp, NB>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              int(*smem));
+}
+
+template <typename T, bool kComp, int NB>
+int launch_group(const void* fnp, const void* sp, const void* fnm,
+                 const void* sm, const void* x, const void* xr,
+                 const void* logch, const void* logsh, const void* seed,
+                 void* out_p, void* out_m, int batch, int nhalf, int nm,
+                 int lmax, int spin, int m0, void* stream) {
+  if (batch == 0 || nm == 0) return int(cudaSuccess);
+  size_t smem = 0;
+  const cudaError_t err = group_smem_attr<T, kComp, NB>(&smem);
+  if (err != cudaSuccess) return int(err);
+  pair_group_kernel<T, kComp, NB>
+      <<<dim3(nm, batch / NB), kThreads, smem,
+         static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const T*>(fnp), static_cast<const T*>(sp),
+          static_cast<const T*>(fnm), static_cast<const T*>(sm),
+          static_cast<const T*>(x), static_cast<const T*>(xr),
+          static_cast<const double*>(logch),
+          static_cast<const double*>(logsh), static_cast<const double*>(seed),
+          static_cast<T*>(out_p), static_cast<T*>(out_m), nhalf, nm, lmax,
+          spin, m0);
+  return int(cudaGetLastError());
+}
+
+// The launch of groups of nb maps: nb = 1 is the kernel above, 2 and 4 the
+// grouped kernel; any other nb, or one that does not divide the batch, is
+// refused.
+template <typename T, bool kComp>
+int launch_nb(const void* fnp, const void* sp, const void* fnm,
+              const void* sm, const void* x, const void* xr,
+              const void* logch, const void* logsh, const void* seed,
+              void* out_p, void* out_m, int batch, int nhalf, int nm,
+              int lmax, int spin, int m0, int nb, void* stream) {
+  if (nb < 1 || batch % nb != 0) return int(cudaErrorInvalidValue);
+  switch (nb) {
+    case 1:
+      return launch<T, kComp>(fnp, sp, fnm, sm, x, xr, logch, logsh, seed,
+                              out_p, out_m, batch, nhalf, nm, lmax, spin, m0,
+                              stream);
+    case 2:
+      return launch_group<T, kComp, 2>(fnp, sp, fnm, sm, x, xr, logch, logsh,
+                                       seed, out_p, out_m, batch, nhalf, nm,
+                                       lmax, spin, m0, stream);
+    case 4:
+      return launch_group<T, kComp, 4>(fnp, sp, fnm, sm, x, xr, logch, logsh,
+                                       seed, out_p, out_m, batch, nhalf, nm,
+                                       lmax, spin, m0, stream);
+    default:
+      return int(cudaErrorInvalidValue);
+  }
+}
+
+template <typename T, bool kComp, int NB>
+int group_blocks(int* n) {
+  size_t smem = 0;
+  const cudaError_t err = group_smem_attr<T, kComp, NB>(&smem);
+  if (err != cudaSuccess) return int(err);
+  return int(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      n, pair_group_kernel<T, kComp, NB>, kThreads, smem));
+}
+
+template <typename T, bool kComp>
+int blocks_nb(int nb, int* n) {
+  switch (nb) {
+    case 1:
+      return int(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          n, pair_analysis_kernel<T, kComp>, kThreads, 0));
+    case 2:
+      return group_blocks<T, kComp, 2>(n);
+    case 4:
+      return group_blocks<T, kComp, 4>(n);
+    default:
+      return int(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -377,10 +751,10 @@ int heracles_analysis_pair_f32(const void* fnp, const void* sp,
                                const void* logch, const void* logsh,
                                const void* seed, void* out_p, void* out_m,
                                int batch, int nhalf, int nm, int lmax,
-                               int spin, int m0, void* stream) {
-  return launch<float, false>(fnp, sp, fnm, sm, x, nullptr, logch, logsh,
-                              seed, out_p, out_m, batch, nhalf, nm, lmax, spin,
-                              m0, stream);
+                               int spin, int m0, int nb, void* stream) {
+  return launch_nb<float, false>(fnp, sp, fnm, sm, x, nullptr, logch, logsh,
+                                 seed, out_p, out_m, batch, nhalf, nm, lmax,
+                                 spin, m0, nb, stream);
 }
 
 int heracles_analysis_pair_f64(const void* fnp, const void* sp,
@@ -388,10 +762,10 @@ int heracles_analysis_pair_f64(const void* fnp, const void* sp,
                                const void* logch, const void* logsh,
                                const void* seed, void* out_p, void* out_m,
                                int batch, int nhalf, int nm, int lmax,
-                               int spin, int m0, void* stream) {
-  return launch<double, false>(fnp, sp, fnm, sm, x, nullptr, logch, logsh,
-                               seed, out_p, out_m, batch, nhalf, nm, lmax,
-                               spin, m0, stream);
+                               int spin, int m0, int nb, void* stream) {
+  return launch_nb<double, false>(fnp, sp, fnm, sm, x, nullptr, logch,
+                                  logsh, seed, out_p, out_m, batch, nhalf, nm,
+                                  lmax, spin, m0, nb, stream);
 }
 
 // The compensated float32 launch: xr holds each ring's r = x_lo / x_hi.
@@ -401,28 +775,22 @@ int heracles_analysis_pair_comp_f32(const void* fnp, const void* sp,
                                     const void* logch, const void* logsh,
                                     const void* seed, void* out_p,
                                     void* out_m, int batch, int nhalf, int nm,
-                                    int lmax, int spin, int m0, void* stream) {
-  return launch<float, true>(fnp, sp, fnm, sm, x, xr, logch, logsh, seed,
-                             out_p, out_m, batch, nhalf, nm, lmax, spin, m0,
-                             stream);
+                                    int lmax, int spin, int m0, int nb,
+                                    void* stream) {
+  return launch_nb<float, true>(fnp, sp, fnm, sm, x, xr, logch, logsh, seed,
+                                out_p, out_m, batch, nhalf, nm, lmax, spin, m0,
+                                nb, stream);
 }
 
-// Resident blocks per SM of the pair analysis (its shared memory does not
-// depend on lmax), written to *blocks; variant 0 is the float32 kernel, 1
-// the float64 one, 2 the compensated float32 one.  Returns the CUDA error
-// code.
-int heracles_analysis_pair_blocks_per_sm(int variant, void* blocks) {
+// Resident blocks per SM of the pair analysis in groups of nb maps (its
+// shared memory does not depend on lmax), written to *blocks; variant 0 is
+// the float32 kernel, 1 the float64 one, 2 the compensated float32 one.
+// Returns the CUDA error code.
+int heracles_analysis_pair_blocks_per_sm(int variant, int nb, void* blocks) {
   int* n = static_cast<int*>(blocks);
-  if (variant == 1) {
-    return int(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        n, pair_analysis_kernel<double, false>, kThreads, 0));
-  }
-  if (variant == 2) {
-    return int(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        n, pair_analysis_kernel<float, true>, kThreads, 0));
-  }
-  return int(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      n, pair_analysis_kernel<float, false>, kThreads, 0));
+  if (variant == 1) return blocks_nb<double, false>(nb, n);
+  if (variant == 2) return blocks_nb<float, true>(nb, n);
+  return blocks_nb<float, false>(nb, n);
 }
 
 }  // extern "C"

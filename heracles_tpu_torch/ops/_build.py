@@ -45,19 +45,20 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _D = ctypes.c_double
 # every extern "C" function of SOURCES: name -> (restype, argtypes); the
-# launchers return cudaGetLastError() as an int
+# launchers return cudaGetLastError() as an int; the analysis launchers
+# take the group size nb after m0
 _SIGNATURES = {
-    "heracles_analysis_spin0_f32": (_I, [_P] * 7 + [_I] * 5 + [_P]),
-    "heracles_analysis_spin0_f64": (_I, [_P] * 7 + [_I] * 5 + [_P]),
+    "heracles_analysis_spin0_f32": (_I, [_P] * 7 + [_I] * 6 + [_P]),
+    "heracles_analysis_spin0_f64": (_I, [_P] * 7 + [_I] * 6 + [_P]),
     "heracles_analysis_spin0_paths_f32": (_I, [_P] * 8 + [_I] * 5 + [_P]),
-    "heracles_analysis_spin0_comp_f32": (_I, [_P] * 8 + [_I] * 5 + [_P]),
+    "heracles_analysis_spin0_comp_f32": (_I, [_P] * 8 + [_I] * 6 + [_P]),
     "heracles_analysis_spin0_comp_paths_f32": (_I, [_P] * 9 + [_I] * 5 + [_P]),
-    "heracles_analysis_spin0_blocks_per_sm": (_I, [_I, _P]),
+    "heracles_analysis_spin0_blocks_per_sm": (_I, [_I, _I, _P]),
     "heracles_cuda_error_string": (ctypes.c_char_p, [_I]),
-    "heracles_analysis_pair_f32": (_I, [_P] * 10 + [_I] * 6 + [_P]),
-    "heracles_analysis_pair_f64": (_I, [_P] * 10 + [_I] * 6 + [_P]),
-    "heracles_analysis_pair_comp_f32": (_I, [_P] * 11 + [_I] * 6 + [_P]),
-    "heracles_analysis_pair_blocks_per_sm": (_I, [_I, _P]),
+    "heracles_analysis_pair_f32": (_I, [_P] * 10 + [_I] * 7 + [_P]),
+    "heracles_analysis_pair_f64": (_I, [_P] * 10 + [_I] * 7 + [_P]),
+    "heracles_analysis_pair_comp_f32": (_I, [_P] * 11 + [_I] * 7 + [_P]),
+    "heracles_analysis_pair_blocks_per_sm": (_I, [_I, _I, _P]),
     "heracles_synthesis_spin0_f32": (_I, [_P] * 7 + [_I] * 5 + [_P]),
     "heracles_synthesis_spin0_f64": (_I, [_P] * 7 + [_I] * 5 + [_P]),
     "heracles_synthesis_spin0_paths_f32": (_I, [_P] * 8 + [_I] * 5 + [_P]),
@@ -95,13 +96,18 @@ class KernelLibrary:
             msg = self.lib.heracles_cuda_error_string(err).decode()
             raise RuntimeError(f"CUDA kernel launch failed: {msg} ({err})")
 
-    def blocks_per_sm(self, kernel, is_double, comp=False):
+    def blocks_per_sm(self, kernel, is_double, comp=False, nb=1):
         """Resident blocks per SM of ``analysis_spin0``, ``analysis_pair``,
         ``synthesis_spin0`` or ``synthesis_pair`` (none's shared memory
-        grows with lmax); ``comp``: the compensated float32 instantiation."""
+        grows with lmax); ``comp``: the compensated float32 instantiation;
+        ``nb``: an analysis kernel's group of maps."""
         n = ctypes.c_int(0)
         fn = getattr(self.lib, f"heracles_{kernel}_blocks_per_sm")
-        self.check(fn(2 if comp else int(is_double), ctypes.addressof(n)))
+        variant = 2 if comp else int(is_double)
+        group = (nb,) if kernel.startswith("analysis") else ()
+        if not group and nb != 1:
+            raise ValueError(f"{kernel} takes no group of maps")
+        self.check(fn(variant, *group, ctypes.addressof(n)))
         return n.value
 
 

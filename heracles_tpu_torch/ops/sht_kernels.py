@@ -4,11 +4,12 @@ Counterpart of :mod:`heracles_tpu.ops.pallas_sht`.
 :func:`analysis_spin0_folded`, :func:`analysis_pair_folded`,
 :func:`synthesis_spin0_folded` and :func:`synthesis_pair_folded` keep the
 signatures and return layouts of their Pallas twins, ``dd`` and ``x_lo``
-included, minus the arguments that tune the TPU or emulate float64 seeds
-on it (``interpret``, ``contract``, ``skip``, ``ring_block``, ``nb``,
-``m_chunk``, ``l_chunk``, ``seed_planes``, ``logch_lo`` and
-``logsh_lo``: the kernels read the logs in float64).  The tensor decides
-the path:
+included (and the two analyses' ``nb``), minus the arguments that tune
+the TPU or emulate float64 seeds on it (``interpret``, ``contract``,
+``skip``, ``ring_block``, ``m_chunk``, ``l_chunk``, ``seed_planes``,
+``logch_lo`` and ``logsh_lo``: the kernels read the logs in float64; the
+syntheses' ``nb``, whose grouped kernels are not written yet).  The
+tensor decides the path:
 
 * a CPU tensor takes the plain version (:mod:`.wigner`);
 * a CUDA tensor launches the hand-written kernel
@@ -23,12 +24,22 @@ the path:
   of float64 cos(theta) (None: a zero stream, the plain kernel's values).
   complex128 ignores ``dd``.
 
+The two analyses run a batch of B maps in groups of ``nb``, the twin of
+the reference's ``nb`` program: one block per (order, group) runs the
+Wigner recurrence once and contracts it against every map of the group,
+each map's sums taken in the order of the ``nb = 1`` kernel, so every
+``nb`` gives the same numbers bit for bit.  ``nb=None`` picks the group
+with :func:`pick_nb`; an ``nb`` that has no instantiation
+(``wigner.GROUP_SIZES``) or does not divide B raises ValueError on every
+device.
+
 No kernel's shared memory grows with lmax; the one bound on it is
 ``LMAX_LIMIT``.  ``LAUNCHES`` counts kernel launches per kernel name,
 ``LAUNCHES_BY_PRECISION`` the same launches per (name, "f32", "f64" or
-"f32c", the compensated kernel).  :func:`path_counts` is a diagnostic
-launch of the spin-0 analysis or of either synthesis, plain or comp, that
-tells which share of the work ran on each of the kernel's paths.
+"f32c", the compensated kernel), ``LAUNCHES_BY_NB`` per (name, nb).
+:func:`path_counts` is a diagnostic launch of the spin-0 analysis or of
+either synthesis, plain or comp, that tells which share of the work ran
+on each of the kernel's paths.
 """
 
 from __future__ import annotations
@@ -49,12 +60,16 @@ __all__ = [
     "path_counts",
     "LAUNCHES",
     "LAUNCHES_BY_PRECISION",
+    "LAUNCHES_BY_NB",
     "LMAX_LIMIT",
+    "NB_LIMIT",
+    "pick_nb",
     "reset_counts",
 ]
 
 LAUNCHES = collections.Counter()
 LAUNCHES_BY_PRECISION = collections.Counter()
+LAUNCHES_BY_NB = collections.Counter()
 
 # the kernels' dead path (csrc/sht_paths.cuh) rests on a step of the
 # recurrence growing a value by less than sqrt(2 lmax) + 2 < 2^8.1: 8 steps
@@ -68,8 +83,64 @@ def reset_counts():
     """Zero the kernel launch counts and the plain-version run counts."""
     LAUNCHES.clear()
     LAUNCHES_BY_PRECISION.clear()
+    LAUNCHES_BY_NB.clear()
     wigner.PLAIN_RUNS.clear()
     wigner.PLAIN_RUNS_BY_PRECISION.clear()
+
+
+# the largest group of maps pick_nb takes, by analysis kernel and
+# precision ("f32c": the compensated float32 kernel); pick_nb's docstring
+# has the times they rest on
+NB_LIMIT = {
+    "analysis_spin0_folded": {"f32": 4, "f64": 4, "f32c": 4},
+    "analysis_pair_folded": {"f32": 4, "f64": 2, "f32c": 4},
+}
+
+
+def pick_nb(B, lmax, name, precision="f32"):
+    """The group of maps of an analysis launch on a batch of ``B``: the
+    largest ``nb`` of ``wigner.GROUP_SIZES[name]`` that divides ``B`` and is
+    at most ``NB_LIMIT[name][precision]``; 1 for B = 1.
+
+    The limits are the fastest group of a batch of 8 on the card: ms a
+    launch at nside 1024, lmax 1536 (``tools/sht_kernel_bench.py --nside
+    1024 --lmax 1536 --batch 8 --nb 1,2,4,8 [--double | --comp]``, one
+    NVIDIA H100 80GB HBM3 at 700 W, best of 3; the chosen group starred):
+
+    ========== ====== ====== ====== ======  =====================
+    kernel     nb 1   nb 2   nb 4   nb 8    resident blocks / SM
+    ========== ====== ====== ====== ======  =====================
+    B1 f32     9.22   6.63   5.20*  6.03    6, 5, 4, 2
+    B1 f64     15.51  11.01  10.33* 15.75   3, 3, 2, 1
+    B1 comp    17.64  8.76   6.39*  7.92    5, 5, 4, 2
+    B2 f32     23.19  16.23  14.55*         4, 4, 3
+    B2 f64     37.28  32.33* 38.20          2, 2, 1
+    B2 comp    36.25  21.96  19.58*         3, 4, 3
+    ========== ====== ====== ====== ======  =====================
+
+    A group's shared memory (the ring tile's spectra of its maps) cuts
+    its blocks per SM, which is where nb 8 of B1 and nb 4 of B2 in
+    float64 lose.  At nside 4096, lmax 3000 (4 maps) the groups of every
+    precision rank the same.  ``lmax`` is the reference's argument (its limit came from the
+    TPU's VMEM); no kernel's shared memory grows with it on the card, so
+    the rule does not read it.
+    """
+    del lmax
+    limit = NB_LIMIT[name][precision]
+    return max(nb for nb in wigner.GROUP_SIZES[name]
+               if nb <= limit and B % nb == 0)
+
+
+def _group(name, nb, F, lmax, dd):
+    """The group size of an analysis call on the spectra ``F``: ``nb``
+    checked, or :func:`pick_nb`'s for None."""
+    B = int(np.prod(F.shape[:-2], dtype=np.int64))
+    if nb is None:
+        mode = _mode(dd, F.dtype)
+        precision = ("f64" if F.dtype == torch.complex128 or mode == "f64"
+                     else "f32c" if mode == "comp" else "f32")
+        return pick_nb(B, lmax, name, precision)
+    return wigner.check_group(name, int(nb), B)
 
 
 def _mode(dd, dtype):
@@ -141,17 +212,18 @@ def _check(name, what, arrays, rows, rings, nhalf):
 
 
 def _launch(name, inputs, x, logch, logsh, lmax, spin, out_rows, nout,
-            m0=0, paths=False, x_lo=None):
+            m0=0, paths=False, x_lo=None, nb=1):
     """Launch one kernel on CUDA tensors; returns its ``nout`` outputs.
 
     ``name`` is ``{analysis,synthesis}_{spin0,pair}_folded``; ``inputs``
     are its (..., rows, nm) complex operands, column c being the order
     m0 + c, and each output is (..., out_rows, nm).  ``x_lo`` (complex64
     only) launches the compensated float32 instantiation, with each
-    ring's r = x_lo / x_hi (:func:`wigner.comp_ratio`).  ``paths=True``
-    launches the kernel's diagnostic twin instead (float32 only, not
-    counted in ``LAUNCHES``) and returns its three path counts as an int64
-    tensor.
+    ring's r = x_lo / x_hi (:func:`wigner.comp_ratio`).  ``nb``: an
+    analysis' group of maps (checked by the caller).  ``paths=True``
+    launches the kernel's diagnostic twin instead (float32 and nb = 1
+    only, not counted in ``LAUNCHES``) and returns its three path counts
+    as an int64 tensor.
     """
     from . import _build
 
@@ -190,7 +262,9 @@ def _launch(name, inputs, x, logch, logsh, lmax, spin, out_rows, nout,
                          f"{'paths_' if paths else ''}"
                          f"{'f64' if is_double else 'f32'}")
     counts = [torch.zeros(3, dtype=torch.int64, device=dev)] if paths else []
-    ints = (B, x.shape[0], nm, lmax) + ((int(spin),) if pair else ()) + (m0,)
+    group = (nb,) if direction == "analysis" and not paths else ()
+    ints = ((B, x.shape[0], nm, lmax) + ((int(spin),) if pair else ())
+            + (m0,) + group)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(*(t.data_ptr() for t in flat), xv.data_ptr(),
@@ -202,6 +276,7 @@ def _launch(name, inputs, x, logch, logsh, lmax, spin, out_rows, nout,
         return counts[0]
     LAUNCHES[name] += 1
     LAUNCHES_BY_PRECISION[name, prec] += 1
+    LAUNCHES_BY_NB[name, nb] += 1
     return [o.reshape(batch + (out_rows, nm)) for o in outs]
 
 
@@ -245,7 +320,7 @@ def path_counts(name, *args, m0=0, dd=False, x_lo=None):
 
 
 def analysis_spin0_folded(Fe, Fo, x, logch, logsh, lmax, m0=0, *, dd=False,
-                          x_lo=None):
+                          x_lo=None, nb=None):
     """alm[..., l, m] = sum_r lam_lm(x_r) (Fe on even l, Fo on odd l)[..., r, m].
 
     ``Fe``/``Fo``: (..., nhalf, nm) complex parity-combined northern ring
@@ -255,42 +330,48 @@ def analysis_spin0_folded(Fe, Fo, x, logch, logsh, lmax, m0=0, *, dd=False,
     float64 values for full seed accuracy).  Column c is the order
     ``m0`` + c (a device mesh's block of orders); an order above lmax
     gives zeros.  ``dd`` and ``x_lo`` as the reference's (module
-    docstring).  Returns (..., lmax+1, nm).
+    docstring); ``nb``: the maps of the batch that share one recurrence
+    (None: :func:`pick_nb`), the same numbers for every ``nb``.  Returns
+    (..., lmax+1, nm).
     """
+    name = "analysis_spin0_folded"
     nhalf = x.shape[0]
-    _check("analysis_spin0_folded", "spectra", (Fe, Fo), nhalf,
-           (x, logch, logsh), nhalf)
+    _check(name, "spectra", (Fe, Fo), nhalf, (x, logch, logsh), nhalf)
     m0, lmax = int(m0), int(lmax)
+    nb = _group(name, nb, Fe, lmax, dd)
     (alm,) = _run(
         _mode(dd, Fe.dtype), x, x_lo, (Fe, Fo),
         lambda *F, x_lo: wigner.analysis_spin0_folded_plain(
-            *F, x, logch, logsh, lmax, m0, x_lo=x_lo),
-        lambda F, x_lo: _launch("analysis_spin0_folded", F, x, logch, logsh,
-                                lmax, None, lmax + 1, 1, m0=m0, x_lo=x_lo))
+            *F, x, logch, logsh, lmax, m0, x_lo=x_lo, nb=nb),
+        lambda F, x_lo: _launch(name, F, x, logch, logsh, lmax, None,
+                                lmax + 1, 1, m0=m0, x_lo=x_lo, nb=nb))
     return alm
 
 
 def analysis_pair_folded(FNp, Sp, FNm, Sm, x, logch, logsh, lmax, spin,
-                         m0=0, *, dd=False, x_lo=None):
+                         m0=0, *, dd=False, x_lo=None, nb=None):
     """Folded spin-pair analysis; returns (alm_p, alm_m).
 
     a_p[l] = sum_r lam_p FNp + (-1)^l lam_m Sp and
     a_m[l] = sum_r lam_m FNm + (-1)^l lam_p Sm, with lam_p / lam_m the
     slm columns n = +spin / -spin.  ``FN*``: (..., nhalf, nm) northern
     rows of each branch; ``S*``: the partner-paired (-1)^m-signed southern
-    rows.  Column c is the order ``m0`` + c.  ``dd`` and ``x_lo`` as the
-    reference's (module docstring).  Each output is (..., lmax+1, nm).
+    rows.  Column c is the order ``m0`` + c.  ``dd``, ``x_lo`` and ``nb``
+    as for :func:`analysis_spin0_folded`.  Each output is
+    (..., lmax+1, nm).
     """
+    name = "analysis_pair_folded"
     nhalf = x.shape[0]
-    _check("analysis_pair_folded", "spectra", (FNp, Sp, FNm, Sm), nhalf,
-           (x, logch, logsh), nhalf)
+    _check(name, "spectra", (FNp, Sp, FNm, Sm), nhalf, (x, logch, logsh),
+           nhalf)
     spin, m0, lmax = abs(int(spin)), int(m0), int(lmax)
+    nb = _group(name, nb, FNp, lmax, dd)
     return _run(
         _mode(dd, FNp.dtype), x, x_lo, (FNp, Sp, FNm, Sm),
         lambda *F, x_lo: wigner.analysis_pair_folded_plain(
-            *F, x, logch, logsh, lmax, spin, m0, x_lo=x_lo),
-        lambda F, x_lo: _launch("analysis_pair_folded", F, x, logch, logsh,
-                                lmax, spin, lmax + 1, 2, m0=m0, x_lo=x_lo))
+            *F, x, logch, logsh, lmax, spin, m0, x_lo=x_lo, nb=nb),
+        lambda F, x_lo: _launch(name, F, x, logch, logsh, lmax, spin,
+                                lmax + 1, 2, m0=m0, x_lo=x_lo, nb=nb))
 
 
 def synthesis_spin0_folded(alm, x, logch, logsh, lmax, m0=0, *, dd=False,

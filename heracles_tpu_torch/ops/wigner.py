@@ -28,7 +28,9 @@ both are rounded to the working type, exactly as the kernels do.  Given
 the kernels' compensated (comp) recurrence: a second stream per lane that
 corrects the float32 truncation of x (:func:`comp_ratio`,
 ``csrc/wigner_recurrence.cuh``), step by step as the kernels' comp
-instantiations do.
+instantiations do.  The analysis versions take the kernels' group of
+maps ``nb`` (:data:`GROUP_SIZES`, :func:`check_group`) and check it as
+the kernels do; they are vectorised over the batch whatever it is.
 
 The mixing matrices' host-f64 tables (:func:`wigner_table_host`,
 :func:`legendre_sum_host`) are numpy, carried over unchanged.
@@ -61,6 +63,8 @@ __all__ = [
     "wigner_table_host",
     "legendre_sum_host",
     "comp_ratio",
+    "check_group",
+    "GROUP_SIZES",
     "PLAIN_RUNS",
     "PLAIN_RUNS_BY_PRECISION",
 ]
@@ -75,6 +79,30 @@ _NO_SEED = -(2**30)
 # runs by (name, "f32", "f64" or "f32c"), the last the comp recurrence
 PLAIN_RUNS = collections.Counter()
 PLAIN_RUNS_BY_PRECISION = collections.Counter()
+
+
+# the groups of maps that share one recurrence in the analysis kernels'
+# launches: the instantiations of csrc/sht_analysis.cu and
+# csrc/sht_analysis_pair.cu (the reference's pair limit is 4)
+GROUP_SIZES = {"analysis_spin0_folded": (1, 2, 4, 8),
+               "analysis_pair_folded": (1, 2, 4)}
+
+
+def check_group(name, nb, batch):
+    """Raise ValueError unless the kernel ``name`` has an instantiation for
+    groups of ``nb`` maps and ``nb`` divides ``batch``; returns ``nb``."""
+    sizes = GROUP_SIZES[name]
+    if nb not in sizes:
+        raise ValueError(f"{name}: nb={nb} has no instantiation (one of "
+                         f"{sizes})")
+    if batch % nb:
+        raise ValueError(f"{name}: nb={nb} does not divide the batch of "
+                         f"{batch} maps")
+    return nb
+
+
+def _batch(F):
+    return math.prod(F.shape[:-2])
 
 
 def _count_run(name, dtype, x_lo):
@@ -563,12 +591,14 @@ def lambda_power_scan(ms, ns, x, logch, logsh, lmax, Fw, weights):
 
 
 def analysis_spin0_folded_plain(Fe, Fo, x, logch, logsh, lmax, m0=0, *,
-                                x_lo=None):
+                                x_lo=None, nb=1):
     """Plain version of the spin-0 analysis kernel (same signature).
 
     alm[..., l, m] = sum_r lam_lm(x_r) (Fe on even l, Fo on odd l)[..., r, m],
     column c holding the order m0 + c (zeros for an order above lmax).
+    ``nb`` is checked (:func:`check_group`) and changes nothing here.
     """
+    check_group("analysis_spin0_folded", nb, _batch(Fe))
     _count_run("analysis_spin0_folded", Fe.dtype, x_lo)
     nm = Fe.shape[-1]
     return _folded_scan(m0 + np.arange(nm), 0, x, logch, logsh, lmax, Fe, Fo,
@@ -576,13 +606,15 @@ def analysis_spin0_folded_plain(Fe, Fo, x, logch, logsh, lmax, m0=0, *,
 
 
 def analysis_pair_folded_plain(FNp, Sp, FNm, Sm, x, logch, logsh, lmax, spin,
-                               m0=0, *, x_lo=None):
+                               m0=0, *, x_lo=None, nb=1):
     """Plain version of the spin-pair analysis kernel (same signature).
 
     a_p = sum lam_p FNp + (-1)^l sum lam_m Sp and
     a_m = sum lam_m FNm + (-1)^l sum lam_p Sm; returns (a_p, a_m), column
-    c holding the order m0 + c.
+    c holding the order m0 + c.  ``nb`` is checked (:func:`check_group`)
+    and changes nothing here.
     """
+    check_group("analysis_pair_folded", nb, _batch(FNp))
     _count_run("analysis_pair_folded", FNp.dtype, x_lo)
     nm = FNp.shape[-1]
     ms = np.tile(m0 + np.arange(nm), 2)

@@ -1050,3 +1050,108 @@ def test_comp_blocks_per_sm(cuda):
     for kernel in ("analysis_spin0", "analysis_pair", "synthesis_spin0",
                    "synthesis_pair"):
         assert kl.blocks_per_sm(kernel, False, comp=True) >= 1
+
+
+# -- groups of maps sharing one recurrence (nb) -------------------------------
+
+# 600 rings: a whole tile of 512 and a ragged one; orders 7..46, columns
+# of up to 194 multipoles (two sections of 128); a batch of 8
+_NB_CASE = dict(nside=300, lmax=200, nm=40, m0=7, batch=8)
+_ANALYSES = ("analysis_spin0_folded", "analysis_pair_folded")
+# sha256[:16] of the nb = 1 outputs of the kernels before the grouped
+# launch was added, on _nb_inputs' seeded inputs: printed by this file run
+# as a script with that checkout's package first on PYTHONPATH
+_NB1_DIGESTS = {
+    ("analysis_spin0_folded", "f32"): "08336e910fc2b962",
+    ("analysis_spin0_folded", "f64"): "c2fb9bde70fba0ba",
+    ("analysis_spin0_folded", "comp"): "04a493d0097405fc",
+    ("analysis_pair_folded", "f32"): "89859442d1c5fe49",
+    ("analysis_pair_folded", "f64"): "a915b5ec7c986e45",
+    ("analysis_pair_folded", "comp"): "7a936e2956f0ef33",
+}
+
+
+def _nb_inputs(name, mode, device):
+    """Seeded inputs of the grouped-launch tests: (args, keywords)."""
+    c = _NB_CASE
+    cdtype = torch.complex128 if mode == "f64" else torch.complex64
+    nspec = 2 if name == "analysis_spin0_folded" else 4
+    F, geom = _inputs(c["nside"], c["lmax"], c["batch"], nspec, cdtype,
+                      device, 21, nm=c["nm"])
+    kw = dict(m0=c["m0"])
+    if mode == "comp":
+        z = torch.as_tensor(ring_geometry(c["nside"])["z"][:2 * c["nside"]])
+        kw.update(dd="comp", x_lo=(z - z.float().double()).float())
+    extra = (2,) if name == "analysis_pair_folded" else ()
+    return (*F, *geom, c["lmax"], *extra), kw
+
+
+def _bits(out):
+    out = out if isinstance(out, tuple) else (out,)
+    return [o.view(torch.float32 if o.dtype == torch.complex64
+                   else torch.float64) for o in out]
+
+
+@pytest.mark.parametrize("mode", ["f32", "f64", "comp"])
+@pytest.mark.parametrize("name", _ANALYSES)
+def test_every_nb_is_bit_for_bit_nb1(cuda, name, mode):
+    """Each grouped instantiation gives the nb = 1 kernel's outputs bit for
+    bit (signed zeros included), and one launch a call."""
+    args, kw = _nb_inputs(name, mode, cuda)
+    kernel = getattr(sht_kernels, name)
+    base = _bits(kernel(*args, nb=1, **kw))
+    for nb in wigner.GROUP_SIZES[name][1:]:
+        before = dict(sht_kernels.LAUNCHES_BY_NB)
+        got = _bits(kernel(*args, nb=nb, **kw))
+        torch.cuda.synchronize()
+        assert sht_kernels.LAUNCHES_BY_NB[name, nb] == before.get(
+            (name, nb), 0) + 1
+        for g, b in zip(got, base, strict=True):
+            assert torch.equal(g, b), (name, mode, nb)
+
+
+def _nb1_digest(name, mode, device, **nb):
+    import hashlib
+
+    args, kw = _nb_inputs(name, mode, device)
+    out = getattr(sht_kernels, name)(*args, **nb, **kw)
+    raw = b"".join(o.cpu().numpy().tobytes() for o in _bits(out))
+    return hashlib.sha256(raw).hexdigest()[:16]
+
+
+@pytest.mark.parametrize("mode", ["f32", "f64", "comp"])
+@pytest.mark.parametrize("name", _ANALYSES)
+def test_nb1_keeps_the_parents_digest(cuda, name, mode):
+    assert _nb1_digest(name, mode, cuda, nb=1) == _NB1_DIGESTS[name, mode]
+
+
+def test_a_group_without_an_instantiation_raises_on_the_card(cuda):
+    """No fallback: the launcher refuses an nb it has no kernel for (the
+    wrappers refuse it before), and the error reaches the caller."""
+    args, _ = _nb_inputs("analysis_spin0_folded", "f32", cuda)
+    with pytest.raises(ValueError, match="no instantiation"):
+        sht_kernels.analysis_spin0_folded(*args, nb=3)
+    Fe, Fo, x, lch, lsh, lmax = args
+    with pytest.raises(RuntimeError, match="CUDA kernel launch failed"):
+        sht_kernels._launch("analysis_spin0_folded", (Fe, Fo), x, lch, lsh,
+                            lmax, None, lmax + 1, 1, nb=3)
+
+
+def test_group_blocks_per_sm(cuda):
+    from heracles_tpu_torch.ops import _build
+
+    kl = _build.load_library()
+    for name in _ANALYSES:
+        kernel = name.rsplit("_", 1)[0]
+        for nb in wigner.GROUP_SIZES[name]:
+            for is_double, comp in ((False, False), (True, False),
+                                    (False, True)):
+                assert kl.blocks_per_sm(kernel, is_double, comp=comp,
+                                        nb=nb) >= 1, (kernel, nb)
+
+
+if __name__ == "__main__":
+    # the nb = 1 digests of the package first on the path (a checkout
+    # without groups of maps takes no nb)
+    for key in _NB1_DIGESTS:
+        print(key, _nb1_digest(*key, torch.device("cuda")))

@@ -251,6 +251,10 @@ def test_summarise_refuses(trace, match):
     (B2D, B2_LABEL),
     ("void (anonymous namespace)::pair_analysis_kernel<float, true>(float "
      "const*)", "B2 pair_analysis_kernel<float, true>"),
+    ("void (anonymous namespace)::analysis_group_kernel<float, false, 8>("
+     "float const*)", "B1 analysis_group_kernel<float, false, 8>"),
+    ("void (anonymous namespace)::pair_group_kernel<double, false, 4>("
+     "double const*)", "B2 pair_group_kernel<double, false, 4>"),
     ("void (anonymous namespace)::synthesis_kernel<float, false, false>("
      "float2 const*, float*)", "B3 synthesis_kernel<float, false, false>"),
     ("void (anonymous namespace)::pair_synthesis_kernel<double, false, "

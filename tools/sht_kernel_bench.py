@@ -2,18 +2,22 @@
 
     python3 tools/sht_kernel_bench.py [--root DIR] [--label NAME]
                                       [--nside 4096] [--lmax 3000]
-                                      [--double | --comp]
+                                      [--double | --comp] [--batch B]
+                                      [--nb 1,2,4,8]
 
 Builds the kernels of the ``heracles_tpu_torch`` package under ``--root``
 (default: this checkout), runs the spin-0 and spin-pair analysis and
 synthesis in float32 (float64 with ``--double``, the compensated float32
 instantiations with ``--comp``) on seeded random inputs at one map's
-shapes (2 nside northern rings, lmax + 1 orders), and prints, on lines
-that start with ``--label``:
+shapes (2 nside northern rings, lmax + 1 orders; a stack of ``--batch``
+maps, e.g. the DICES batch of 8), and prints, on lines that start with
+``--label``:
 
 * ptxas' registers and spills of the SHT kernels;
 * per kernel the times of three launches after a warm-up (ms, CUDA
-  events) and a digest of its outputs;
+  events) and a digest of its outputs; with ``--nb`` each analysis once
+  for each listed group of maps that it has and that divides the batch
+  (``name/nb{n}``; a package without groups takes no ``--nb``);
 * where the package has them, the path counts of the spin-0 analysis and
   of the syntheses and the resident blocks per SM.
 
@@ -41,6 +45,11 @@ def main():
     mode = parser.add_mutually_exclusive_group()
     mode.add_argument("--double", action="store_true")
     mode.add_argument("--comp", action="store_true")
+    parser.add_argument("--batch", type=int, default=None,
+                        help="maps in the stack (default: one map, no "
+                             "batch axis)")
+    parser.add_argument("--nb", default=None,
+                        help="comma-separated groups of maps of the analyses")
     args = parser.parse_args()
     sys.path.insert(0, args.root)
 
@@ -62,7 +71,8 @@ def main():
     keep = False
     for line in kl.log.splitlines():
         if "Compiling entry function" in line:
-            keep = "analysis_kernel" in line or "synthesis_kernel" in line
+            keep = any(k in line for k in ("analysis_kernel",
+                                           "synthesis_kernel", "group_kernel"))
         if keep and ("Compiling" in line or "Used" in line or "spill" in line):
             print(label, line.strip()[:200])
 
@@ -78,8 +88,9 @@ def main():
                   for _ in range(2))
         return torch.complex(re, im)
 
-    F = [rnd((nhalf, nm)) for _ in range(4)]
-    A = [rnd((nm, nm)) for _ in range(2)]
+    batch = () if args.batch is None else (args.batch,)
+    F = [rnd(batch + (nhalf, nm)) for _ in range(4)]
+    A = [rnd(batch + (nm, nm)) for _ in range(2)]
 
     def timed(fn, n=3):
         fn()
@@ -100,16 +111,32 @@ def main():
         raw = b"".join(t.cpu().numpy().tobytes() for t in out)
         return hashlib.sha256(raw).hexdigest()[:12]
 
-    kernels = {
-        "analysis_spin0_folded": lambda: sht_kernels.analysis_spin0_folded(
-            F[0], F[1], x, lch, lsh, lmax, **kw),
-        "analysis_pair_folded": lambda: sht_kernels.analysis_pair_folded(
-            *F, x, lch, lsh, lmax, 2, **kw),
+    def spin0(**more):
+        return lambda: sht_kernels.analysis_spin0_folded(
+            F[0], F[1], x, lch, lsh, lmax, **kw, **more)
+
+    def pair(**more):
+        return lambda: sht_kernels.analysis_pair_folded(
+            *F, x, lch, lsh, lmax, 2, **kw, **more)
+
+    kernels = {"analysis_spin0_folded": spin0(),
+               "analysis_pair_folded": pair()}
+    if args.nb:
+        from heracles_tpu_torch.ops import wigner
+
+        kernels = {}
+        B = args.batch or 1
+        for nb in map(int, args.nb.split(",")):
+            for name, make in (("analysis_spin0_folded", spin0),
+                               ("analysis_pair_folded", pair)):
+                if nb in wigner.GROUP_SIZES[name] and B % nb == 0:
+                    kernels[f"{name}/nb{nb}"] = make(nb=nb)
+    kernels.update({
         "synthesis_spin0_folded": lambda: sht_kernels.synthesis_spin0_folded(
             A[0], x, lch, lsh, lmax, **kw),
         "synthesis_pair_folded": lambda: sht_kernels.synthesis_pair_folded(
             *A, x, lch, lsh, lmax, 2, **kw),
-    }
+    })
     result = {}
     for name, fn in kernels.items():
         out, times = timed(fn)
@@ -122,6 +149,13 @@ def main():
         synth0 = "heracles_synthesis_spin0_paths_f32" in _build._SIGNATURES
         print(label, "paths analysis_spin0_folded", sht_kernels.path_counts(
             "analysis_spin0_folded", F[0], F[1], x, lch, lsh, lmax, **kw))
+        if args.nb:
+            for kernel in ("analysis_spin0", "analysis_pair"):
+                sizes = wigner.GROUP_SIZES[f"{kernel}_folded"]
+                print(label, kernel, "blocks per SM by nb (f32, f64, comp):",
+                      {nb: [kl.blocks_per_sm(kernel, d, comp=c, nb=nb)
+                            for d, c in ((False, False), (True, False),
+                                         (False, True))] for nb in sizes})
         if synth0:
             print(label, "paths synthesis_spin0_folded", sht_kernels.path_counts(
                 "synthesis_spin0_folded", A[0], x, lch, lsh, lmax, **kw))
