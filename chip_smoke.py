@@ -9,8 +9,8 @@ with its seconds:
 0. the card (``nvidia-smi`` name and power limit), torch and CUDA;
 1. build the Hopper kernels from ``heracles_tpu_torch/csrc`` (ptxas'
    registers and spills, none allowed in the spin-0 synthesis and in the
-   analyses' grouped instantiations; the Gram kernel's DMMA instruction
-   count and the spreader's shared atomics, compare-and-swap loops (none
+   four kernels' grouped instantiations; the Gram kernel's DMMA
+   instruction count and the spreader's shared atomics, compare-and-swap loops (none
    allowed) and global reductions from their SASS, the resident blocks
    per SM of the analysis and synthesis kernels and of each group of
    maps);
@@ -123,16 +123,24 @@ with its seconds:
    time, busy + idle must equal the window, and no stage label may be dead;
    prints each trace's idle share, top 10 ops and top 5 idle gaps by the
    host work that made the card wait;
-14. the analyses' groups of maps at full width: B1 on a stack of 4 maps
-   and B2 on 2 (the reference's groups at lmax 3000), at every ``nb``
+14. the groups of maps at full width: B1 and B3 on a stack of 4 maps, B2
+   and B4 on 2 (the reference's groups at lmax 3000), at every ``nb``
    dividing the stack, each bit for bit its ``nb = 1`` and timed beside
    its bound, the automatic group named; float64 and comp at every ``nb``
-   at a small shape (600 rings, orders 7..46, 8 maps), bit for bit their
-   ``nb = 1``.
+   of the four kernels at a small shape (600 rings, orders 7..46, 8
+   maps), bit for bit their ``nb = 1``; then the stacked syntheses' own
+   path: ``HealpixMapper(nside 1024, lmax 1536, iterations=3).transform``
+   of 8 float32 maps, spin 0 and spin 2 (its Jacobi steps synthesise the
+   stack), and ``synthesize`` of phase 3's four spin-0 alms stacked at
+   n4096 / l3000, each with exact launch counts by (kernel, nb), no plain
+   run, and bit for bit the same call with the syntheses' ``NB_LIMIT``
+   rows set to 1; B3 and B4 at every ``nb`` on a stack of 8 at n1024 /
+   l1536 against their plain versions, timed beside their bounds.
 
 Then a JSON line of the kernels (with each one's bound: the least time
 the card could take for the same work; the grouped launches of phase 9's
-region alms as ``<kernel>_nb<n>`` rows, timed at the DICES batch), the
+region alms and of phase 14's stacked syntheses as ``<kernel>_nb<n>``
+rows, timed at the DICES batch and at the transform's stack of 8), the
 card line, and the result line.
 """
 
@@ -272,9 +280,11 @@ FP64_TENSOR_PEAK = 67e12
 # step's own product, a new one in a pair: 5 at spin 0, 6 a pair column)
 # and the emit's d + lo: 15 and 41.
 # Of these, the recurrence and the emit are shared by the maps of a group
-# (nb > 1, the analyses' grouped launches): 5 of B1's 9 (4 + 1), 11 of
-# B2's 27 (9 + 2), 11 of B1 comp's 15, 25 of B2 comp's 41; each map pays
-# its contraction.
+# (nb > 1, the grouped launches): 5 of B1's and B3's 9 (4 + 1), 11 of B2's
+# and B4's 27 (9 + 2), 11 of the spin-0 comp kernels' 15, 25 of the pair
+# comp kernels' 41; each map pays its contraction (the analyses) or its
+# FMAs into its sums (the syntheses: sht_synthesis.cu and
+# sht_synthesis_pair.cu form each emitted value once for the group).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOP_PER_S = {torch.float32: 67e12, torch.float64: 67e12}
 FLOP_PER_TRIPLE = {"analysis_spin0_folded": 9, "analysis_pair_folded": 27,
@@ -284,8 +294,11 @@ FLOP_PER_TRIPLE = {"analysis_spin0_folded": 9, "analysis_pair_folded": 27,
                    "synthesis_spin0_folded_comp": 15,
                    "synthesis_pair_folded_comp": 41}
 FLOP_SHARED = {"analysis_spin0_folded": 5, "analysis_pair_folded": 11,
+               "synthesis_spin0_folded": 5, "synthesis_pair_folded": 11,
                "analysis_spin0_folded_comp": 11,
-               "analysis_pair_folded_comp": 25}
+               "analysis_pair_folded_comp": 25,
+               "synthesis_spin0_folded_comp": 11,
+               "synthesis_pair_folded_comp": 25}
 
 
 def check(ok, msg):
@@ -377,8 +390,15 @@ def kernel_label(entry):
     m = re.search(r"pair_analysis_kernelI([fd])Lb([01])E", entry)
     if m:
         return f"analy/pair/{prec(m.group(1))}{tail(m.group(2))}"
-    # the analyses on groups of nb maps: template <typename T, bool kComp,
-    # int NB>
+    # the kernels on groups of nb maps: template <typename T, bool kComp,
+    # int NB> (the syntheses first: "synth_pair_group_kernel" holds the
+    # pair analysis' name)
+    m = re.search(r"synth_(pair_)?group_kernelI([fd])Lb([01])ELi(\d)E",
+                  entry)
+    if m:
+        kind = "synth-pair" if m.group(1) else "synth-spin0"
+        return (f"group/{kind}/{prec(m.group(2))}/nb{m.group(4)}"
+                f"{tail(m.group(3))}")
     m = re.search(r"(pair|analysis)_group_kernelI([fd])Lb([01])ELi(\d)E",
                   entry)
     if m:
@@ -699,8 +719,8 @@ def sht_triples(batch, nhalf, nm, lmax, spin, m0=0):
 def sht_bound(name, batch, nhalf, nm, lmax, cdtype, m0=0, nb=1):
     """The bound of one SHT kernel launch of the orders m0..m0+nm-1: ring
     spectra and alms moved once (a ``*_comp`` name: the compensated
-    kernel, which also reads each ring's r); an analysis on groups of
-    ``nb`` maps runs its shared operations once per group."""
+    kernel, which also reads each ring's r); a launch on groups of ``nb``
+    maps runs its shared operations once per group."""
     pair = "pair_folded" in name
     nring, nalm = (4, 2) if pair else (2, 1)
     item = torch.empty((), dtype=cdtype).element_size()
@@ -2288,20 +2308,116 @@ def phase13(dev, smi, p3, b1_ms):
     print(f"phase 13 card {smi} ({time.perf_counter() - t:.1f} s)", flush=True)
 
 
-# phase 14: the grouped analyses at full width (stacks of the reference's
-# limits at lmax 3000, pallas_sht.py:3081-3090: 4 spin-0 maps, 2 spin
-# pairs), and float64 and comp at every nb at a small shape: 600 rings (a
-# tile of 512 and a ragged one), orders 7..46, a batch of 8
-GROUP_STACK = {"analysis_spin0_folded": 4, "analysis_pair_folded": 2}
+# phase 14: the groups of maps at full width (stacks of the reference's
+# limits at lmax 3000, pallas_sht.py:3081-3090, :2060-2063, :2851-2854: 4
+# spin-0 maps, 2 spin pairs, for the analyses and the syntheses), and
+# float64 and comp at every nb at a small shape: 600 rings (a tile of 512
+# and a ragged one), orders 7..46, a batch of 8
+GROUPED = DICES_KERNELS + SYNTHESIS_KERNELS
+GROUP_STACK = {"analysis_spin0_folded": 4, "analysis_pair_folded": 2,
+               "synthesis_spin0_folded": 4, "synthesis_pair_folded": 2}
 GROUP_SMALL = dict(nside=300, lmax=200, nm=40, m0=7, batch=8)
+# the stacked syntheses' path: HealpixMapper(nside 1024, lmax 1536,
+# 3 iterations).transform of 8 float32 maps, whose Jacobi steps synthesise
+# the stack (mapping.transform's stack of 8 at nside <= 2048)
+STACK_NSIDE, STACK_LMAX, STACK_MAPS = 1024, 1536, 8
 
 
-def phase14(dev, smi):
-    """The analyses on groups of maps at full width: each nb that divides
-    the stack bit for bit its nb = 1, timed (best of 3) beside its bound;
-    the automatic group named.  Then float64 and comp at every nb at a
-    small shape, bit for bit their nb = 1.  Returns the full-width times
-    by (kernel, nb)."""
+def _group_inputs(name, B, nhalf, lmax, nm, cdtype, gen, dev):
+    """Random operands of one kernel on a stack of B maps: spectra
+    (B, nhalf, nm) of an analysis, alms (B, lmax + 1, nm) of a synthesis."""
+    rows = nhalf if name.startswith("analysis") else lmax + 1
+    count = {"analysis_spin0_folded": 2, "analysis_pair_folded": 4,
+             "synthesis_spin0_folded": 1, "synthesis_pair_folded": 2}[name]
+    return [torch.randn((B, rows, nm), generator=gen, device=dev,
+                        dtype=cdtype) for _ in range(count)]
+
+
+def _as_tuple(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+def _stacked_path(dev, stack0, gen):
+    """The stacked syntheses' own path, each case with the counts zeroed
+    just before it and read just after: the exact launches by (kernel, nb),
+    no plain run, and the outputs bit for bit the same call with the
+    syntheses' NB_LIMIT rows set to 1.  Returns (launches by (kernel, nb)
+    over the path, text)."""
+    import heracles_tpu_torch as th
+    from heracles_tpu_torch.ops import sht_kernels
+
+    small = th.HealpixMapper(STACK_NSIDE, STACK_LMAX, dtype=torch.float32,
+                             device=dev, iterations=ITERATIONS)
+    full = th.HealpixMapper(NSIDE, LMAX, dtype=torch.float32, device=dev)
+    npix = 12 * STACK_NSIDE**2
+    maps0 = torch.randn((STACK_MAPS, npix), generator=gen, device=dev)
+    maps2 = torch.randn((STACK_MAPS, 2, npix), generator=gen, device=dev)
+
+    def pick(name, B):
+        return sht_kernels.pick_nb(B, STACK_LMAX, name)
+
+    B1, B2, B3, B4 = ("analysis_spin0_folded", "analysis_pair_folded",
+                      "synthesis_spin0_folded", "synthesis_pair_folded")
+    cases = (
+        ("transform spin 0", lambda: small.transform(maps0, spin=0),
+         B3, STACK_MAPS, {(B1, pick(B1, STACK_MAPS)): ITERATIONS + 1}),
+        ("transform spin 2", lambda: small.transform(maps2, spin=2),
+         B4, STACK_MAPS, {(B2, pick(B2, STACK_MAPS)): ITERATIONS + 1}),
+        ("synthesize", lambda: full.synthesize(stack0, spin=0), B3,
+         stack0.shape[0], {}),
+    )
+    total, parts = collections.Counter(), []
+    for label, fn, synth, B, want in cases:
+        nb = pick(synth, B)
+        check(nb > 1, f"phase 14 {label}: {synth} picks no group on {B} maps")
+        runs = {}
+        for limit in (None, 1):
+            saved = {n: dict(sht_kernels.NB_LIMIT[n])
+                     for n in SYNTHESIS_KERNELS}
+            try:
+                if limit:
+                    for n in SYNTHESIS_KERNELS:
+                        sht_kernels.NB_LIMIT[n].update(
+                            dict.fromkeys(saved[n], limit))
+                reset_counts()
+                out, sec = sync_time(fn)
+                _, plain_runs = counts()
+                by_nb = dict(sht_kernels.LAUNCHES_BY_NB)
+            finally:
+                for n in SYNTHESIS_KERNELS:
+                    sht_kernels.NB_LIMIT[n].update(saved[n])
+            expect = {**want, (synth, limit or nb): ITERATIONS
+                      if label.startswith("transform") else 1}
+            check(by_nb == expect, f"phase 14 {label} (synthesis nb limit "
+                  f"{limit}): launches by (kernel, nb) {by_nb}, expected "
+                  f"{expect}")
+            check(sum(plain_runs.values()) == 0,
+                  f"phase 14 {label}: plain versions ran: {plain_runs}")
+            check(bool(torch.isfinite(out.array).all()),
+                  f"phase 14 {label}: not finite")
+            runs[limit] = (out.array, sec, by_nb)
+            del out
+        check(same_bits((runs[None][0],), (runs[1][0],)),
+              f"phase 14 {label}: the automatic groups are not nb=1 bit for "
+              "bit")
+        total.update(runs[None][2])
+        shape = tuple(runs[None][0].shape)
+        parts.append(f"{label} {shape}: {runs[None][1]:.2f} s with the "
+                     f"automatic groups {runs[None][2]}, {runs[1][1]:.2f} s "
+                     f"at nb=1, bit for bit")
+        del runs
+    return dict(total), "; ".join(parts)
+
+
+def phase14(dev, smi, stack0):
+    """The four kernels on groups of maps at full width: each nb that
+    divides the stack bit for bit its nb = 1, timed (best of 3) beside its
+    bound; the automatic group named.  Then float64 and comp at every nb
+    at a small shape, bit for bit their nb = 1.  Then the stacked
+    syntheses' own path (:func:`_stacked_path`, ``stack0``: phase 3's four
+    spin-0 alms) and the syntheses at every nb at its transform's stack
+    against their plain versions.  Returns (the path's launches by
+    (kernel, nb), the syntheses' reports at that stack by nb)."""
     from heracles_tpu_torch.ops import sht, sht_kernels, wigner
 
     t = time.perf_counter()
@@ -2311,20 +2427,18 @@ def phase14(dev, smi):
     gen.manual_seed(14)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    times, parts = {}, []
+    parts = []
     for name, B in GROUP_STACK.items():
-        pair = name == "analysis_pair_folded"
-        F = [torch.randn((B, nhalf, nm), generator=gen, device=dev,
-                         dtype=torch.complex64)
-             for _ in range(4 if pair else 2)]
-        extra = (2,) if pair else ()
+        ops = _group_inputs(name, B, nhalf, LMAX, nm, torch.complex64, gen,
+                            dev)
+        extra = (2,) if name.endswith("pair_folded") else ()
         kernel = getattr(sht_kernels, name)
         auto = sht_kernels.pick_nb(B, LMAX, name)
         base, row = None, []
         for nb in (n for n in wigner.GROUP_SIZES[name] if B % n == 0):
-            got, ms = best_ms(lambda: kernel(*F, x, lch, lsh, LMAX, *extra,
+            got, ms = best_ms(lambda: kernel(*ops, x, lch, lsh, LMAX, *extra,
                                              nb=nb))
-            got = got if isinstance(got, tuple) else (got,)
+            got = _as_tuple(got)
             check(all(bool(torch.isfinite(g).all()) for g in got),
                   f"{name} nb={nb} at full width: not finite")
             if base is None:
@@ -2335,11 +2449,10 @@ def phase14(dev, smi):
             del got
             bound_ms, bound_by = sht_bound(name, B, nhalf, nm, LMAX,
                                            torch.complex64, nb=nb)
-            times[name, nb] = ms
             row.append(f"nb={nb}{' (auto)' if nb == auto else ''} {ms:.2f} "
                        f"ms, bound {bound_ms:.2f} ms ({bound_by})")
         parts.append(f"{name} on {B} maps: " + ", ".join(row))
-        del F, base
+        del ops, base
     peak = torch.cuda.max_memory_allocated()
 
     c = GROUP_SMALL
@@ -2347,22 +2460,20 @@ def phase14(dev, smi):
     x_lo = (z - z.float().double()).float()
     geom = ring_tensors(c["nside"], dev)
     small = []
-    for name in DICES_KERNELS:
-        pair = name == "analysis_pair_folded"
+    for name in GROUPED:
         kernel = getattr(sht_kernels, name)
         for mode in ("f64", "comp"):
             cdtype = torch.complex128 if mode == "f64" else torch.complex64
-            F = [torch.randn((c["batch"], 2 * c["nside"], c["nm"]),
-                             generator=gen, device=dev, dtype=cdtype)
-                 for _ in range(4 if pair else 2)]
+            ops = _group_inputs(name, c["batch"], 2 * c["nside"], c["lmax"],
+                                c["nm"], cdtype, gen, dev)
             kw = dict(m0=c["m0"])
             if mode == "comp":
                 kw.update(dd="comp", x_lo=x_lo)
-            args = (*F, *geom, c["lmax"], *((2,) if pair else ()))
+            args = (*ops, *geom, c["lmax"],
+                    *((2,) if name.endswith("pair_folded") else ()))
             base = None
             for nb in wigner.GROUP_SIZES[name]:
-                got = kernel(*args, nb=nb, **kw)
-                got = got if isinstance(got, tuple) else (got,)
+                got = _as_tuple(kernel(*args, nb=nb, **kw))
                 if base is None:
                     base = got
                 else:
@@ -2371,14 +2482,65 @@ def phase14(dev, smi):
             sizes = ",".join(map(str, wigner.GROUP_SIZES[name]))
             small.append(f"{name} {mode} nb={sizes}")
     torch.cuda.synchronize()
+
+    path_by_nb, path_txt = _stacked_path(dev, stack0, gen)
+
+    # the syntheses at the transform's stack, every nb (bit for bit nb = 1,
+    # which is held against the plain version; CUDA-event time, best of 3;
+    # the bound at that nb)
+    x, lch, lsh = sht._geometry(STACK_NSIDE, dev)
+    nm = STACK_LMAX + 1
+    dims = (STACK_MAPS, x.shape[0], nm)
+    report = {}
+    for name, tol in (("synthesis_spin0_folded", TOL[torch.complex64]),
+                      ("synthesis_pair_folded", PAIR_SYNTH_TOL32)):
+        ops = _group_inputs(name, STACK_MAPS, x.shape[0], STACK_LMAX, nm,
+                            torch.complex64, gen, dev)
+        extra = (2,) if name.endswith("pair_folded") else ()
+        kernel = getattr(sht_kernels, name)
+        plain = getattr(wigner, name + "_plain")
+        want, plain_ms = event_ms(lambda: plain(*ops, x, lch, lsh, STACK_LMAX,
+                                                *extra))
+        rows, base = {}, None
+        for nb in wigner.GROUP_SIZES[name]:
+            got, ms = best_ms(lambda: kernel(*ops, x, lch, lsh, STACK_LMAX,
+                                             *extra, nb=nb))
+            if base is None:
+                errs = [compare(g, p, *tol, what=f"{name} stack")
+                        for g, p in zip(got, want)]
+                base = got
+            else:
+                check(same_bits(got, base), f"{name} nb={nb} is not nb=1 bit "
+                      "for bit at the transform's stack")
+            bound_ms, bound_by = sht_bound(name, *dims, STACK_LMAX,
+                                           torch.complex64, nb=nb)
+            rows[nb] = dict(ms=ms, bound_ms=bound_ms, bound_by=bound_by)
+            del got
+        report[name] = dict(max_abs_err=max(e[0] for e in errs),
+                            rel=max(e[1] for e in errs), plain_ms=plain_ms,
+                            by_nb=rows)
+        del ops, want, base
+    auto = {n: sht_kernels.pick_nb(STACK_MAPS, STACK_LMAX, n) for n in report}
+    kern_txt = "; ".join(
+        f"{n} at {STACK_MAPS} maps n{STACK_NSIDE} l{STACK_LMAX}: plain "
+        f"{r['plain_ms']:.1f} ms, nb=1 max|d| {r['max_abs_err']:.2e} "
+        f"({r['rel']:.1e} of max), every nb bit for bit nb=1; " + ", ".join(
+            f"nb={nb}{' (auto)' if nb == auto[n] else ''} {row['ms']:.2f} ms "
+            f"(bound {row['bound_ms']:.2f} ms, {row['bound_by']})"
+            for nb, row in r["by_nb"].items())
+        for n, r in report.items())
+    torch.cuda.synchronize()
     print(f"phase 14 groups of maps at n{NSIDE} l{LMAX} f32, each bit for "
           f"bit nb=1: {'; '.join(parts)}; peak {peak / 2**30:.2f} GiB above "
           f"what earlier phases hold; "
           f"bit for bit nb=1 at nside {c['nside']} l{c['lmax']} orders "
           f"{c['m0']}..{c['m0'] + c['nm'] - 1} batch {c['batch']}: "
-          f"{'; '.join(small)}; card {smi} "
+          f"{'; '.join(small)}; the stacked syntheses' path (n{STACK_NSIDE} "
+          f"l{STACK_LMAX}, {ITERATIONS} iterations, {STACK_MAPS} maps; "
+          f"synthesize at n{NSIDE} l{LMAX}): {path_txt}; launches by "
+          f"(kernel, nb) over the path {path_by_nb}; {kern_txt}; card {smi} "
           f"({time.perf_counter() - t:.1f} s)", flush=True)
-    return times
+    return path_by_nb, report
 
 
 def main():
@@ -2429,7 +2591,7 @@ def main():
         f"{name.rsplit('_', 1)[0]} nb{nb} " + "/".join(
             str(kl.blocks_per_sm(name.rsplit("_", 1)[0], d, comp=c, nb=nb))
             for d, c in ((False, False), (True, False), (False, True)))
-        for name in DICES_KERNELS for nb in wigner.GROUP_SIZES[name][1:])
+        for name in GROUPED for nb in wigner.GROUP_SIZES[name][1:])
     # an existing build has no compiler log to read
     ptxas = ptxas_summary(kl.log) if kl.seconds else "ptxas: no log, built before"
     rows = ptxas.split("; ")
@@ -2443,13 +2605,13 @@ def main():
                  and not row.startswith("group/")]
     check(not kl.seconds or len(comp_rows) == 7,
           f"a comp instantiation is missing: {comp_rows}")
-    # every grouped instantiation (f32, f64, comp at each nb > 1), none
-    # spilling
+    # every grouped instantiation of the four kernels (f32, f64, comp at
+    # each nb > 1), none spilling
     group_rows = [row for row in rows if row.startswith("group/")]
-    n_groups = 3 * sum(len(wigner.GROUP_SIZES[n]) - 1 for n in DICES_KERNELS)
+    n_groups = 3 * sum(len(wigner.GROUP_SIZES[n]) - 1 for n in GROUPED)
     check(not kl.seconds or (len(group_rows) == n_groups and all(
         row.endswith(", 0 B spill") for row in group_rows)),
-          f"a grouped analysis spills, or an instantiation is missing: "
+          f"a grouped kernel spills, or an instantiation is missing: "
           f"{group_rows}")
     print(f"phase 1 build: nvcc {kl.seconds:.1f} s -> {kl.path.name}; "
           f"{ptxas}; gram DMMA instructions {dmma}; spread SASS (shared "
@@ -2692,6 +2854,10 @@ def main():
 
     # -- phase 8: dd=, resample, map_values --------------------------------
     phase8(dev, maps, page, *pos_alms, smi)
+    # phase 3's four spin-0 alms (POS and VIS of both bins) stacked, which
+    # phase 14 synthesises at once
+    stack0 = torch.stack([alms[k, i].array for k in ("POS", "VIS")
+                          for i in range(NBINS)])
     # what phase 11 holds against: phase 3's POS and SHE maps of both bins,
     # their alms, the mask spectrum and the POS x POS mixing matrix
     p3 = dict(
@@ -2722,8 +2888,10 @@ def main():
     phase13(dev, smi, p3, report["analysis_spin0_folded"]["ms"])
     del p3
 
-    # -- phase 14: the analyses' groups of maps at full width -------------
-    phase14(dev, smi)
+    # -- phase 14: the groups of maps at full width, and the stacked
+    # syntheses' own path ---------------------------------------------------
+    path_by_nb, path_report = phase14(dev, smi, stack0)
+    del stack0
 
     def mean(key):
         return float(np.mean([c[key] for c in contractions.values()]))
@@ -2760,6 +2928,19 @@ def main():
             continue
         source, replaces = KERNELS[name]
         r = dices_report[name]
+        kernels.append({
+            "name": f"{name}_nb{nb}", "route": "cuda", "source": source,
+            "replaces": replaces, "launches": n,
+            "max_abs_err": r["max_abs_err"], "ms": r["by_nb"][nb]["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["by_nb"][nb]["bound_ms"],
+            "bound_by": r["by_nb"][nb]["bound_by"], "library_ms": None})
+    # the grouped launches of the stacked syntheses' path (phase 14), timed
+    # at its transform's stack
+    for (name, nb), n in sorted(path_by_nb.items()):
+        if nb == 1 or not name.startswith("synthesis"):
+            continue
+        source, replaces = KERNELS[name]
+        r = path_report[name]
         kernels.append({
             "name": f"{name}_nb{nb}", "route": "cuda", "source": source,
             "replaces": replaces, "launches": n,

@@ -45,8 +45,8 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _D = ctypes.c_double
 # every extern "C" function of SOURCES: name -> (restype, argtypes); the
-# launchers return cudaGetLastError() as an int; the analysis launchers
-# take the group size nb after m0
+# launchers return cudaGetLastError() as an int; the SHT launchers take
+# the group size nb after m0 (the diagnostic paths launchers excepted)
 _SIGNATURES = {
     "heracles_analysis_spin0_f32": (_I, [_P] * 7 + [_I] * 6 + [_P]),
     "heracles_analysis_spin0_f64": (_I, [_P] * 7 + [_I] * 6 + [_P]),
@@ -59,20 +59,20 @@ _SIGNATURES = {
     "heracles_analysis_pair_f64": (_I, [_P] * 10 + [_I] * 7 + [_P]),
     "heracles_analysis_pair_comp_f32": (_I, [_P] * 11 + [_I] * 7 + [_P]),
     "heracles_analysis_pair_blocks_per_sm": (_I, [_I, _I, _P]),
-    "heracles_synthesis_spin0_f32": (_I, [_P] * 7 + [_I] * 5 + [_P]),
-    "heracles_synthesis_spin0_f64": (_I, [_P] * 7 + [_I] * 5 + [_P]),
+    "heracles_synthesis_spin0_f32": (_I, [_P] * 7 + [_I] * 6 + [_P]),
+    "heracles_synthesis_spin0_f64": (_I, [_P] * 7 + [_I] * 6 + [_P]),
     "heracles_synthesis_spin0_paths_f32": (_I, [_P] * 8 + [_I] * 5 + [_P]),
-    "heracles_synthesis_spin0_comp_f32": (_I, [_P] * 8 + [_I] * 5 + [_P]),
+    "heracles_synthesis_spin0_comp_f32": (_I, [_P] * 8 + [_I] * 6 + [_P]),
     "heracles_synthesis_spin0_comp_paths_f32": (_I, [_P] * 9 + [_I] * 5
                                                 + [_P]),
-    "heracles_synthesis_spin0_blocks_per_sm": (_I, [_I, _P]),
-    "heracles_synthesis_pair_f32": (_I, [_P] * 10 + [_I] * 6 + [_P]),
-    "heracles_synthesis_pair_f64": (_I, [_P] * 10 + [_I] * 6 + [_P]),
+    "heracles_synthesis_spin0_blocks_per_sm": (_I, [_I, _I, _P]),
+    "heracles_synthesis_pair_f32": (_I, [_P] * 10 + [_I] * 7 + [_P]),
+    "heracles_synthesis_pair_f64": (_I, [_P] * 10 + [_I] * 7 + [_P]),
     "heracles_synthesis_pair_paths_f32": (_I, [_P] * 11 + [_I] * 6 + [_P]),
-    "heracles_synthesis_pair_comp_f32": (_I, [_P] * 11 + [_I] * 6 + [_P]),
+    "heracles_synthesis_pair_comp_f32": (_I, [_P] * 11 + [_I] * 7 + [_P]),
     "heracles_synthesis_pair_comp_paths_f32": (_I, [_P] * 12 + [_I] * 6
                                                + [_P]),
-    "heracles_synthesis_pair_blocks_per_sm": (_I, [_I, _P]),
+    "heracles_synthesis_pair_blocks_per_sm": (_I, [_I, _I, _P]),
     "heracles_gram_f64": (_I, [_P] * 4 + [_I] * 3 + [_P]),
     "heracles_fma_peak_f32": (_I, [_P] * 3 + [_I] * 4 + [_P]),
     "heracles_fma_peak_f64": (_I, [_P] * 3 + [_I] * 4 + [_P]),
@@ -100,14 +100,11 @@ class KernelLibrary:
         """Resident blocks per SM of ``analysis_spin0``, ``analysis_pair``,
         ``synthesis_spin0`` or ``synthesis_pair`` (none's shared memory
         grows with lmax); ``comp``: the compensated float32 instantiation;
-        ``nb``: an analysis kernel's group of maps."""
+        ``nb``: the group of maps."""
         n = ctypes.c_int(0)
         fn = getattr(self.lib, f"heracles_{kernel}_blocks_per_sm")
         variant = 2 if comp else int(is_double)
-        group = (nb,) if kernel.startswith("analysis") else ()
-        if not group and nb != 1:
-            raise ValueError(f"{kernel} takes no group of maps")
-        self.check(fn(variant, *group, ctypes.addressof(n)))
+        self.check(fn(variant, nb, ctypes.addressof(n)))
         return n.value
 
 

@@ -3,13 +3,12 @@
 Counterpart of :mod:`heracles_tpu.ops.pallas_sht`.
 :func:`analysis_spin0_folded`, :func:`analysis_pair_folded`,
 :func:`synthesis_spin0_folded` and :func:`synthesis_pair_folded` keep the
-signatures and return layouts of their Pallas twins, ``dd`` and ``x_lo``
-included (and the two analyses' ``nb``), minus the arguments that tune
-the TPU or emulate float64 seeds on it (``interpret``, ``contract``,
-``skip``, ``ring_block``, ``m_chunk``, ``l_chunk``, ``seed_planes``,
-``logch_lo`` and ``logsh_lo``: the kernels read the logs in float64; the
-syntheses' ``nb``, whose grouped kernels are not written yet).  The
-tensor decides the path:
+signatures and return layouts of their Pallas twins, ``dd``, ``x_lo``
+and ``nb`` included, minus the arguments that tune the TPU or emulate
+float64 seeds on it (``interpret``, ``contract``, ``skip``,
+``ring_block``, ``m_chunk``, ``l_chunk``, ``seed_planes``, ``logch_lo``
+and ``logsh_lo``: the kernels read the logs in float64).  The tensor
+decides the path:
 
 * a CPU tensor takes the plain version (:mod:`.wigner`);
 * a CUDA tensor launches the hand-written kernel
@@ -24,11 +23,12 @@ tensor decides the path:
   of float64 cos(theta) (None: a zero stream, the plain kernel's values).
   complex128 ignores ``dd``.
 
-The two analyses run a batch of B maps in groups of ``nb``, the twin of
-the reference's ``nb`` program: one block per (order, group) runs the
-Wigner recurrence once and contracts it against every map of the group,
-each map's sums taken in the order of the ``nb = 1`` kernel, so every
-``nb`` gives the same numbers bit for bit.  ``nb=None`` picks the group
+All four run a batch of B maps in groups of ``nb``, the twin of the
+reference's ``nb`` program: one block per (order, group) runs the Wigner
+recurrence once and contracts it against every map of the group (the
+analyses) or sums it against every map's alms (the syntheses), each
+map's sums taken in the order of the ``nb = 1`` kernel, so every ``nb``
+gives the same numbers bit for bit.  ``nb=None`` picks the group
 with :func:`pick_nb`; an ``nb`` that has no instantiation
 (``wigner.GROUP_SIZES``) or does not divide B raises ValueError on every
 device.
@@ -88,19 +88,21 @@ def reset_counts():
     wigner.PLAIN_RUNS_BY_PRECISION.clear()
 
 
-# the largest group of maps pick_nb takes, by analysis kernel and
-# precision ("f32c": the compensated float32 kernel); pick_nb's docstring
-# has the times they rest on
+# the largest group of maps pick_nb takes, by kernel and precision
+# ("f32c": the compensated float32 kernel); pick_nb's docstring has the
+# times they rest on
 NB_LIMIT = {
     "analysis_spin0_folded": {"f32": 4, "f64": 4, "f32c": 4},
     "analysis_pair_folded": {"f32": 4, "f64": 2, "f32c": 4},
+    "synthesis_spin0_folded": {"f32": 4, "f64": 4, "f32c": 4},
+    "synthesis_pair_folded": {"f32": 4, "f64": 4, "f32c": 4},
 }
 
 
 def pick_nb(B, lmax, name, precision="f32"):
-    """The group of maps of an analysis launch on a batch of ``B``: the
-    largest ``nb`` of ``wigner.GROUP_SIZES[name]`` that divides ``B`` and is
-    at most ``NB_LIMIT[name][precision]``; 1 for B = 1.
+    """The group of maps of a launch on a batch of ``B``: the largest
+    ``nb`` of ``wigner.GROUP_SIZES[name]`` that divides ``B`` and is at
+    most ``NB_LIMIT[name][precision]``; 1 for B = 1.
 
     The limits are the fastest group of a batch of 8 on the card: ms a
     launch at nside 1024, lmax 1536 (``tools/sht_kernel_bench.py --nside
@@ -116,14 +118,27 @@ def pick_nb(B, lmax, name, precision="f32"):
     B2 f32     23.19  16.23  14.55*         4, 4, 3
     B2 f64     37.28  32.33* 38.20          2, 2, 1
     B2 comp    36.25  21.96  19.58*         3, 4, 3
+    B3 f32     6.74   4.53   3.60*  4.14    7, 5, 5, 5
+    B3 f64     9.98   7.08   5.55*  6.79    5, 3, 3, 3
+    B3 comp    10.87  6.86   4.86*  4.62    6, 5, 5, 5
+    B4 f32     17.77  12.17  10.77*         4, 4, 4
+    B4 f64     29.40  19.46  18.11*         2, 2, 2
+    B4 comp    34.32  16.33  13.04*         3, 4, 4
     ========== ====== ====== ====== ======  =====================
 
-    A group's shared memory (the ring tile's spectra of its maps) cuts
-    its blocks per SM, which is where nb 8 of B1 and nb 4 of B2 in
-    float64 lose.  At nside 4096, lmax 3000 (4 maps) the groups of every
-    precision rank the same.  ``lmax`` is the reference's argument (its limit came from the
-    TPU's VMEM); no kernel's shared memory grows with it on the card, so
-    the rule does not read it.
+    An analysis group's shared memory (the ring tile's spectra of its
+    maps) cuts its blocks per SM, which is where nb 8 of B1 and nb 4 of
+    B2 in float64 lose.  A synthesis group keeps its sums in registers
+    and owns fewer rings a thread as nb grows, so a block's tile of rings
+    shrinks and each tile reads the order's alm column again.  B3's nb 8
+    (a tile of 128 rings) wins only in comp here, and loses in comp too
+    at nside 4096, lmax 3000 on 8 maps (B3 comp 143.01 / 83.18 / 58.34 /
+    77.81 ms at nb 1 / 2 / 4 / 8), where B4's float32 nb 2 edges out nb 4
+    (220.24 / 163.19 / 170.25 ms): the limits take the group that loses
+    by at most 5% at either size.  The analyses' groups rank the same at
+    both sizes.  ``lmax`` is the reference's argument (its limit came
+    from the TPU's VMEM); no kernel's shared memory grows with it on the
+    card, so the rule does not read it.
     """
     del lmax
     limit = NB_LIMIT[name][precision]
@@ -132,7 +147,7 @@ def pick_nb(B, lmax, name, precision="f32"):
 
 
 def _group(name, nb, F, lmax, dd):
-    """The group size of an analysis call on the spectra ``F``: ``nb``
+    """The group size of a call on the spectra or alms ``F``: ``nb``
     checked, or :func:`pick_nb`'s for None."""
     B = int(np.prod(F.shape[:-2], dtype=np.int64))
     if nb is None:
@@ -219,8 +234,8 @@ def _launch(name, inputs, x, logch, logsh, lmax, spin, out_rows, nout,
     are its (..., rows, nm) complex operands, column c being the order
     m0 + c, and each output is (..., out_rows, nm).  ``x_lo`` (complex64
     only) launches the compensated float32 instantiation, with each
-    ring's r = x_lo / x_hi (:func:`wigner.comp_ratio`).  ``nb``: an
-    analysis' group of maps (checked by the caller).  ``paths=True``
+    ring's r = x_lo / x_hi (:func:`wigner.comp_ratio`).  ``nb``: the
+    group of maps (checked by the caller).  ``paths=True``
     launches the kernel's diagnostic twin instead (float32 and nb = 1
     only, not counted in ``LAUNCHES``) and returns its three path counts
     as an int64 tensor.
@@ -262,9 +277,8 @@ def _launch(name, inputs, x, logch, logsh, lmax, spin, out_rows, nout,
                          f"{'paths_' if paths else ''}"
                          f"{'f64' if is_double else 'f32'}")
     counts = [torch.zeros(3, dtype=torch.int64, device=dev)] if paths else []
-    group = (nb,) if direction == "analysis" and not paths else ()
     ints = ((B, x.shape[0], nm, lmax) + ((int(spin),) if pair else ())
-            + (m0,) + group)
+            + (m0,) + (() if paths else (nb,)))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(*(t.data_ptr() for t in flat), xv.data_ptr(),
@@ -375,45 +389,48 @@ def analysis_pair_folded(FNp, Sp, FNm, Sm, x, logch, logsh, lmax, spin,
 
 
 def synthesis_spin0_folded(alm, x, logch, logsh, lmax, m0=0, *, dd=False,
-                           x_lo=None):
+                           x_lo=None, nb=None):
     """Folded spin-0 synthesis: rectangular alm -> (GN, GS) ring spectra.
 
     ``alm``: (..., lmax+1, nm) complex; ``x``/``logch``/``logsh``: (nhalf,)
     northern-ring geometry as for :func:`analysis_spin0_folded`.  Returns
     GN = sum_l alm lam (the northern rings) and GS = (-1)^m sum_l (-1)^l
     alm lam (their mirrored southern partners), each (..., nhalf, nm).
-    Column c is the order ``m0`` + c.  ``dd`` and ``x_lo`` as the
-    reference's (module docstring).
+    Column c is the order ``m0`` + c.  ``dd``, ``x_lo`` and ``nb`` as for
+    :func:`analysis_spin0_folded`.
     """
+    name = "synthesis_spin0_folded"
     lmax, m0 = int(lmax), int(m0)
-    _check("synthesis_spin0_folded", "alms", (alm,), lmax + 1,
-           (x, logch, logsh), x.shape[0])
+    _check(name, "alms", (alm,), lmax + 1, (x, logch, logsh), x.shape[0])
+    nb = _group(name, nb, alm, lmax, dd)
     return _run(
         _mode(dd, alm.dtype), x, x_lo, (alm,),
         lambda a, x_lo: wigner.synthesis_spin0_folded_plain(
-            a, x, logch, logsh, lmax, m0, x_lo=x_lo),
-        lambda a, x_lo: _launch("synthesis_spin0_folded", a, x, logch, logsh,
-                                lmax, None, x.shape[0], 2, m0=m0, x_lo=x_lo))
+            a, x, logch, logsh, lmax, m0, x_lo=x_lo, nb=nb),
+        lambda a, x_lo: _launch(name, a, x, logch, logsh, lmax, None,
+                                x.shape[0], 2, m0=m0, x_lo=x_lo, nb=nb))
 
 
 def synthesis_pair_folded(alm_p, alm_m, x, logch, logsh, lmax, spin, m0=0, *,
-                          dd=False, x_lo=None):
+                          dd=False, x_lo=None, nb=None):
     """Folded spin-pair synthesis; returns (GNp, GSp, GNm, GSm).
 
     ``alm_p``/``alm_m``: (..., lmax+1, nm) alms of the n = +spin and
     n = -spin columns.  GNp = sum a_p lam_p and GNm = sum a_m lam_m on
     the northern rings; GSp = (-1)^m sum (-1)^l a_p lam_m and
     GSm = (-1)^m sum (-1)^l a_m lam_p on their mirrored southern partners.
-    Column c is the order ``m0`` + c.  ``dd`` and ``x_lo`` as the
-    reference's (module docstring).  Each is (..., nhalf, nm).
+    Column c is the order ``m0`` + c.  ``dd``, ``x_lo`` and ``nb`` as for
+    :func:`analysis_spin0_folded`.  Each is (..., nhalf, nm).
     """
+    name = "synthesis_pair_folded"
     lmax, m0 = int(lmax), int(m0)
-    _check("synthesis_pair_folded", "alms", (alm_p, alm_m), lmax + 1,
-           (x, logch, logsh), x.shape[0])
+    _check(name, "alms", (alm_p, alm_m), lmax + 1, (x, logch, logsh),
+           x.shape[0])
     spin = abs(int(spin))
+    nb = _group(name, nb, alm_p, lmax, dd)
     return _run(
         _mode(dd, alm_p.dtype), x, x_lo, (alm_p, alm_m),
         lambda ap, am, x_lo: wigner.synthesis_pair_folded_plain(
-            ap, am, x, logch, logsh, lmax, spin, m0, x_lo=x_lo),
-        lambda a, x_lo: _launch("synthesis_pair_folded", a, x, logch, logsh,
-                                lmax, spin, x.shape[0], 4, m0=m0, x_lo=x_lo))
+            ap, am, x, logch, logsh, lmax, spin, m0, x_lo=x_lo, nb=nb),
+        lambda a, x_lo: _launch(name, a, x, logch, logsh, lmax, spin,
+                                x.shape[0], 4, m0=m0, x_lo=x_lo, nb=nb))

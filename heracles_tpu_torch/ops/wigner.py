@@ -28,9 +28,9 @@ both are rounded to the working type, exactly as the kernels do.  Given
 the kernels' compensated (comp) recurrence: a second stream per lane that
 corrects the float32 truncation of x (:func:`comp_ratio`,
 ``csrc/wigner_recurrence.cuh``), step by step as the kernels' comp
-instantiations do.  The analysis versions take the kernels' group of
-maps ``nb`` (:data:`GROUP_SIZES`, :func:`check_group`) and check it as
-the kernels do; they are vectorised over the batch whatever it is.
+instantiations do.  The four versions take the kernels' group of maps
+``nb`` (:data:`GROUP_SIZES`, :func:`check_group`) and check it as the
+kernels do; they are vectorised over the batch whatever it is.
 
 The mixing matrices' host-f64 tables (:func:`wigner_table_host`,
 :func:`legendre_sum_host`) are numpy, carried over unchanged.
@@ -81,11 +81,13 @@ PLAIN_RUNS = collections.Counter()
 PLAIN_RUNS_BY_PRECISION = collections.Counter()
 
 
-# the groups of maps that share one recurrence in the analysis kernels'
-# launches: the instantiations of csrc/sht_analysis.cu and
-# csrc/sht_analysis_pair.cu (the reference's pair limit is 4)
+# the groups of maps that share one recurrence in the kernels' launches:
+# the instantiations of csrc/sht_analysis.cu, sht_analysis_pair.cu,
+# sht_synthesis.cu and sht_synthesis_pair.cu
 GROUP_SIZES = {"analysis_spin0_folded": (1, 2, 4, 8),
-               "analysis_pair_folded": (1, 2, 4)}
+               "analysis_pair_folded": (1, 2, 4),
+               "synthesis_spin0_folded": (1, 2, 4, 8),
+               "synthesis_pair_folded": (1, 2, 4)}
 
 
 def check_group(name, nb, batch):
@@ -628,12 +630,18 @@ def analysis_pair_folded_plain(FNp, Sp, FNm, Sm, x, logch, logsh, lmax, spin,
 
 
 def synthesis_spin0_folded_plain(alm, x, logch, logsh, lmax, m0=0, *,
-                                 x_lo=None):
+                                 x_lo=None, nb=1):
     """Plain version of the spin-0 synthesis kernel (same signature).
 
     GN = sum_l alm lam and GS = (-1)^m sum_l (-1)^l alm lam, each
-    (..., nhalf, nm), column c holding the order m0 + c.
+    (..., nhalf, nm), column c holding the order m0 + c.  ``nb`` is
+    checked (:func:`check_group`) and changes nothing here.  The
+    reference takes any divisor of the batch (``pallas_sht.py:3081``, 3
+    included); here a size without an instantiation raises ValueError,
+    and since every ``nb`` gives the same numbers the results agree all
+    the same.
     """
+    check_group("synthesis_spin0_folded", nb, _batch(alm))
     _count_run("synthesis_spin0_folded", alm.dtype, x_lo)
     nm = alm.shape[-1]
     return lambda_synthesis_scan_folded(m0 + np.arange(nm), 0, x, logch,
@@ -641,13 +649,15 @@ def synthesis_spin0_folded_plain(alm, x, logch, logsh, lmax, m0=0, *,
 
 
 def synthesis_pair_folded_plain(alm_p, alm_m, x, logch, logsh, lmax, spin,
-                                m0=0, *, x_lo=None):
+                                m0=0, *, x_lo=None, nb=1):
     """Plain version of the spin-pair synthesis kernel (same signature).
 
     GNp = sum a_p lam_p, GSp = (-1)^m sum (-1)^l a_p lam_m,
     GNm = sum a_m lam_m, GSm = (-1)^m sum (-1)^l a_m lam_p; returns
-    (GNp, GSp, GNm, GSm), column c holding the order m0 + c.
+    (GNp, GSp, GNm, GSm), column c holding the order m0 + c.  ``nb`` is
+    checked (:func:`check_group`) and changes nothing here.
     """
+    check_group("synthesis_pair_folded", nb, _batch(alm_p))
     _count_run("synthesis_pair_folded", alm_p.dtype, x_lo)
     nm = alm_p.shape[-1]
     ms = np.tile(m0 + np.arange(nm), 2)

@@ -1057,8 +1057,9 @@ def test_comp_blocks_per_sm(cuda):
 # 600 rings: a whole tile of 512 and a ragged one; orders 7..46, columns
 # of up to 194 multipoles (two sections of 128); a batch of 8
 _NB_CASE = dict(nside=300, lmax=200, nm=40, m0=7, batch=8)
-_ANALYSES = ("analysis_spin0_folded", "analysis_pair_folded")
-# sha256[:16] of the nb = 1 outputs of the kernels before the grouped
+_GROUPED = ("analysis_spin0_folded", "analysis_pair_folded",
+            "synthesis_spin0_folded", "synthesis_pair_folded")
+# sha256[:16] of the nb = 1 outputs of each kernel before its grouped
 # launch was added, on _nb_inputs' seeded inputs: printed by this file run
 # as a script with that checkout's package first on PYTHONPATH
 _NB1_DIGESTS = {
@@ -1068,6 +1069,12 @@ _NB1_DIGESTS = {
     ("analysis_pair_folded", "f32"): "89859442d1c5fe49",
     ("analysis_pair_folded", "f64"): "a915b5ec7c986e45",
     ("analysis_pair_folded", "comp"): "7a936e2956f0ef33",
+    ("synthesis_spin0_folded", "f32"): "abb6e21b5106b4c9",
+    ("synthesis_spin0_folded", "f64"): "955329ee25d0ee87",
+    ("synthesis_spin0_folded", "comp"): "3f3a2ad16b46278a",
+    ("synthesis_pair_folded", "f32"): "2e1ae97559e5e940",
+    ("synthesis_pair_folded", "f64"): "32a80db7d7b6bb7a",
+    ("synthesis_pair_folded", "comp"): "061bba8f65622210",
 }
 
 
@@ -1075,14 +1082,19 @@ def _nb_inputs(name, mode, device):
     """Seeded inputs of the grouped-launch tests: (args, keywords)."""
     c = _NB_CASE
     cdtype = torch.complex128 if mode == "f64" else torch.complex64
-    nspec = 2 if name == "analysis_spin0_folded" else 4
-    F, geom = _inputs(c["nside"], c["lmax"], c["batch"], nspec, cdtype,
-                      device, 21, nm=c["nm"])
+    if name.startswith("analysis"):
+        nspec = 2 if name == "analysis_spin0_folded" else 4
+        F, geom = _inputs(c["nside"], c["lmax"], c["batch"], nspec, cdtype,
+                          device, 21, nm=c["nm"])
+    else:
+        nalm = 1 if name == "synthesis_spin0_folded" else 2
+        F, geom = _alms(c["nside"], c["lmax"], c["batch"], nalm, cdtype,
+                        device, 22, nm=c["nm"])
     kw = dict(m0=c["m0"])
     if mode == "comp":
         z = torch.as_tensor(ring_geometry(c["nside"])["z"][:2 * c["nside"]])
         kw.update(dd="comp", x_lo=(z - z.float().double()).float())
-    extra = (2,) if name == "analysis_pair_folded" else ()
+    extra = (2,) if name.endswith("pair_folded") else ()
     return (*F, *geom, c["lmax"], *extra), kw
 
 
@@ -1093,7 +1105,7 @@ def _bits(out):
 
 
 @pytest.mark.parametrize("mode", ["f32", "f64", "comp"])
-@pytest.mark.parametrize("name", _ANALYSES)
+@pytest.mark.parametrize("name", _GROUPED)
 def test_every_nb_is_bit_for_bit_nb1(cuda, name, mode):
     """Each grouped instantiation gives the nb = 1 kernel's outputs bit for
     bit (signed zeros included), and one launch a call."""
@@ -1120,28 +1132,34 @@ def _nb1_digest(name, mode, device, **nb):
 
 
 @pytest.mark.parametrize("mode", ["f32", "f64", "comp"])
-@pytest.mark.parametrize("name", _ANALYSES)
+@pytest.mark.parametrize("name", _GROUPED)
 def test_nb1_keeps_the_parents_digest(cuda, name, mode):
     assert _nb1_digest(name, mode, cuda, nb=1) == _NB1_DIGESTS[name, mode]
 
 
-def test_a_group_without_an_instantiation_raises_on_the_card(cuda):
+@pytest.mark.parametrize("name", _GROUPED)
+def test_a_group_without_an_instantiation_raises_on_the_card(cuda, name):
     """No fallback: the launcher refuses an nb it has no kernel for (the
     wrappers refuse it before), and the error reaches the caller."""
-    args, _ = _nb_inputs("analysis_spin0_folded", "f32", cuda)
+    args, _ = _nb_inputs(name, "f32", cuda)
     with pytest.raises(ValueError, match="no instantiation"):
-        sht_kernels.analysis_spin0_folded(*args, nb=3)
-    Fe, Fo, x, lch, lsh, lmax = args
+        getattr(sht_kernels, name)(*args, nb=3)
+    pair = name.endswith("pair_folded")
+    nin = {"analysis": 4 if pair else 2, "synthesis": 2 if pair else 1}[
+        name.split("_")[0]]
+    ops, (x, lch, lsh, lmax) = args[:nin], args[nin:nin + 4]
+    rows, nout = ((lmax + 1, 2 if pair else 1) if name.startswith("analysis")
+                  else (x.shape[0], 4 if pair else 2))
     with pytest.raises(RuntimeError, match="CUDA kernel launch failed"):
-        sht_kernels._launch("analysis_spin0_folded", (Fe, Fo), x, lch, lsh,
-                            lmax, None, lmax + 1, 1, nb=3)
+        sht_kernels._launch(name, ops, x, lch, lsh, lmax, 2 if pair else None,
+                            rows, nout, nb=3)
 
 
 def test_group_blocks_per_sm(cuda):
     from heracles_tpu_torch.ops import _build
 
     kl = _build.load_library()
-    for name in _ANALYSES:
+    for name in _GROUPED:
         kernel = name.rsplit("_", 1)[0]
         for nb in wigner.GROUP_SIZES[name]:
             for is_double, comp in ((False, False), (True, False),
@@ -1152,6 +1170,6 @@ def test_group_blocks_per_sm(cuda):
 
 if __name__ == "__main__":
     # the nb = 1 digests of the package first on the path (a checkout
-    # without groups of maps takes no nb)
+    # without a kernel's groups of maps takes no nb for it)
     for key in _NB1_DIGESTS:
         print(key, _nb1_digest(*key, torch.device("cuda")))

@@ -588,10 +588,6 @@ _DROPPED_KEYWORDS = {
                                     "strategy (a halving tree or FMAs)",
     ("ops.pallas_sht", "skip"): "the TPU synthesis' block-skip heuristic",
     ("ops.pallas_sht", "interpret"): "Pallas interpret mode",
-    ("ops.pallas_sht", "nb", "synthesis_spin0_folded"): (
-        "the synthesis kernels' nb: the next slice (ROADMAP B)"),
-    ("ops.pallas_sht", "nb", "synthesis_pair_folded"): (
-        "the synthesis kernels' nb: the next slice (ROADMAP B)"),
     ("ops.pallas_sht", "logch_lo"): "float32 residuals of the seed's logs: "
                                     "the kernels read the logs in float64",
     ("ops.pallas_sht", "logsh_lo"): "as logch_lo",

@@ -255,6 +255,10 @@ def test_summarise_refuses(trace, match):
      "float const*)", "B1 analysis_group_kernel<float, false, 8>"),
     ("void (anonymous namespace)::pair_group_kernel<double, false, 4>("
      "double const*)", "B2 pair_group_kernel<double, false, 4>"),
+    ("void (anonymous namespace)::synth_group_kernel<float, true, 8>("
+     "float const*)", "B3 synth_group_kernel<float, true, 8>"),
+    ("void (anonymous namespace)::synth_pair_group_kernel<double, false, "
+     "2>(double const*)", "B4 synth_pair_group_kernel<double, false, 2>"),
     ("void (anonymous namespace)::synthesis_kernel<float, false, false>("
      "float2 const*, float*)", "B3 synthesis_kernel<float, false, false>"),
     ("void (anonymous namespace)::pair_synthesis_kernel<double, false, "

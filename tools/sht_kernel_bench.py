@@ -15,9 +15,11 @@ maps, e.g. the DICES batch of 8), and prints, on lines that start with
 
 * ptxas' registers and spills of the SHT kernels;
 * per kernel the times of three launches after a warm-up (ms, CUDA
-  events) and a digest of its outputs; with ``--nb`` each analysis once
+  events) and a digest of its outputs; with ``--nb`` each kernel once
   for each listed group of maps that it has and that divides the batch
-  (``name/nb{n}``; a package without groups takes no ``--nb``);
+  (``name/nb{n}``; a kernel without groups in the package runs once as
+  ``name``, on its package's own choice, and a package without any
+  groups takes no ``--nb``);
 * where the package has them, the path counts of the spin-0 analysis and
   of the syntheses and the resident blocks per SM.
 
@@ -49,7 +51,7 @@ def main():
                         help="maps in the stack (default: one map, no "
                              "batch axis)")
     parser.add_argument("--nb", default=None,
-                        help="comma-separated groups of maps of the analyses")
+                        help="comma-separated groups of maps of the kernels")
     args = parser.parse_args()
     sys.path.insert(0, args.root)
 
@@ -119,24 +121,29 @@ def main():
         return lambda: sht_kernels.analysis_pair_folded(
             *F, x, lch, lsh, lmax, 2, **kw, **more)
 
-    kernels = {"analysis_spin0_folded": spin0(),
-               "analysis_pair_folded": pair()}
+    def synth0(**more):
+        return lambda: sht_kernels.synthesis_spin0_folded(
+            A[0], x, lch, lsh, lmax, **kw, **more)
+
+    def synth2(**more):
+        return lambda: sht_kernels.synthesis_pair_folded(
+            *A, x, lch, lsh, lmax, 2, **kw, **more)
+
+    makers = {"analysis_spin0_folded": spin0, "analysis_pair_folded": pair,
+              "synthesis_spin0_folded": synth0,
+              "synthesis_pair_folded": synth2}
+    kernels = {name: make() for name, make in makers.items()}
     if args.nb:
         from heracles_tpu_torch.ops import wigner
 
-        kernels = {}
         B = args.batch or 1
-        for nb in map(int, args.nb.split(",")):
-            for name, make in (("analysis_spin0_folded", spin0),
-                               ("analysis_pair_folded", pair)):
+        for name, make in makers.items():
+            if name not in wigner.GROUP_SIZES:
+                continue
+            del kernels[name]
+            for nb in map(int, args.nb.split(",")):
                 if nb in wigner.GROUP_SIZES[name] and B % nb == 0:
                     kernels[f"{name}/nb{nb}"] = make(nb=nb)
-    kernels.update({
-        "synthesis_spin0_folded": lambda: sht_kernels.synthesis_spin0_folded(
-            A[0], x, lch, lsh, lmax, **kw),
-        "synthesis_pair_folded": lambda: sht_kernels.synthesis_pair_folded(
-            *A, x, lch, lsh, lmax, 2, **kw),
-    })
     result = {}
     for name, fn in kernels.items():
         out, times = timed(fn)
@@ -150,8 +157,11 @@ def main():
         print(label, "paths analysis_spin0_folded", sht_kernels.path_counts(
             "analysis_spin0_folded", F[0], F[1], x, lch, lsh, lmax, **kw))
         if args.nb:
-            for kernel in ("analysis_spin0", "analysis_pair"):
-                sizes = wigner.GROUP_SIZES[f"{kernel}_folded"]
+            for kernel in ("analysis_spin0", "analysis_pair",
+                           "synthesis_spin0", "synthesis_pair"):
+                sizes = wigner.GROUP_SIZES.get(f"{kernel}_folded")
+                if sizes is None:
+                    continue
                 print(label, kernel, "blocks per SM by nb (f32, f64, comp):",
                       {nb: [kl.blocks_per_sm(kernel, d, comp=c, nb=nb)
                             for d, c in ((False, False), (True, False),

@@ -80,9 +80,10 @@ NO_LAUNCH = "(no launch found)"
 # PERF.md's kernel table
 KERNEL_TABLE = {
     "analysis_kernel": "B1", "pair_analysis_kernel": "B2",
-    # the analyses' launches on groups of maps (nb > 1)
+    # the launches on groups of maps (nb > 1)
     "analysis_group_kernel": "B1", "pair_group_kernel": "B2",
     "synthesis_kernel": "B3", "pair_synthesis_kernel": "B4",
+    "synth_group_kernel": "B3", "synth_pair_group_kernel": "B4",
     "gram_kernel": "B5", "probe_kernel": "B6",
     "bin_kernel": "S1", "scan_kernel": "S1", "order_kernel": "S1",
     "spread_kernel": "S1",
