@@ -10,10 +10,12 @@ with its seconds:
 1. build the Hopper kernels from ``heracles_tpu_torch/csrc`` (ptxas'
    registers and spills, none allowed in the spin-0 synthesis and in the
    four kernels' grouped instantiations; the Gram kernel's DMMA
-   instruction count and the spreader's shared atomics, compare-and-swap loops (none
-   allowed) and global reductions from their SASS, the resident blocks
-   per SM of the analysis and synthesis kernels and of each group of
-   maps);
+   instruction count, the grouped analyses' HMMA (float32, comp) or DMMA
+   (float64) counts, none zero, and SHFL counts, each below the parent
+   commit's, and the spreader's shared atomics, compare-and-swap loops
+   (none allowed) and global reductions from their SASS, the resident
+   blocks per SM of the analysis and synthesis kernels and of each group
+   of maps);
 2. each kernel against its plain PyTorch version on the same CUDA
    tensors: the analysis and synthesis kernels in float32 and float64 at
    three shapes (all four and the Gram kernel also repeated bit for bit),
@@ -68,9 +70,13 @@ with its seconds:
    file mode twice (the second call launches no SHT kernel and returns the
    same spectra), delete-2 debiasing and shrinkage towards the Gaussian
    covariance; the two analysis kernels at the DICES batch against their
-   plain versions, at every group of maps ``nb`` (each bit for bit its
-   ``nb = 1``, timed beside its bound); the region alms run with the
-   automatic groups, whose launches are counted by ``nb``;
+   plain versions, at every group of maps ``nb`` (each group, whose ring
+   contraction runs on the tensor cores, repeating its bits from launch
+   to launch and within the float32 bar of ``nb = 1`` and of the plain
+   version, its float32 error per l-band against the float64 kernel at
+   most 1.25 times ``nb = 1``'s; timed beside both bounds), and the pair
+   analysis' groups' path shares; the region alms run with the automatic
+   groups, whose launches are counted by ``nb``;
 10. pixel-free alms (``DiscreteMapper``, ``ops.nufft``) at the
    configurations of ``discrete_alm_l1000`` (65536 points, lmax 1000,
    float32: the exact spin-0 and spin-2 paths through the analysis kernels
@@ -125,23 +131,26 @@ with its seconds:
    host work that made the card wait;
 14. the groups of maps at full width: B1 and B3 on a stack of 4 maps, B2
    and B4 on 2 (the reference's groups at lmax 3000), at every ``nb``
-   dividing the stack, each bit for bit its ``nb = 1`` and timed beside
-   its bound, the automatic group named; float64 and comp at every ``nb``
-   of the four kernels at a small shape (600 rings, orders 7..46, 8
-   maps), bit for bit their ``nb = 1``; then the stacked syntheses' own
+   dividing the stack, each timed beside its bound(s), the automatic group
+   named; the syntheses bit for bit their ``nb = 1``, the analyses held
+   as in phase 9 (the plain version at full width, the float64 kernel per
+   l-band); float64 and comp at every ``nb`` of the four kernels at a
+   small shape (600 rings, orders 7..46, 8 maps), held so against their
+   ``nb = 1`` and the analyses' plain versions; then the stacked syntheses' own
    path: ``HealpixMapper(nside 1024, lmax 1536, iterations=3).transform``
    of 8 float32 maps, spin 0 and spin 2 (its Jacobi steps synthesise the
    stack), and ``synthesize`` of phase 3's four spin-0 alms stacked at
    n4096 / l3000, each with exact launch counts by (kernel, nb), no plain
-   run, and bit for bit the same call with the syntheses' ``NB_LIMIT``
-   rows set to 1; B3 and B4 at every ``nb`` on a stack of 8 at n1024 /
+   run, and bit for bit the same call with the syntheses' ``NB_SIZES``
+   rows set to (1,); B3 and B4 at every ``nb`` on a stack of 8 at n1024 /
    l1536 against their plain versions, timed beside their bounds.
 
 Then a JSON line of the kernels (with each one's bound: the least time
 the card could take for the same work; the grouped launches of phase 9's
 region alms and of phase 14's stacked syntheses as ``<kernel>_nb<n>``
-rows, timed at the DICES batch and at the transform's stack of 8), the
-card line, and the result line.
+rows, timed at the DICES batch and at the transform's stack of 8; the
+grouped analyses' bound counts their contraction on the tensor cores,
+``bound_fp32_ms`` on the FP32 pipe), the card line, and the result line.
 """
 
 import collections
@@ -254,7 +263,17 @@ PROBE_STEPS_CHECK, PROBE_STEPS_RATE, PROBE_NCHAIN = 256, 4096, 4
 # instruction of a sub-chunk's body over its 32 triples, plus the path
 # choice and loop, ~1.1, or ~0.3 once the warp has settled on the steady
 # path): 4 of recurrence (no a0) + 2 FMAs + a quarter of a row read, ~6.5;
-# 4 + 0.25 and a rescale per 8 steps, ~6.9; ~18.4.
+# 4 + 0.25 and a rescale per 8 steps, ~6.9; ~18.4.  These are the nb = 1
+# kernels.  The grouped analyses (nb > 1) contract on the tensor cores
+# (csrc/tc_contract.cuh): per lane and sub-chunk of 8 multipoles of their
+# 2 rings, ~88 instructions of shared recurrence (~176 for the pair's two
+# columns), ~20 of path, staging and stores, and per k-step of 8 rings
+# (8 a sub-chunk, 16 for the pair) a staged read, the split of its two
+# values (~6) and per row tile of 4 maps a read of the spectra, their
+# split (~12) and 3 HMMA (2 reads and 1 DMMA in float64): ~4.6 a
+# map-triple for B1 at nb 4, ~9 for B2, no shuffle.  More than the FP32
+# contraction's, yet faster where the tiles leave room for more blocks an
+# SM: the groups are held back by latency, not by instruction rate.
 INSTR_PER_TRIPLE = {"analysis_spin0_folded": (10, 6, 21),
                     "analysis_pair_folded": (21, 43),
                     "synthesis_spin0_folded": (6.5, 6.9, 18.4),
@@ -285,6 +304,16 @@ FP64_TENSOR_PEAK = 67e12
 # comp kernels' 41; each map pays its contraction (the analyses) or its
 # FMAs into its sums (the syntheses: sht_synthesis.cu and
 # sht_synthesis_pair.cu form each emitted value once for the group).
+# A grouped analysis (nb > 1) contracts on the tensor cores, so it has a
+# second bound, sht_bound(..., tc=True): its shared recurrence and emit at
+# the FP32 (or FP64) rate above, plus its contraction, FLOP_PER_TRIPLE -
+# FLOP_SHARED a map-triple, at the tensor cores' rate: three TF32
+# products (3xTF32) at 495 TFLOP/s in float32 and comp, one DMMA at 67
+# TFLOP/s in float64 (H100 SXM data sheet, dense).  The two pipes are
+# charged one after the other.  That kernel may beat the first bound, so
+# neither is reported as a share alone.
+TENSOR_PEAK = {torch.float32: 495e12, torch.float64: 67e12}
+TF32_PASSES = 3
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOP_PER_S = {torch.float32: 67e12, torch.float64: 67e12}
 FLOP_PER_TRIPLE = {"analysis_spin0_folded": 9, "analysis_pair_folded": 27,
@@ -399,12 +428,13 @@ def kernel_label(entry):
         kind = "synth-pair" if m.group(1) else "synth-spin0"
         return (f"group/{kind}/{prec(m.group(2))}/nb{m.group(4)}"
                 f"{tail(m.group(3))}")
-    m = re.search(r"(pair|analysis)_group_kernelI([fd])Lb([01])ELi(\d)E",
-                  entry)
+    # (the pair analysis' groups add a bool kCount: their counting twins)
+    m = re.search(r"(pair|analysis)_group_kernelI([fd])Lb([01])ELi(\d)E"
+                  r"(?:Lb([01])E)?", entry)
     if m:
         kind = "pair" if m.group(1) == "pair" else "spin0"
         return (f"group/{kind}/{prec(m.group(2))}/nb{m.group(4)}"
-                f"{tail(m.group(3))}")
+                f"{tail(m.group(3), m.group(5) or '0')}")
     m = re.search(r"pair_synthesis_kernelI([fd])Lb([01])ELb([01])E", entry)
     if m:
         return f"synth/pair/{prec(m.group(1))}{tail(*m.group(2, 3))}"
@@ -442,12 +472,14 @@ def _sass(path):
 def sass_opcodes(path, function):
     """Instruction counts by opcode (with its modifiers, e.g.
     ``ATOMS.CAST.SPIN.64``) in the SASS of the functions whose mangled
-    name contains ``function``."""
+    name contains ``function`` (or matches it, a compiled pattern)."""
     ops, inside = collections.Counter(), False
     for line in _sass(path).splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            inside = function in m.group(1)
+            inside = (bool(function.search(m.group(1)))
+                      if isinstance(function, re.Pattern)
+                      else function in m.group(1))
             continue
         m = inside and re.search(
             r"/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
@@ -461,6 +493,37 @@ def sass_count(path, function, opcode):
     whose mangled name contains ``function``."""
     return sum(n for op, n in sass_opcodes(path, function).items()
                if op.split(".")[0] == opcode)
+
+
+# the grouped analyses' instantiations: (kernel, mangled name with its
+# length, group sizes), and each precision's template arguments
+GROUP_SASS = (("spin0", "21analysis_group_kernel", (2, 4, 8)),
+              ("pair", "17pair_group_kernel", (2, 4)))
+GROUP_PRECISIONS = {"f32": ("f", "0"), "f64": ("d", "0"), "comp": ("f", "1")}
+# SHFL instructions of each grouped analysis instantiation in the build of
+# commit 947bff6 (the groups' per-map warp butterflies), as
+# ``tools/sht_kernel_bench.py --root <that checkout> --nb 2 --sass``
+# prints them on the card
+PARENT_SHFL = {**{("spin0", p, nb): 32 if p == "f64" else 16
+                  for p in GROUP_PRECISIONS for nb in (2, 4, 8)},
+               **{("pair", p, nb): 32 if p == "f64" else 16
+                  for p in GROUP_PRECISIONS for nb in (2, 4)}}
+
+
+def group_sass(path):
+    """{(kernel, precision, nb): Counter of SASS opcodes (no modifiers)} of
+    the grouped analyses' instantiations in the library at ``path`` (the
+    kernels proper, not the counting twins)."""
+    out = {}
+    for kernel, mangled, sizes in GROUP_SASS:
+        for prec, (t, comp) in GROUP_PRECISIONS.items():
+            for nb in sizes:
+                name = re.compile(rf"{mangled}I{t}Lb{comp}ELi{nb}E(?:Lb0E)?E")
+                ops = collections.Counter()
+                for op, n in sass_opcodes(path, name).items():
+                    ops[op.split(".")[0]] += n
+                out[kernel, prec, nb] = ops
+    return out
 
 
 def ptxas_summary(log):
@@ -716,11 +779,13 @@ def sht_triples(batch, nhalf, nm, lmax, spin, m0=0):
     return float(batch) * nhalf * float(np.clip(lmax + 1 - j0, 0, None).sum())
 
 
-def sht_bound(name, batch, nhalf, nm, lmax, cdtype, m0=0, nb=1):
+def sht_bound(name, batch, nhalf, nm, lmax, cdtype, m0=0, nb=1, tc=False):
     """The bound of one SHT kernel launch of the orders m0..m0+nm-1: ring
     spectra and alms moved once (a ``*_comp`` name: the compensated
     kernel, which also reads each ring's r); a launch on groups of ``nb``
-    maps runs its shared operations once per group."""
+    maps runs its shared operations once per group.  ``tc``: the
+    contraction on the tensor cores (a grouped analysis), charged at
+    their rate after the shared operations at the vector rate."""
     pair = "pair_folded" in name
     nring, nalm = (4, 2) if pair else (2, 1)
     item = torch.empty((), dtype=cdtype).element_size()
@@ -729,10 +794,37 @@ def sht_bound(name, batch, nhalf, nm, lmax, cdtype, m0=0, nb=1):
     if name.endswith("_comp"):
         nbytes += nhalf * 4
     shared = FLOP_SHARED.get(name, 0) if nb > 1 else 0
-    flops = (shared / nb + FLOP_PER_TRIPLE[name] - shared) * sht_triples(
-        batch, nhalf, nm, lmax, 2 if pair else 0, m0)
+    triples = sht_triples(batch, nhalf, nm, lmax, 2 if pair else 0, m0)
     real = torch.float32 if cdtype == torch.complex64 else torch.float64
-    return bound(nbytes, flops, real)
+    if not tc:
+        flops = (shared / nb + FLOP_PER_TRIPLE[name] - shared) * triples
+        return bound(nbytes, flops, real)
+    contraction = (FLOP_PER_TRIPLE[name] - shared) * triples * (
+        TF32_PASSES if real == torch.float32 else 1)
+    t_ops = (shared / nb * triples / PEAK_FLOP_PER_S[real]
+             + contraction / TENSOR_PEAK[real]) * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def group_bounds(name, batch, nhalf, nm, lmax, cdtype, nb):
+    """{bound_ms, bound_by, bound_fp32_ms} of one launch at ``nb``: a
+    grouped analysis' bound with its contraction on the tensor cores, and
+    the bound with it on the FP32 pipe; any other launch's one bound
+    twice."""
+    fp32, by = sht_bound(name, batch, nhalf, nm, lmax, cdtype, nb=nb)
+    tc = nb > 1 and name.startswith("analysis")
+    ms, by = (sht_bound(name, batch, nhalf, nm, lmax, cdtype, nb=nb, tc=True)
+              if tc else (fp32, by))
+    return dict(bound_ms=ms, bound_by=by, bound_fp32_ms=fp32)
+
+
+def bounds_txt(row):
+    """A launch's bounds as the lines print them."""
+    txt = f"bound {row['bound_ms']:.2f} ms ({row['bound_by']})"
+    if row["bound_fp32_ms"] != row["bound_ms"]:
+        txt += f", {row['bound_fp32_ms']:.2f} ms with the contraction on FP32"
+    return txt
 
 
 def issue_share(name, dims, ms, fma32, paths=None):
@@ -762,15 +854,24 @@ def issue_share(name, dims, ms, fma32, paths=None):
     return txt
 
 
-def path_shares(name, *args):
+def path_shares(name, *args, **kw):
     """(counts, text): the sub-chunks of one diagnostic launch by path."""
     from heracles_tpu_torch.ops import sht_kernels
 
-    counts = sht_kernels.path_counts(name, *args)
+    counts = sht_kernels.path_counts(name, *args, **kw)
     total = sum(counts.values())
     check(counts["steady"] > 0, f"{name} never took its steady path: {counts}")
     txt = ", ".join(f"{p} {100 * counts[p] / total:.1f}%" for p in PATHS)
     return counts, f"{name} paths (warp sub-chunks of 8 l): {txt}"
+
+
+def rect_band_rel(got, want, nbands=10):
+    """max |got - want| / max |want| over each l-band of rectangular
+    (..., lmax + 1, nm) alms."""
+    edges = np.linspace(0, want.shape[-2], nbands + 1).astype(int)
+    diff = (got.to(want.dtype) - want).abs()
+    return [diff[..., a:b, :].max().item() / want[..., a:b, :].abs().max().item()
+            for a, b in zip(edges[:-1], edges[1:])]
 
 
 def l_band_rel(got, want, ls, nbands=10):
@@ -1259,9 +1360,11 @@ def phase9(dev, smi):
                                    lmax + 1, weight=w)
     pair_args = sht._folded_inputs((Fp, Fn.conj()), (2, -2))
     del F, Fp, Fn, pos, she
-    # (each nb the kernel has: bit for bit its nb = 1, which is held
-    # against the plain version; CUDA-event time, best of 3; the bound at
-    # that nb)
+    # (each nb the kernel has: nb = 1 held against the plain version, each
+    # group repeating its bits and within the float32 bar of nb = 1 and of
+    # the plain version, its float32 error per l-band against the float64
+    # kernel at most 1.25 times nb = 1's; CUDA-event time, best of 3; the
+    # bounds at that nb)
     report = {}
     dims = (DICES_BATCH, x.shape[0], lmax + 1)
     for name, args, extra in (("analysis_spin0_folded", spin0_args, ()),
@@ -1270,36 +1373,50 @@ def phase9(dev, smi):
         plain = getattr(wigner, name + "_plain")
         want_k, plain_ms = event_ms(lambda: plain(*args, x, lch, lsh, lmax,
                                                   *extra))
-        want_k = want_k if isinstance(want_k, tuple) else (want_k,)
-        rows, base = {}, None
+        want_k = _as_tuple(want_k)
+        ref64 = _as_tuple(kernel(*(a.to(torch.complex128) for a in args), x,
+                                 lch, lsh, lmax, *extra, nb=1))
+        rows, base, bands = {}, None, {}
         for nb in wigner.GROUP_SIZES[name]:
-            got, ms = best_ms(lambda: kernel(*args, x, lch, lsh, lmax, *extra,
-                                             nb=nb))
-            got = got if isinstance(got, tuple) else (got,)
+            def call():
+                return kernel(*args, x, lch, lsh, lmax, *extra, nb=nb)
+
+            got, ms = best_ms(call)
+            got = _as_tuple(got)
             if base is None:
                 errs = [compare(g, p, *TOL[torch.complex64],
                                 what=f"{name} DICES batch")
                         for g, p in zip(got, want_k)]
                 base = got
             else:
-                check(same_bits(got, base), f"{name} nb={nb} is not nb=1 "
-                      "bit for bit at the DICES batch")
-            bound_ms, bound_by = sht_bound(name, *dims, lmax, torch.complex64,
-                                           nb=nb)
-            rows[nb] = dict(ms=ms, bound_ms=bound_ms, bound_by=bound_by)
+                errs = check_grouped(call, name, nb, got, base, want_k,
+                                     TOL[torch.complex64],
+                                     f"{name} DICES batch")
+            bands[nb] = grouped_bands(got, ref64, bands.get(1),
+                                      f"{name} nb={nb} DICES batch")
+            rows[nb] = dict(ms=ms, bands=bands[nb],
+                            max_abs_err=max(e[0] for e in errs),
+                            rel=max(e[1] for e in errs), **group_bounds(
+                                name, *dims, lmax, torch.complex64, nb))
             del got
-        report[name] = dict(max_abs_err=max(e[0] for e in errs),
-                            rel=max(e[1] for e in errs), plain_ms=plain_ms,
-                            by_nb=rows, **rows[1])
-        del want_k, base
+        report[name] = dict(plain_ms=plain_ms, by_nb=rows, **rows[1])
+        del want_k, base, ref64
+    # the pair analysis' groups by path (a diagnostic launch each)
+    pair_paths = "; ".join(
+        path_shares("analysis_pair_folded", *pair_args, x, lch, lsh, lmax, 2,
+                    nb=nb)[1] + f" at nb={nb}"
+        for nb in wigner.GROUP_SIZES["analysis_pair_folded"][1:])
 
     stage_txt = ", ".join(f"{k} {v:.2f} s" for k, v in secs.items())
     kern_txt = "; ".join(
         f"{n} at batch {DICES_BATCH}: plain {r['plain_ms']:.1f} ms, nb=1 "
         f"max|d| {r['max_abs_err']:.2e} ({r['rel']:.1e} of max), every nb "
-        f"bit for bit nb=1; " + ", ".join(
-            f"nb={nb} {row['ms']:.2f} ms (bound {row['bound_ms']:.2f} ms, "
-            f"{row['bound_by']})" for nb, row in r["by_nb"].items())
+        f"repeating its bits within the float32 bar of nb=1 and the plain "
+        f"version; " + ", ".join(
+            f"nb={nb} {row['ms']:.2f} ms (max|d| {row['max_abs_err']:.2e}, "
+            f"{row['rel']:.1e} of max; {bounds_txt(row)}; f32 vs f64 "
+            f"kernel per l-band {bands_txt(row['bands'])})"
+            for nb, row in r["by_nb"].items())
         for n, r in report.items())
     print(f"phase 9 DICES n{nside} l{lmax} f32, {njk} regions in batches of "
           f"{DICES_BATCH}, device mode (alm cache {need / 1e9:.2f} GB <= "
@@ -1319,7 +1436,8 @@ def phase9(dev, smi):
           f"{dict(file_launches)}, the second call none, the same spectra; "
           f"delete-2: {len(cls8_2)} samples, diagonal correction; shrinkage "
           f"factor {lam:.4f}, variances kept to {shrink_err:.1e}; {kern_txt}; "
-          f"card {smi} ({time.perf_counter() - t:.1f} s)", flush=True)
+          f"{pair_paths}; card {smi} ({time.perf_counter() - t:.1f} s)",
+          flush=True)
     return alms8, report, by_nb
 
 
@@ -2337,11 +2455,50 @@ def _as_tuple(out):
     return out if isinstance(out, tuple) else (out,)
 
 
+def check_grouped(call, name, nb, got, base, want, tol, what):
+    """The checks of one grouped launch (nb > 1) whose outputs are ``got``:
+    a synthesis bit for bit its nb = 1 outputs ``base``; an analysis (its
+    ring contraction on the tensor cores, summed in another order) the
+    same bits again from a second ``call()``, and within ``tol`` of
+    ``base`` and of the plain version's outputs ``want`` (None: not run
+    at this shape).  Returns this launch's (max |d|, relative) of each
+    output against the plain version (against nb = 1 where it did not
+    run; a synthesis: nb = 1's bits, so nothing of its own)."""
+    if name.startswith("synthesis"):
+        check(same_bits(got, base), f"{what} nb={nb} is not nb=1 bit for bit")
+        return []
+    check(same_bits(_as_tuple(call()), got),
+          f"{what} nb={nb} does not repeat bit for bit")
+    errs = []
+    for ref, label in ((base, "nb=1"), (want, "the plain version")):
+        if ref is not None:
+            errs = [compare(g, r, *tol, what=f"{what} nb={nb} against {label}")
+                    for g, r in zip(got, ref)]
+    return errs
+
+
+def grouped_bands(got, ref64, bands1=None, what=""):
+    """The per-l-band error of float32 outputs ``got`` against the float64
+    kernel's ``ref64`` (the larger of a pair's two); with ``bands1`` (the
+    nb = 1 kernel's), checked to be at most 1.25 times it in every band."""
+    bands = [max(v) for v in zip(*(rect_band_rel(g, r)
+                                   for g, r in zip(got, ref64)))]
+    if bands1 is not None:
+        check(all(b <= 1.25 * b1 for b, b1 in zip(bands, bands1)),
+              f"{what}: float32 error per l-band {bands} against nb=1's "
+              f"{bands1}")
+    return bands
+
+
+def bands_txt(bands):
+    return "/".join(f"{v:.1e}" for v in bands)
+
+
 def _stacked_path(dev, stack0, gen):
     """The stacked syntheses' own path, each case with the counts zeroed
     just before it and read just after: the exact launches by (kernel, nb),
     no plain run, and the outputs bit for bit the same call with the
-    syntheses' NB_LIMIT rows set to 1.  Returns (launches by (kernel, nb)
+    syntheses' NB_SIZES rows set to (1,).  Returns (launches by (kernel, nb)
     over the path, text)."""
     import heracles_tpu_torch as th
     from heracles_tpu_torch.ops import sht_kernels
@@ -2372,20 +2529,20 @@ def _stacked_path(dev, stack0, gen):
         check(nb > 1, f"phase 14 {label}: {synth} picks no group on {B} maps")
         runs = {}
         for limit in (None, 1):
-            saved = {n: dict(sht_kernels.NB_LIMIT[n])
+            saved = {n: dict(sht_kernels.NB_SIZES[n])
                      for n in SYNTHESIS_KERNELS}
             try:
                 if limit:
                     for n in SYNTHESIS_KERNELS:
-                        sht_kernels.NB_LIMIT[n].update(
-                            dict.fromkeys(saved[n], limit))
+                        sht_kernels.NB_SIZES[n].update(
+                            dict.fromkeys(saved[n], (limit,)))
                 reset_counts()
                 out, sec = sync_time(fn)
                 _, plain_runs = counts()
                 by_nb = dict(sht_kernels.LAUNCHES_BY_NB)
             finally:
                 for n in SYNTHESIS_KERNELS:
-                    sht_kernels.NB_LIMIT[n].update(saved[n])
+                    sht_kernels.NB_SIZES[n].update(saved[n])
             expect = {**want, (synth, limit or nb): ITERATIONS
                       if label.startswith("transform") else 1}
             check(by_nb == expect, f"phase 14 {label} (synthesis nb limit "
@@ -2434,25 +2591,44 @@ def phase14(dev, smi, stack0):
         extra = (2,) if name.endswith("pair_folded") else ()
         kernel = getattr(sht_kernels, name)
         auto = sht_kernels.pick_nb(B, LMAX, name)
+        analysis = name.startswith("analysis")
+        want = ref64 = bands1 = None
+        if analysis:
+            # the plain version and the float64 kernel on the same spectra
+            want = _as_tuple(getattr(wigner, name + "_plain")(
+                *ops, x, lch, lsh, LMAX, *extra))
+            ref64 = _as_tuple(kernel(*(a.to(torch.complex128) for a in ops),
+                                     x, lch, lsh, LMAX, *extra, nb=1))
         base, row = None, []
         for nb in (n for n in wigner.GROUP_SIZES[name] if B % n == 0):
-            got, ms = best_ms(lambda: kernel(*ops, x, lch, lsh, LMAX, *extra,
-                                             nb=nb))
+            def call():
+                return kernel(*ops, x, lch, lsh, LMAX, *extra, nb=nb)
+
+            got, ms = best_ms(call)
             got = _as_tuple(got)
             check(all(bool(torch.isfinite(g).all()) for g in got),
                   f"{name} nb={nb} at full width: not finite")
             if base is None:
+                if analysis:
+                    for g, w in zip(got, want):
+                        compare(g, w, *TOL[torch.complex64],
+                                what=f"{name} at full width")
                 base = got
             else:
-                check(same_bits(got, base), f"{name} nb={nb} at full width "
-                      "is not nb=1 bit for bit")
+                check_grouped(call, name, nb, got, base, want,
+                              TOL[torch.complex64], f"{name} at full width")
+            txt = ""
+            if analysis:
+                bands = grouped_bands(got, ref64, bands1,
+                                      f"{name} nb={nb} at full width")
+                bands1 = bands1 or bands
+                txt = f"; f32 vs f64 kernel per l-band {bands_txt(bands)}"
             del got
-            bound_ms, bound_by = sht_bound(name, B, nhalf, nm, LMAX,
-                                           torch.complex64, nb=nb)
+            b = group_bounds(name, B, nhalf, nm, LMAX, torch.complex64, nb)
             row.append(f"nb={nb}{' (auto)' if nb == auto else ''} {ms:.2f} "
-                       f"ms, bound {bound_ms:.2f} ms ({bound_by})")
+                       f"ms ({bounds_txt(b)}{txt})")
         parts.append(f"{name} on {B} maps: " + ", ".join(row))
-        del ops, base
+        del ops, base, want, ref64
     peak = torch.cuda.max_memory_allocated()
 
     c = GROUP_SMALL
@@ -2471,16 +2647,25 @@ def phase14(dev, smi, stack0):
                 kw.update(dd="comp", x_lo=x_lo)
             args = (*ops, *geom, c["lmax"],
                     *((2,) if name.endswith("pair_folded") else ()))
+            want = None
+            if name.startswith("analysis"):
+                pkw = dict(m0=c["m0"], x_lo=kw.get("x_lo"))
+                want = _as_tuple(getattr(wigner, name + "_plain")(*args,
+                                                                  **pkw))
             base = None
             for nb in wigner.GROUP_SIZES[name]:
-                got = _as_tuple(kernel(*args, nb=nb, **kw))
+                def call():
+                    return kernel(*args, nb=nb, **kw)
+
+                got = _as_tuple(call())
                 if base is None:
                     base = got
                 else:
-                    check(same_bits(got, base), f"{name} {mode} nb={nb} is "
-                          "not nb=1 bit for bit")
+                    check_grouped(call, name, nb, got, base, want, TOL[cdtype],
+                                  f"{name} {mode}")
             sizes = ",".join(map(str, wigner.GROUP_SIZES[name]))
             small.append(f"{name} {mode} nb={sizes}")
+            del want, base
     torch.cuda.synchronize()
 
     path_by_nb, path_txt = _stacked_path(dev, stack0, gen)
@@ -2530,10 +2715,11 @@ def phase14(dev, smi, stack0):
             for nb, row in r["by_nb"].items())
         for n, r in report.items())
     torch.cuda.synchronize()
-    print(f"phase 14 groups of maps at n{NSIDE} l{LMAX} f32, each bit for "
-          f"bit nb=1: {'; '.join(parts)}; peak {peak / 2**30:.2f} GiB above "
-          f"what earlier phases hold; "
-          f"bit for bit nb=1 at nside {c['nside']} l{c['lmax']} orders "
+    print(f"phase 14 groups of maps at n{NSIDE} l{LMAX} f32 (the syntheses "
+          f"bit for bit nb=1, the analyses repeating their bits within the "
+          f"float32 bar of nb=1 and the plain version): {'; '.join(parts)}; "
+          f"peak {peak / 2**30:.2f} GiB above what earlier phases hold; "
+          f"each nb checked so at nside {c['nside']} l{c['lmax']} orders "
           f"{c['m0']}..{c['m0'] + c['nm'] - 1} batch {c['batch']}: "
           f"{'; '.join(small)}; the stacked syntheses' path (n{STACK_NSIDE} "
           f"l{STACK_LMAX}, {ITERATIONS} iterations, {STACK_MAPS} maps; "
@@ -2608,13 +2794,27 @@ def main():
     # every grouped instantiation of the four kernels (f32, f64, comp at
     # each nb > 1), none spilling
     group_rows = [row for row in rows if row.startswith("group/")]
-    n_groups = 3 * sum(len(wigner.GROUP_SIZES[n]) - 1 for n in GROUPED)
+    # and the pair analysis' counting twins, f32 and comp at nb 2 and 4
+    n_groups = 3 * sum(len(wigner.GROUP_SIZES[n]) - 1 for n in GROUPED) + 4
     check(not kl.seconds or (len(group_rows) == n_groups and all(
         row.endswith(", 0 B spill") for row in group_rows)),
           f"a grouped kernel spills, or an instantiation is missing: "
           f"{group_rows}")
+    # the grouped analyses contract on the tensor cores: HMMA (3xTF32) in
+    # float32 and comp, DMMA in float64, and fewer shuffles than the
+    # parent's per-map butterflies
+    sass_rows = []
+    for (kernel, prec, nb), ops in group_sass(kl.path).items():
+        mma = "DMMA" if prec == "f64" else "HMMA"
+        parent = PARENT_SHFL[kernel, prec, nb]
+        check(ops[mma] > 0 and ops["SHFL"] < parent,
+              f"group/{kernel}/{prec}/nb{nb} SASS: {ops[mma]} {mma}, "
+              f"{ops['SHFL']} SHFL (the parent's {parent})")
+        sass_rows.append(f"{kernel}/{prec}/nb{nb} {ops[mma]} {mma}, "
+                         f"{ops['SHFL']} SHFL (parent {parent})")
     print(f"phase 1 build: nvcc {kl.seconds:.1f} s -> {kl.path.name}; "
-          f"{ptxas}; gram DMMA instructions {dmma}; spread SASS (shared "
+          f"{ptxas}; gram DMMA instructions {dmma}; grouped analyses' SASS: "
+          f"{'; '.join(sass_rows)}; spread SASS (shared "
           f"atomics, compare-and-swap, global reductions) {spread_txt}; blocks "
           f"per SM at any lmax: {blocks} ({time.perf_counter() - t:.1f} s)",
           flush=True)
@@ -2928,12 +3128,16 @@ def main():
             continue
         source, replaces = KERNELS[name]
         r = dices_report[name]
+        row = r["by_nb"][nb]
         kernels.append({
             "name": f"{name}_nb{nb}", "route": "cuda", "source": source,
             "replaces": replaces, "launches": n,
-            "max_abs_err": r["max_abs_err"], "ms": r["by_nb"][nb]["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["by_nb"][nb]["bound_ms"],
-            "bound_by": r["by_nb"][nb]["bound_by"], "library_ms": None})
+            # this group's own error against the plain version
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": None,
+            # the bound with the contraction on the FP32 pipe
+            "bound_fp32_ms": row["bound_fp32_ms"]})
     # the grouped launches of the stacked syntheses' path (phase 14), timed
     # at its transform's stack
     for (name, nb), n in sorted(path_by_nb.items()):

@@ -67,15 +67,38 @@
 //     triple more (the lo step's 6 and the emit's add) and 3 registers a
 //     ring; kComp = false compiles to the plain kernel;
 //   * a batch runs in groups of NB = 1, 2, 4 or 8 maps, the twin of the
-//     reference's nb program (_kernel's nb, pallas_sht.py:714): NB = 1 is
-//     the kernel above, one block per (order, map); NB > 1 is
-//     analysis_group_kernel, one block per (order, group), which runs the
-//     recurrence once for the group (5 of a map-triple's 9 operations)
-//     and contracts it against each map's spectra from a shared-memory
-//     copy of the ring tile (its comment below says why every output is
-//     the NB = 1 kernel's, bit for bit).  Its shared memory, the tile's
-//     spectra and the warps' sums of a section for NB maps, is 12 KB a
-//     map in float32, 24 KB in float64, and sets its blocks per SM.
+//     reference's nb program (_kernel's nb, pallas_sht.py:714, picked at
+//     :3123): NB = 1 is the kernel above, one block per (order, map);
+//     NB > 1 is analysis_group_kernel, one block per (order, group),
+//     which runs the recurrence once for the group (5 of a map-triple's 9
+//     operations) and contracts it against the group's spectra on the
+//     tensor cores (tc_contract.cuh: 3xTF32 mma.sync in float32 and comp,
+//     DMMA in float64).  Once the contraction leaves the FP32 pipe, what
+//     bounds the group is the shared recurrence (and the splits and
+//     staging that feed the tensor cores), no longer each map's FMAs and
+//     warp butterfly.  On an H100 the float32 group is held back by the
+//     latencies of that recurrence at 2 rings a thread (with no product
+//     at all it takes about the time the FP32 contraction took) and by
+//     3xTF32's two extra products: against the FP32 contraction it
+//     replaced, nb 8 runs 2-5% faster, nb 4 4-6% slower and nb 2, whose
+//     8 rows fill half of each product, 48% slower (pick_nb skips it);
+//     float64 runs faster.  Design: a ring tile of 256 (2 rings a
+//     thread); the tile's spectra kept whole in A tiles in fragment order
+//     (split into TF32 parts as a k-step reads them; rows: each map's
+//     (re, im) at both parities, 16 a row tile, half of each product
+//     spent on rows a multipole does not read: see analysis_group_kernel
+//     for why that stays); per
+//     sub-chunk of 8 multipoles the warp stages its emitted values
+//     through shared memory (the one transpose, from one ring a lane to
+//     one multipole a lane) and runs 8 k-steps of 8 rings; the warps meet
+//     once per section of 128 multipoles.  Not wgmma: its 64-row tiles
+//     would need 64 multipoles of the block's rings staged at once
+//     (~128 KB of shared memory); regrouping for it is later work.  Its
+//     sums run in another order than NB = 1's, so its outputs agree with
+//     them to the float32 (float64) bar, not bit for bit; each launch
+//     repeats bit for bit.  Its shared memory (29 / 45 / 77 KB at NB 2 /
+//     4 / 8 in float32, 58 / 90 / 154 KB in float64) sets its blocks per
+//     SM.
 //
 // C interface (loaded with ctypes): heracles_analysis_spin0_{f32,f64} and
 // heracles_analysis_spin0_comp_f32 (with the rings' r after x) launch the
@@ -84,8 +107,9 @@
 // cudaGetLastError(); heracles_analysis_spin0_blocks_per_sm gives the
 // resident blocks per SM of a variant and nb (the shared memory does not
 // depend on lmax);
-// heracles_analysis_spin0_{,comp_}paths_f32 are diagnostic launches that
-// also count the warps' sub-chunks on each path (steady, dead, full).
+// heracles_analysis_spin0_{,comp_}paths_f32 are diagnostic launches (nb
+// 1, one map a block) that also count the warps' sub-chunks on each path
+// (steady, dead, full).
 // Every launch takes the block of orders m0..m0+nm-1 into its columns
 // 0..nm-1 (the seed planes are the block's, indexed by column), so a
 // device mesh can give each shard its own block; m0 = 0 is every order
@@ -95,6 +119,7 @@
 #include <stddef.h>
 
 #include "sht_paths.cuh"
+#include "tc_contract.cuh"
 #include "warp_reduce.cuh"
 #include "wigner_recurrence.cuh"
 
@@ -115,7 +140,6 @@ using sht_paths::madd;
 using sht_paths::Path;
 using sht_paths::PathCounts;
 using sht_paths::rescale_deferred;
-using warp_reduce::reduce_pairs;
 using warp_reduce::reduce_scatter;
 using wigner::advance;
 using wigner::advance_comp;
@@ -186,9 +210,9 @@ struct Contract {
 };
 
 // The grouped kernel's: keep it for the group's maps.
-template <typename T>
+template <typename T, int R>
 struct Keep {
-  T (&lam)[kSub][kRings];
+  T (&lam)[kSub][R];
   __device__ __forceinline__ void operator()(int t, int r, T v) const {
     lam[t][r] = v;
   }
@@ -197,16 +221,16 @@ struct Keep {
 // kSub steps of the recurrence of the thread's rings from the coefficient
 // row cf on; on a path that emits, emit(t, r, value) takes step t's value
 // of ring r before the step.
-template <typename T, Path P, bool kComp, typename Emit>
+template <typename T, Path P, bool kComp, int R, typename Emit>
 __device__ __forceinline__ void spin0_steps(const T* __restrict__ cf,
-                                            Ring<T> (&rs)[kRings],
+                                            Ring<T> (&rs)[R],
                                             const Emit& emit) {
 #pragma unroll
   for (int t = 0; t < kSub; ++t) {
     T a1, a0, bb;
     load_row(cf + 4 * t, a1, a0, bb);
 #pragma unroll
-    for (int r = 0; r < kRings; ++r) {
+    for (int r = 0; r < R; ++r) {
       Ring<T>& q = rs[r];
       if (P != Path::kDead) {
         const T d = kComp ? Arith<T>::add(q.dc, q.dcl) : q.dc;
@@ -234,7 +258,7 @@ __device__ __forceinline__ void spin0_steps(const T* __restrict__ cf,
   }
   if (P == Path::kDead) {
 #pragma unroll
-    for (int r = 0; r < kRings; ++r) {
+    for (int r = 0; r < R; ++r) {
       if (kComp) {
         rescale_deferred<T>(rs[r].dp, rs[r].dc, rs[r].dpl, rs[r].dcl, rs[r].k);
       } else {
@@ -245,11 +269,11 @@ __device__ __forceinline__ void spin0_steps(const T* __restrict__ cf,
 }
 
 // The warp's path for its next sub-chunk (sht_paths.cuh).
-template <typename T>
-__device__ __forceinline__ Path sub_path(const Ring<T> (&rs)[kRings]) {
+template <typename T, int R>
+__device__ __forceinline__ Path sub_path(const Ring<T> (&rs)[R]) {
   bool steady = true, dead = true;
 #pragma unroll
-  for (int r = 0; r < kRings; ++r) {
+  for (int r = 0; r < R; ++r) {
     steady = steady && sht_paths::is_steady(rs[r].k);
     dead = dead && sht_paths::is_dead(rs[r].k);
   }
@@ -257,9 +281,9 @@ __device__ __forceinline__ Path sub_path(const Ring<T> (&rs)[kRings]) {
 }
 
 // kSub steps on the warp's path, emit taking the values.
-template <typename T, bool kComp, typename Emit>
+template <typename T, bool kComp, int R, typename Emit>
 __device__ __forceinline__ void spin0_sub_on(Path path, const T* __restrict__ cf,
-                                             Ring<T> (&rs)[kRings],
+                                             Ring<T> (&rs)[R],
                                              const Emit& emit) {
   if (path == Path::kSteady) {
     spin0_steps<T, Path::kSteady, kComp>(cf, rs, emit);
@@ -272,11 +296,11 @@ __device__ __forceinline__ void spin0_sub_on(Path path, const T* __restrict__ cf
 
 // Whether any ring of the warp emits from here on: k never decreases, so
 // a warp whose every exponent is still below -1 emitted only zeros.
-template <typename T>
-__device__ __forceinline__ bool warp_live(const Ring<T> (&rs)[kRings]) {
+template <typename T, int R>
+__device__ __forceinline__ bool warp_live(const Ring<T> (&rs)[R]) {
   bool live = false;
 #pragma unroll
-  for (int r = 0; r < kRings; ++r) live = live || rs[r].k >= -1;
+  for (int r = 0; r < R; ++r) live = live || rs[r].k >= -1;
   return __any_sync(0xffffffffu, live);
 }
 
@@ -423,78 +447,89 @@ __global__ void __launch_bounds__(kThreads)
   tally.flush(counts, lane);
 }
 
-// A quad (re, im of F at j0's parity, re, im at the other) of a ring's
-// spectra in the grouped kernel's shared tile.
-__device__ __forceinline__ void load4(const float* p, float (&f)[4]) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  f[0] = v.x;
-  f[1] = v.y;
-  f[2] = v.z;
-  f[3] = v.w;
-}
-__device__ __forceinline__ void load4(const double* p, double (&f)[4]) {
-  load2(p, f[0], f[1]);
-  load2(p + 2, f[2], f[3]);
-}
-__device__ __forceinline__ void store4(float* p, const float (&f)[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(f[0], f[1], f[2], f[3]);
-}
-__device__ __forceinline__ void store4(double* p, const double (&f)[4]) {
-  store2(p, f[0], f[1]);
-  store2(p + 2, f[2], f[3]);
-}
+// Ring slots a thread of the grouped kernel: a ring tile of 256, so that
+// the A tiles of 8 maps leave room for two blocks an SM.  (With 4 slots,
+// a tile of 512, the float32 nb 4 ran 7% faster at nside 1024 on an
+// H100, but several instantiations spilled and float64 fell to one block
+// an SM.)
+constexpr int kGR = 2;
+constexpr int kGTile = kThreads * kGR;
+constexpr int kGSteps = 4 * kGR;  // k-steps of 8 rings: a warp's 32 kGR rings
 
-// Dynamic shared memory of the grouped kernel: the tile's spectra of the
-// NB maps, fs[NB][kRings][kThreads][4], and the warps' sums of a section,
-// part[kWarps][NB][kRows * NC].
+// The grouped kernel's dynamic shared memory, in elements of T, per warp:
+// its A tiles (the ring tile's spectra of the NB maps in fragment order,
+// tc_contract.cuh: rows 2 j + c and 2 j + c + 8 of row tile j / 4 hold
+// map j's component c at j0's parity and at the other), its staging
+// buffer, and its sums of a section, part[NB][kRows][NC].
 template <typename T, int NB>
-constexpr size_t group_smem() {
-  return sizeof(T) * NB * (kRings * kThreads * 4 + kWarps * kRows * NC);
-}
+struct GroupSmem {
+  static constexpr int kTiles = (NB + 3) / 4;           // row tiles of 16
+  static constexpr int kLanes = NB >= 4 ? 32 : 8 * NB;  // lanes with rows
+  static constexpr int kStep = tc::step_elems<kLanes>();
+  static constexpr int kA = kTiles * kGSteps * kStep;
+  static constexpr int kStaged = 2 * 8 * tc::kStage;
+  static constexpr int kPart = NB * kRows * NC;
+  static constexpr size_t kBytes =
+      sizeof(T) * size_t(kWarps) * (kA + kStaged + kPart);
+  // blocks an SM for the launch bounds: what the shared memory allows
+  // (228 KB an SM, 1 KB reserved a block, the coefficient table beside),
+  // at most 6, which leaves a thread 80 registers (65536 / (6 x 128),
+  // rounded down to 8), what nb 2 needs without spilling; ptxas
+  // otherwise trades registers for an occupancy that never comes
+  static constexpr int kFit = int(
+      (228 * 1024) / (kBytes + sizeof(T) * 2 * kRows * 4 + 1024));
+  static constexpr int kResident = kFit < 6 ? kFit : 6;
+};
 
 // The grouped kernel (NB > 1), the twin of the reference's nb program:
 // one block per (order, group of NB maps) runs the recurrence of its rings
-// once and contracts it against all NB maps' spectra.  Per sub-chunk of
-// kSub multipoles a thread keeps the kSub x kRings emitted values
-// (Keep), then, map by map, reads that map's quads of its rings from the
-// shared tile (each thread reads only what it wrote, so the tile needs no
-// barrier), runs the same FMAs in the same order into the sub-chunk's 16
-// sums and reduces them across the warp (reduce_pairs: the pairs of lanes
-// and the order of stages of reduce_scatter, so each sum is the same
-// number).  The warps' sums meet in part[] once per section as in the
-// NB = 1 kernel, summed in the same order and flushed the same way; part[]
-// has one buffer (NB copies of two would not leave room for a second
-// block), so a second barrier closes the flush.  Every output is
-// therefore the NB = 1 kernel's, bit for bit.  The path of a sub-chunk is
-// a property of the rings, so one decision serves the group, and a dead
-// sub-chunk costs nothing per map.  A sub-chunk that emitted only zeros
-// writes zeros, the sum its reduction would give.
+// once (Keep) and contracts it against all NB maps' spectra on the tensor
+// cores (tc_contract.cuh): per sub-chunk of kSub multipoles a warp stages
+// its emitted values and multiplies its A tiles by them, D[rows, l] for
+// the 16 rows of each row tile (both parities of each map's (re, im)),
+// keeping for each l the rows of its parity.  (Multiplying each parity's
+// multipoles by that parity's rows alone, a quad of 4 sub-chunks at a
+// time, halves the products but needs a staging buffer four times as
+// large, and ran slower on the card: the kernel is held back by its
+// latencies, so it gains more from a third block an SM than from fewer
+// mmas.)  The path of a sub-chunk is a property of the rings, so one
+// decision serves the group, and a dead sub-chunk, or one that emitted
+// only zeros, costs nothing per map: its sums are zeros.  The warps' sums
+// meet in part[] once per section, where the coefficient table's double
+// buffer needs a barrier anyway, and are summed in a fixed order and
+// flushed as in the NB = 1 kernel; part[] has one buffer, so a second
+// barrier closes the flush.  The sums run in another order than the
+// NB = 1 kernel's (and 3xTF32 in float32), so the outputs are not its
+// bits; every launch repeats bit for bit.
 template <typename T, bool kComp, int NB>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, GroupSmem<T, NB>::kResident)
     analysis_group_kernel(const T* __restrict__ f0, const T* __restrict__ f1,
                           const T* __restrict__ x, const T* __restrict__ xr,
                           const double* __restrict__ logch,
                           const double* __restrict__ logsh,
                           const double* __restrict__ seed, T* __restrict__ out,
                           int nhalf, int nm, int lmax, int m0) {
-  static_assert(NB > 1 && kRows % kSub == 0 && 2 * kSub == 16,
-                "a group of maps; sub-chunks tile the section; 16 sums of a "
-                "sub-chunk per map");
+  using S = GroupSmem<T, NB>;
+  static_assert(NB > 1 && kRows % kSub == 0 && kSub == 8 && kGR % 2 == 0,
+                "a group of maps; sub-chunks tile the section; a sub-chunk "
+                "is one mma's 8 columns; ring slots in pairs");
   static_assert(!kComp || sizeof(T) == 4, "comp is a float32 mode");
   extern __shared__ __align__(16) unsigned char smem[];
-  T* const fs = reinterpret_cast<T*>(smem);
-  T* const part = fs + NB * kRings * kThreads * 4;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  T* const base = reinterpret_cast<T*>(smem);
+  T* const at = base + warp * S::kA;
+  T* const stg = base + kWarps * S::kA + warp * S::kStaged;
+  T* const part = base + kWarps * (S::kA + S::kStaged);
   __shared__ __align__(16) T tab[2][kRows][4];  // a1, a0, b, (pad)
 
   const int mc = blockIdx.x;  // the column: this order's place in the block
   const int m = m0 + mc;      // the order
   const int g0 = blockIdx.y * NB;  // the group's first map
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
   const int s = 0;
   const int j0 = m;
-  const int ntiles = (nhalf + kTile - 1) / kTile;
+  const int ntiles = (nhalf + kGTile - 1) / kGTile;
   // output (g0 + j, l, m) at col + j plane + l rs, (re, im) adjacent
   const size_t plane = size_t(lmax + 1) * nm * 2;
   const size_t col = size_t(g0) * plane + size_t(mc) * 2;
@@ -520,14 +555,13 @@ __global__ void __launch_bounds__(kThreads)
     const T inv = Arith<T>::inv_scale();
     const T* const fe = (j0 & 1) ? f1 : f0;  // F of j0's parity
     const T* const fo = (j0 & 1) ? f0 : f1;
-    Ring<T> rings[kRings];
+    Ring<T> rings[kGR];
 #pragma unroll
-    for (int r = 0; r < kRings; ++r) {
+    for (int r = 0; r < kGR; ++r) {
       Ring<T>& p = rings[r];
-      const int ring = tile * kTile + (warp * kRings + r) * 32 + lane;
+      const int ring = tile * kGTile + (warp * kGR + r) * 32 + lane;
       p.dp = T(0);
       if (kComp) p.dpl = p.dcl = p.r = T(0);
-      T f[4] = {T(0), T(0), T(0), T(0)};
       if (ring < nhalf) {
         const double lch = logch[ring], lsh = logsh[ring];
         p.x = x[ring];
@@ -540,7 +574,10 @@ __global__ void __launch_bounds__(kThreads)
         p.dc = T(0);
         p.k = kNoSeed;
       }
+      // this ring is k = lane % 4 + 4 (r % 2) of k-step 8 (r / 2) + lane / 4
+      T* const step = at + (8 * (r / 2) + (lane >> 2)) * S::kStep;
       for (int j = 0; j < NB; ++j) {
+        T f[4] = {T(0), T(0), T(0), T(0)};
         if (ring < nhalf) {
           const size_t off = ((size_t(g0 + j) * nhalf + ring) * nm + mc) * 2;
           load2(fe + off, f[0], f[1]);
@@ -548,7 +585,10 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
           for (int c = 0; c < 4; ++c) f[c] *= inv;
         }
-        store4(fs + ((j * kRings + r) * kThreads + tid) * 4, f);
+        T* const tj = step + (j / 4) * kGSteps * S::kStep;
+        const int row = 2 * (j % 4);
+        tc::put(tj, row * 4 + (lane & 3), r & 1, f[0], f[2]);
+        tc::put(tj, (row + 1) * 4 + (lane & 3), r & 1, f[1], f[3]);
       }
     }
 
@@ -561,37 +601,35 @@ __global__ void __launch_bounds__(kThreads)
 
       const int nsub = (min(kRows, n - sec * kRows) + kSub - 1) / kSub;
       for (int u = 0; u < nsub; ++u) {
-        T lam[kSub][kRings];
+        T lam[kSub][kGR];
         const Path path = sub_path(rings);
         spin0_sub_on<T, kComp>(path, &tab[tb][u * kSub][0], rings,
-                               Keep<T>{lam});
-        const bool emitted = path != Path::kDead && warp_live(rings);
-#pragma unroll 1
-        for (int j = 0; j < NB; ++j) {
-          T sum = T(0);
-          if (emitted) {
-            T acc[2 * kSub];
+                               Keep<T, kGR>{lam});
+        T d[S::kTiles][4] = {};
+        if (path != Path::kDead && warp_live(rings)) {
 #pragma unroll
-            for (int i = 0; i < 2 * kSub; ++i) acc[i] = T(0);
+          for (int p = 0; p < kGR / 2; ++p) {
+            __syncwarp();
 #pragma unroll
-            for (int r = 0; r < kRings; ++r) {
-              T f[4];
-              load4(fs + ((j * kRings + r) * kThreads + tid) * 4, f);
-#pragma unroll
-              for (int t = 0; t < kSub; ++t) {
-                // sub-chunks start at j0's parity
-                acc[2 * t] = madd(lam[t][r], f[(t & 1) * 2], acc[2 * t]);
-                acc[2 * t + 1] =
-                    madd(lam[t][r], f[(t & 1) * 2 + 1], acc[2 * t + 1]);
-              }
+            for (int t = 0; t < kSub; ++t) {
+              tc::stage(stg, lane, t, lam[t][2 * p], lam[t][2 * p + 1]);
             }
-            reduce_pairs(acc, lane);
-            sum = acc[0];
+            __syncwarp();
+            tc::contract<S::kTiles, S::kLanes>(d, stg, at + 8 * p * S::kStep,
+                                               kGSteps * S::kStep, lane);
           }
-          // lanes 2i and 2i + 1 hold value i: row i / 2, component i % 2
-          if ((lane & 1) == 0) {
-            part[(warp * NB + j) * (kRows * NC) + u * 2 * kSub + (lane >> 1)] =
-                sum;
+        }
+        // lane (g, t) holds row g's sum at multipole 2 t (j0's parity) in
+        // d[0] and row g + 8's at 2 t + 1 in d[3]
+        const int g = lane >> 2;
+        if (g < 2 * NB) {
+#pragma unroll
+          for (int tq = 0; tq < S::kTiles; ++tq) {
+            T* const pj = part +
+                          (warp * NB + 4 * tq + g / 2) * (kRows * NC) +
+                          (u * kSub + 2 * (lane & 3)) * NC + (g & 1);
+            pj[0] = d[tq][0];
+            pj[NC] = d[tq][3];
           }
         }
       }
@@ -639,7 +677,7 @@ int launch(const void* f0, const void* f1, const void* x, const void* xr,
 // Lets the grouped kernel take its shared memory, and returns it.
 template <typename T, bool kComp, int NB>
 cudaError_t group_smem_attr(size_t* smem) {
-  *smem = group_smem<T, NB>();
+  *smem = GroupSmem<T, NB>::kBytes;
   return cudaFuncSetAttribute(analysis_group_kernel<T, kComp, NB>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               int(*smem));
@@ -753,13 +791,15 @@ int heracles_analysis_spin0_comp_f32(const void* fe, const void* fo,
 }
 
 // The float32 launch with ``counts`` (3 x uint64, zeroed by the caller)
-// taking the warps' sub-chunks on the steady, dead and full paths.
+// taking the warps' sub-chunks on the steady, dead and full paths; the
+// counted kernel is the nb = 1 one, any other nb is refused.
 int heracles_analysis_spin0_paths_f32(const void* fe, const void* fo,
                                       const void* x, const void* logch,
                                       const void* logsh, const void* seed,
                                       void* out, void* counts, int batch,
                                       int nhalf, int nm, int lmax, int m0,
-                                      void* stream) {
+                                      int nb, void* stream) {
+  if (nb != 1) return int(cudaErrorInvalidValue);
   return launch<float, false, true>(fe, fo, x, nullptr, logch, logsh, seed,
                                     out, batch, nhalf, nm, lmax, m0, counts,
                                     stream);
@@ -772,7 +812,8 @@ int heracles_analysis_spin0_comp_paths_f32(const void* fe, const void* fo,
                                            const void* logsh, const void* seed,
                                            void* out, void* counts, int batch,
                                            int nhalf, int nm, int lmax, int m0,
-                                           void* stream) {
+                                           int nb, void* stream) {
+  if (nb != 1) return int(cudaErrorInvalidValue);
   return launch<float, true, true>(fe, fo, x, xr, logch, logsh, seed, out,
                                    batch, nhalf, nm, lmax, m0, counts, stream);
 }

@@ -65,20 +65,38 @@
 //     registers a ring; kComp = false compiles to the plain kernel;
 //   * a batch runs in groups of NB = 1, 2 or 4 maps (the reference's pair
 //     limit, pallas_sht.py:1603), the twin of _pair_kernel's nb
-//     (pallas_sht.py:1051): NB = 1 is the kernel above, NB > 1
-//     pair_group_kernel, one block per (order, group), which runs both
-//     columns' recurrences once for the group (11 of a map-triple's 27
-//     operations) and contracts them against each map's spectra from a
-//     shared-memory copy of the ring tile, every output the NB = 1
-//     kernel's bit for bit.  Its shared memory is 17 KB a map in float32,
-//     34 KB in float64.
+//     (pallas_sht.py:1051, picked at :1601-1603): NB = 1 is the kernel
+//     above, NB > 1 pair_group_kernel, one block per (order, group), which
+//     runs both columns' recurrences once for the group (11 of a
+//     map-triple's 27 operations) and contracts them against the group's
+//     spectra on the tensor cores as two products, (FNp, Sm) lp and (Sp,
+//     FNm) lm (tc_contract.cuh: 3xTF32 mma.sync in float32 and comp, DMMA
+//     in float64), the (-1)^l applied to the products' columns.  Once the
+//     contraction leaves the FP32 pipe, what bounds the group is the
+//     shared recurrence (and the splits and staging that feed the tensor
+//     cores), no longer each map's FMAs and warp butterfly: on an H100
+//     the float32 nb 4 runs 11-14% faster than the FP32 contraction it
+//     replaced, and nb 2, whose 8 rows fill half of each product, 15-16%
+//     slower; float64 runs faster at both.
+//     It has the spin-0 group's paths and pace: steady, dead or full per
+//     warp and sub-chunk of 8 multipoles (sht_paths.cuh; a dead sub-chunk
+//     costs nothing per map), a ring tile of 256, the spectra kept whole
+//     in fragment order (split into TF32 parts as a k-step reads them),
+//     and the warps meeting once per section of 128 multipoles.  Not
+//     wgmma, for the reason sht_analysis.cu gives.  Its outputs agree with
+//     NB = 1's to the float32 (float64) bar, not bit for bit; each launch
+//     repeats bit for bit.  Its shared memory is 45 / 77 KB at NB 2 / 4 in
+//     float32, 90 / 154 KB in float64.
 //
 // C interface (loaded with ctypes): heracles_analysis_pair_{f32,f64} and
 // heracles_analysis_pair_comp_f32 (with the rings' r after x) launch the
 // batch in groups of nb maps (1, 2 or 4, dividing the batch, else
 // cudaErrorInvalidValue) on the given stream and return
 // cudaGetLastError(); heracles_analysis_pair_blocks_per_sm gives the
-// resident blocks per SM of a variant and nb.
+// resident blocks per SM of a variant and nb;
+// heracles_analysis_pair_{,comp_}paths_f32 are diagnostic launches of the
+// grouped kernel (nb 2 or 4) that also count the warps' sub-chunks on
+// each path (steady, dead, full).
 // Every launch takes the block of orders m0..m0+nm-1 into its columns
 // 0..nm-1 (the seed planes are the block's, indexed by column), so a
 // device mesh can give each shard its own block; m0 = 0 is every order
@@ -87,6 +105,8 @@
 #include <cuda_runtime.h>
 #include <stddef.h>
 
+#include "sht_paths.cuh"
+#include "tc_contract.cuh"
 #include "warp_reduce.cuh"
 #include "wigner_recurrence.cuh"
 
@@ -100,8 +120,13 @@ constexpr int kRows = kThreads;           // coefficient rows: one per thread
 constexpr int NC = 4;                     // (re, im) of a_p and a_m
 constexpr int LC = 8;                     // multipoles per chunk
 constexpr int V = NC * LC;                // register sums per thread
+constexpr int kSub = sht_paths::kSub;     // multipoles per path decision
 
-using warp_reduce::reduce_pairs;
+using sht_paths::emit_scaled;
+using sht_paths::madd;
+using sht_paths::Path;
+using sht_paths::PathCounts;
+using sht_paths::rescale_deferred;
 using warp_reduce::reduce_scatter;
 using wigner::advance;
 using wigner::advance_comp;
@@ -112,22 +137,6 @@ using wigner::norm_of;
 using wigner::seed_of;
 using wigner::step;
 using wigner::step_lo;
-
-// The emit factor times 2^60, for spectra held times 2^-60: 2^60 at k = 0,
-// 1 at k = -1, 0 below.  (dc e) (F 2^-60) is the exact product of the
-// plain version's dc emit_of(k) and F, both factors being power-of-two
-// scalings, so the FMA that takes it rounds as before.
-template <typename T>
-__device__ __forceinline__ T emit_scaled(int k) {
-  return k == 0 ? Arith<T>::scale() : (k == -1 ? T(1) : T(0));
-}
-
-__device__ __forceinline__ float madd(float a, float b, float c) {
-  return __fmaf_rn(a, b, c);
-}
-__device__ __forceinline__ double madd(double a, double b, double c) {
-  return __fma_rn(a, b, c);
-}
 
 // A coefficient row (a1, a0, b, pad) of the shared table, in vector reads.
 __device__ __forceinline__ void load_row(const float* row, float& a1,
@@ -175,10 +184,10 @@ struct PairContract {
 };
 
 // The grouped kernel's: keep them for the group's maps.
-template <typename T, int kSteps>
+template <typename T, int R>
 struct PairKeep {
-  T (&lp)[kSteps][kRings];
-  T (&lm)[kSteps][kRings];
+  T (&lp)[kSub][R];
+  T (&lm)[kSub][R];
   __device__ __forceinline__ void operator()(int t, int r, T vp, T vm) const {
     lp[t][r] = vp;
     lm[t][r] = vm;
@@ -186,23 +195,25 @@ struct PairKeep {
 };
 
 // kSteps steps of both columns' recurrences of the thread's rings from the
-// coefficient row cf on; emit(t, r, lp, lm) takes step t's values of ring
-// r before the step.
-template <typename T, bool kSteady, bool kComp, int kSteps, typename Emit>
+// coefficient row cf on, on path P (sht_paths.cuh); on a path that emits,
+// emit(t, r, lp, lm) takes step t's values of ring r before the step.
+template <typename T, Path P, bool kComp, int kSteps, int R, typename Emit>
 __device__ __forceinline__ void pair_steps(const T* __restrict__ cf,
-                                           PairRing<T> (&rs)[kRings],
+                                           PairRing<T> (&rs)[R],
                                            const Emit& emit) {
 #pragma unroll
   for (int t = 0; t < kSteps; ++t) {
     T a1, a0, bb;
     load_row(cf + 4 * t, a1, a0, bb);
 #pragma unroll
-    for (int r = 0; r < kRings; ++r) {
+    for (int r = 0; r < R; ++r) {
       PairRing<T>& q = rs[r];
-      const T dp_ = kComp ? Arith<T>::add(q.dc, q.dcl) : q.dc;
-      const T dm_ = kComp ? Arith<T>::add(q.dcm, q.dcml) : q.dcm;
-      emit(t, r, kSteady ? dp_ : dp_ * emit_scaled<T>(q.k),
-           kSteady ? dm_ : dm_ * emit_scaled<T>(q.km));
+      if (P != Path::kDead) {
+        const T dp_ = kComp ? Arith<T>::add(q.dc, q.dcl) : q.dc;
+        const T dm_ = kComp ? Arith<T>::add(q.dcm, q.dcml) : q.dcm;
+        emit(t, r, P == Path::kSteady ? dp_ : dp_ * emit_scaled<T>(q.k),
+             P == Path::kSteady ? dm_ : dm_ * emit_scaled<T>(q.km));
+      }
       // the -s column's a0 is minus the +s column's
       const T a1x = Arith<T>::mul(a1, q.x);
       const T dnp = step<T>(a1x, a0, bb, q.dc, q.dp);
@@ -210,7 +221,7 @@ __device__ __forceinline__ void pair_steps(const T* __restrict__ cf,
       if (kComp) {
         const T dnpl = step_lo<T>(a1x, a0, bb, q.r, q.dc, q.dcl, q.dpl);
         const T dnml = step_lo<T>(a1x, -a0, bb, q.r, q.dcm, q.dcml, q.dpml);
-        if (kSteady) {
+        if (P != Path::kFull) {
           q.dp = q.dc;
           q.dc = dnp;
           q.dpm = q.dcm;
@@ -223,7 +234,8 @@ __device__ __forceinline__ void pair_steps(const T* __restrict__ cf,
           advance_comp<T>(dnp, dnpl, q.dp, q.dc, q.dpl, q.dcl, q.k);
           advance_comp<T>(dnm, dnml, q.dpm, q.dcm, q.dpml, q.dcml, q.km);
         }
-      } else if (kSteady) {
+      } else if (P != Path::kFull) {
+        // steady: no rescale is due; dead: it waits for the end
         q.dp = q.dc;
         q.dc = dnp;
         q.dpm = q.dcm;
@@ -231,6 +243,19 @@ __device__ __forceinline__ void pair_steps(const T* __restrict__ cf,
       } else {
         advance<T>(dnp, q.dp, q.dc, q.k);
         advance<T>(dnm, q.dpm, q.dcm, q.km);
+      }
+    }
+  }
+  if (P == Path::kDead) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      PairRing<T>& q = rs[r];
+      if (kComp) {
+        rescale_deferred<T>(q.dp, q.dc, q.dpl, q.dcl, q.k);
+        rescale_deferred<T>(q.dpm, q.dcm, q.dpml, q.dcml, q.km);
+      } else {
+        rescale_deferred<T>(q.dp, q.dc, q.k);
+        rescale_deferred<T>(q.dpm, q.dcm, q.km);
       }
     }
   }
@@ -249,11 +274,11 @@ __device__ __forceinline__ bool warp_steady(const PairRing<T> (&rs)[kRings]) {
 
 // Whether any ring of the warp emits from here on: k never decreases, so
 // a warp whose every exponent is still below -1 emitted only zeros.
-template <typename T>
-__device__ __forceinline__ bool warp_live(const PairRing<T> (&rs)[kRings]) {
+template <typename T, int R>
+__device__ __forceinline__ bool warp_live(const PairRing<T> (&rs)[R]) {
   bool live = false;
 #pragma unroll
-  for (int r = 0; r < kRings; ++r) {
+  for (int r = 0; r < R; ++r) {
     live = live || rs[r].k >= -1 || rs[r].km >= -1;
   }
   return __any_sync(0xffffffffu, live);
@@ -374,11 +399,11 @@ __global__ void __launch_bounds__(kThreads)
         for (int i = 0; i < V; ++i) acc[i] = T(0);
         const T* cf = &tab[tb][c * LC][0];
         if (warp_steady(rings)) {
-          pair_steps<T, true, kComp, LC>(cf, rings,
-                                         PairContract<T>{rings, acc});
+          pair_steps<T, Path::kSteady, kComp, LC>(cf, rings,
+                                                  PairContract<T>{rings, acc});
         } else {
-          pair_steps<T, false, kComp, LC>(cf, rings,
-                                          PairContract<T>{rings, acc});
+          pair_steps<T, Path::kFull, kComp, LC>(cf, rings,
+                                                PairContract<T>{rings, acc});
         }
 
         // a warp that emitted only zeros in this chunk skips its reduction
@@ -400,55 +425,70 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// A quad of a ring's spectra in the grouped kernel's shared tile: (FNp,
-// Sp) or (FNm, Sm), each (re, im), scaled as the NB = 1 kernel holds them.
-__device__ __forceinline__ void load4(const float* p, float (&f)[4]) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  f[0] = v.x;
-  f[1] = v.y;
-  f[2] = v.z;
-  f[3] = v.w;
-}
-__device__ __forceinline__ void load4(const double* p, double (&f)[4]) {
-  const double2 a = *reinterpret_cast<const double2*>(p);
-  const double2 b = *reinterpret_cast<const double2*>(p + 2);
-  f[0] = a.x;
-  f[1] = a.y;
-  f[2] = b.x;
-  f[3] = b.y;
-}
-__device__ __forceinline__ void store4(float* p, const float (&f)[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(f[0], f[1], f[2], f[3]);
-}
-__device__ __forceinline__ void store4(double* p, const double (&f)[4]) {
-  *reinterpret_cast<double2*>(p) = make_double2(f[0], f[1]);
-  *reinterpret_cast<double2*>(p + 2) = make_double2(f[2], f[3]);
-}
+// Ring slots a thread of the grouped kernel: a ring tile of 256, so that
+// the A tiles of 4 maps leave room for two blocks an SM.
+constexpr int kGR = 2;
+constexpr int kGTile = kThreads * kGR;
+constexpr int kGSteps = 4 * kGR;  // k-steps of 8 rings: a warp's 32 kGR rings
 
-// Dynamic shared memory of the grouped kernel: the tile's spectra of the
-// NB maps, fs[NB][kRings][2][kThreads][4], and the warps' sums of a chunk,
-// part[2][kWarps][NB * V].
+// The grouped kernel's dynamic shared memory, in elements of T, per warp:
+// its A tiles for the two products (tc_contract.cuh; row tile j / 4 of
+// product 0 holds map j's FNp in rows 2 j + c and Sm in rows 2 j + c + 8,
+// product 1 its Sp and FNm, c = re, im), its staging buffer (one, used by
+// the products in turn), and its sums of a section, part[NB][kRows][NC].
 template <typename T, int NB>
-constexpr size_t group_smem() {
-  return sizeof(T) * NB * (kRings * 2 * kThreads * 4 + 2 * kWarps * V);
+struct GroupSmem {
+  static constexpr int kTiles = (NB + 3) / 4;           // row tiles of 16
+  static constexpr int kLanes = NB >= 4 ? 32 : 8 * NB;  // lanes with rows
+  static constexpr int kStep = tc::step_elems<kLanes>();
+  static constexpr int kProduct = kTiles * kGSteps * kStep;
+  static constexpr int kA = 2 * kProduct;
+  static constexpr int kStaged = 2 * 8 * tc::kStage;
+  static constexpr int kPart = NB * kRows * NC;
+  static constexpr size_t kBytes =
+      sizeof(T) * size_t(kWarps) * (kA + kStaged + kPart);
+  // blocks an SM its shared memory allows (228 KB an SM, 1 KB reserved a
+  // block, the coefficient table beside): the launch bounds tell ptxas,
+  // which otherwise trades registers for an occupancy the shared memory
+  // never gives, and spills
+  static constexpr int kResident = int(
+      (228 * 1024) / (kBytes + sizeof(T) * 2 * kRows * 4 + 1024));
+};
+
+// The warp's path for its next sub-chunk (sht_paths.cuh), from both
+// columns' exponents.
+template <typename T, int R>
+__device__ __forceinline__ Path pair_path(const PairRing<T> (&rs)[R]) {
+  bool steady = true, dead = true;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    steady = steady && sht_paths::is_steady(rs[r].k) &&
+             sht_paths::is_steady(rs[r].km);
+    dead = dead && sht_paths::is_dead(rs[r].k) && sht_paths::is_dead(rs[r].km);
+  }
+  return sht_paths::warp_path(steady, dead);
 }
 
 // The grouped kernel (NB > 1), the twin of the reference's nb program:
 // one block per (order, group of NB maps) runs both columns' recurrences
-// of its rings once and contracts them against all NB maps' spectra.  Per
-// half chunk of LC / 2 multipoles a thread keeps the emitted values of
-// both columns (PairKeep, 32 values), then, map by map, reads that map's
-// two quads of each ring from the shared tile (each thread reads only
-// what it wrote), runs the same 8 FMAs in the same order into the half
-// chunk's 16 sums and reduces them across the warp (reduce_pairs, which
-// gives each sum the number reduce_scatter gives it).  The warps' sums
-// meet in part[] at the end of each chunk and are summed and flushed as
-// in the NB = 1 kernel, by NB times as many threads, so every output is
-// the NB = 1 kernel's, bit for bit.  The steady check is a property of
-// the rings and serves the whole group; a half chunk that emitted only
-// zeros writes zeros, the sum its reduction would give.
-template <typename T, bool kComp, int NB>
-__global__ void __launch_bounds__(kThreads)
+// of its rings once (PairKeep) and contracts them against all NB maps'
+// spectra on the tensor cores (tc_contract.cuh): per sub-chunk of kSub
+// multipoles a warp stages lp and multiplies product 0's A tiles by it
+// (D0 = (FNp, Sm) lp), then the same for lm (D1 = (Sp, FNm) lm), and
+// forms a_p = D0[FNp] + (-1)^t D1[Sp], a_m = D1[FNm] + (-1)^t D0[Sm] in
+// the lane that holds all four (the (-1)^j0 of (-1)^l is in the S
+// spectra).  The warp takes the steady, dead or full path a sub-chunk
+// (sht_paths.cuh), for the group; a dead sub-chunk, or one that emitted
+// only zeros, costs nothing per map: its sums are zeros.  The warps' sums
+// meet in part[] once per section, where the coefficient table's double
+// buffer needs a barrier anyway, and are summed in a fixed order and
+// flushed; part[] has one buffer, so a second barrier closes the flush.
+// The sums run in another order than the NB = 1 kernel's (and 3xTF32 in
+// float32), so the outputs are not its bits; every launch repeats bit for
+// bit.  kCount: the diagnostic twin that counts the warps' sub-chunks on
+// each path.
+template <typename T, bool kComp, int NB, bool kCount>
+__global__ void __launch_bounds__(kThreads, GroupSmem<T, NB>::kResident)
     pair_group_kernel(const T* __restrict__ fnp, const T* __restrict__ sp,
                       const T* __restrict__ fnm, const T* __restrict__ sm,
                       const T* __restrict__ x, const T* __restrict__ xr,
@@ -456,29 +496,34 @@ __global__ void __launch_bounds__(kThreads)
                       const double* __restrict__ logsh,
                       const double* __restrict__ seed, T* __restrict__ out_p,
                       T* __restrict__ out_m, int nhalf, int nm, int lmax,
-                      int s, int m0) {
-  constexpr int kHalf = LC / 2;  // multipoles per half chunk
-  constexpr int kFlush = (NB * V + kThreads - 1) / kThreads;
-  static_assert(NB > 1 && NC * kHalf == 16,
-                "a group of maps; 16 sums of a half chunk per map");
+                      int s, int m0, unsigned long long* __restrict__ counts) {
+  using S = GroupSmem<T, NB>;
+  static_assert(NB > 1 && kRows % kSub == 0 && kSub == 8 && kGR % 2 == 0 &&
+                    NC == 4,
+                "a group of maps; sub-chunks tile the section; a sub-chunk "
+                "is one mma's 8 columns; ring slots in pairs; (re, im) of "
+                "a_p and a_m");
   static_assert(!kComp || sizeof(T) == 4, "comp is a float32 mode");
   extern __shared__ __align__(16) unsigned char smem[];
-  T* const fs = reinterpret_cast<T*>(smem);
-  T* const part = fs + NB * kRings * 2 * kThreads * 4;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  T* const base = reinterpret_cast<T*>(smem);
+  T* const at = base + warp * S::kA;
+  T* const stg = base + kWarps * S::kA + warp * S::kStaged;
+  T* const part = base + kWarps * (S::kA + S::kStaged);
   __shared__ __align__(16) T tab[2][kRows][4];  // a1, a0, b, (pad)
 
   const int mc = blockIdx.x;  // the column: this order's place in the block
   const int m = m0 + mc;      // the order
   const int g0 = blockIdx.y * NB;  // the group's first map
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
   const int j0 = max(m, s);
-  const int ntiles = (nhalf + kTile - 1) / kTile;
+  const int ntiles = (nhalf + kGTile - 1) / kGTile;
   // output (g0 + j, l, m) at col + j plane + l rs, (re, im) adjacent
   const size_t plane = size_t(lmax + 1) * nm * 2;
   const size_t col = size_t(g0) * plane + size_t(mc) * 2;
   const size_t rs = size_t(nm) * 2;
+  PathCounts<kCount> tally;
 
   const int lz = (j0 <= lmax && ntiles > 0) ? j0 : lmax + 1;
   for (int l = tid; l < lz; l += kThreads) {
@@ -496,26 +541,23 @@ __global__ void __launch_bounds__(kThreads)
               &tab[0][tid][2]);
   __syncthreads();
 
-  int g = 0;  // running chunk count: selects the part buffer
   int q = 0;  // running section count: selects the table buffer
   for (int tile = 0; tile < ntiles; ++tile) {
     // what only a tile's start reads is read there again, to keep it out
-    // of the registers of the chunks: seed exponents of cos(t/2) and
+    // of the registers of the sections: seed exponents of cos(t/2) and
     // sin(t/2), (m+s, |m-s|) for +s and swapped for -s
     const double pc = double(m + s);
     const double ps = fabs(double(m - s));
     const T par = (j0 & 1) ? -Arith<T>::inv_scale() : Arith<T>::inv_scale();
     const T inv = Arith<T>::inv_scale();
-    PairRing<T> rings[kRings];
+    PairRing<T> rings[kGR];
 #pragma unroll
-    for (int r = 0; r < kRings; ++r) {
+    for (int r = 0; r < kGR; ++r) {
       PairRing<T>& p = rings[r];
-      const int ring = tile * kTile + (warp * kRings + r) * 32 + lane;
+      const int ring = tile * kGTile + (warp * kGR + r) * 32 + lane;
       p.dp = T(0);
       p.dpm = T(0);
       if (kComp) p.r = p.dpl = p.dcl = p.dpml = p.dcml = T(0);
-      T fa[4] = {T(0), T(0), T(0), T(0)};
-      T fc[4] = {T(0), T(0), T(0), T(0)};
       if (ring < nhalf) {
         const double lch = logch[ring], lsh = logsh[ring];
         p.x = x[ring];
@@ -530,20 +572,28 @@ __global__ void __launch_bounds__(kThreads)
         p.k = kNoSeed;
         p.km = kNoSeed;
       }
+      // this ring is k = lane % 4 + 4 (r % 2) of k-step 8 (r / 2) + lane / 4
+      T* const step = at + (8 * (r / 2) + (lane >> 2)) * S::kStep;
       for (int j = 0; j < NB; ++j) {
+        // FNp, Sp (-1)^j0, FNm, Sm (-1)^j0, (re, im) each, times 2^-60
+        T f[4][2] = {};
         if (ring < nhalf) {
           const size_t off = ((size_t(g0 + j) * nhalf + ring) * nm + mc) * 2;
 #pragma unroll
           for (int c = 0; c < 2; ++c) {
-            fa[c] = fnp[off + c] * inv;
-            fa[2 + c] = par * sp[off + c];
-            fc[c] = fnm[off + c] * inv;
-            fc[2 + c] = par * sm[off + c];
+            f[0][c] = fnp[off + c] * inv;
+            f[1][c] = par * sp[off + c];
+            f[2][c] = fnm[off + c] * inv;
+            f[3][c] = par * sm[off + c];
           }
         }
-        T* const quad = fs + ((j * kRings + r) * 2 * kThreads + tid) * 4;
-        store4(quad, fa);
-        store4(quad + kThreads * 4, fc);
+        T* const tj = step + (j / 4) * kGSteps * S::kStep;
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int al = (2 * (j % 4) + c) * 4 + (lane & 3);
+          tc::put(tj, al, r & 1, f[0][c], f[3][c]);
+          tc::put(tj + S::kProduct, al, r & 1, f[1][c], f[2][c]);
+        }
       }
     }
 
@@ -553,90 +603,90 @@ __global__ void __launch_bounds__(kThreads)
       coef_row<T>(j0 + sn * kRows + tid + 1, j0, m, s, lmax,
                   &tab[tb ^ 1][tid][0], &tab[tb ^ 1][tid][1],
                   &tab[tb ^ 1][tid][2]);
-      const int nch = (min(kRows, n - sec * kRows) + LC - 1) / LC;
-      for (int c = 0; c < nch; ++c, ++g) {
-        // the values this thread flushes, v = tid + i kThreads: map v / V,
-        // the chunk's value v % V (row offset v % V / NC, component
-        // v % NC); their sums over the earlier tiles, read before the
-        // compute
-        T prev[kFlush];
-#pragma unroll
-        for (int i = 0; i < kFlush; ++i) {
-          const int v = tid + i * kThreads, iv = v % V;
-          const int lf = j0 + sec * kRows + c * LC + iv / NC;
-          const bool flush = v < NB * V && lf <= lmax;
-          T* const fout = (iv % NC) < 2 ? out_p : out_m;
-          const size_t fo = col + (v / V) * plane + lf * rs + (iv & 1);
-          prev[i] = (flush && tile > 0) ? fout[fo] : T(0);
-        }
 
-        T* const pw = part + ((g & 1) * kWarps + warp) * (NB * V);
-        const bool steady = warp_steady(rings);
-        for (int h = 0; h < 2; ++h) {
-          T lp[kHalf][kRings], lm[kHalf][kRings];
-          const T* cf = &tab[tb][c * LC + h * kHalf][0];
-          if (steady) {
-            pair_steps<T, true, kComp, kHalf>(cf, rings,
-                                              PairKeep<T, kHalf>{lp, lm});
-          } else {
-            pair_steps<T, false, kComp, kHalf>(cf, rings,
-                                               PairKeep<T, kHalf>{lp, lm});
-          }
-          const bool live = warp_live(rings);
-#pragma unroll 1
-          for (int j = 0; j < NB; ++j) {
-            T sum = T(0);
-            if (live) {
-              T acc[NC * kHalf];
+      const int nsub = (min(kRows, n - sec * kRows) + kSub - 1) / kSub;
+      for (int u = 0; u < nsub; ++u) {
+        T lp[kSub][kGR], lm[kSub][kGR];
+        const T* cf = &tab[tb][u * kSub][0];
+        const PairKeep<T, kGR> keep{lp, lm};
+        const Path path = pair_path(rings);
+        tally.add(path);
+        if (path == Path::kSteady) {
+          pair_steps<T, Path::kSteady, kComp, kSub>(cf, rings, keep);
+        } else if (path == Path::kDead) {
+          pair_steps<T, Path::kDead, kComp, kSub>(cf, rings, keep);
+        } else {
+          pair_steps<T, Path::kFull, kComp, kSub>(cf, rings, keep);
+        }
+        T d0[S::kTiles][4] = {}, d1[S::kTiles][4] = {};
+        if (path != Path::kDead && warp_live(rings)) {
 #pragma unroll
-              for (int i = 0; i < NC * kHalf; ++i) acc[i] = T(0);
+          for (int p = 0; p < kGR / 2; ++p) {
+            const T* const ap = at + 8 * p * S::kStep;
+            __syncwarp();
 #pragma unroll
-              for (int r = 0; r < kRings; ++r) {
-                const T* const quad =
-                    fs + ((j * kRings + r) * 2 * kThreads + tid) * 4;
-                T fa[4], fc[4];
-                load4(quad, fa);
-                load4(quad + kThreads * 4, fc);
-#pragma unroll
-                for (int t = 0; t < kHalf; ++t) {
-                  // (-1)^l = (-1)^j0 (-1)^t (half chunks start at an even
-                  // t): the (-1)^j0 is in the S quads
-                  const T vp = lp[t][r], vm = lm[t][r];
-                  const T lps = (t & 1) ? -vp : vp;
-                  const T lms = (t & 1) ? -vm : vm;
-                  const int o = NC * t;
-                  acc[o] = madd(lms, fa[2], madd(vp, fa[0], acc[o]));
-                  acc[o + 1] = madd(lms, fa[3], madd(vp, fa[1], acc[o + 1]));
-                  acc[o + 2] = madd(lps, fc[2], madd(vm, fc[0], acc[o + 2]));
-                  acc[o + 3] = madd(lps, fc[3], madd(vm, fc[1], acc[o + 3]));
-                }
-              }
-              reduce_pairs(acc, lane);
-              sum = acc[0];
+            for (int t = 0; t < kSub; ++t) {
+              tc::stage(stg, lane, t, lp[t][2 * p], lp[t][2 * p + 1]);
             }
-            // lanes 2i and 2i + 1 hold the half chunk's value i
-            if ((lane & 1) == 0) pw[j * V + h * 16 + (lane >> 1)] = sum;
+            __syncwarp();
+            tc::contract<S::kTiles, S::kLanes>(d0, stg, ap,
+                                               kGSteps * S::kStep, lane);
+            __syncwarp();
+#pragma unroll
+            for (int t = 0; t < kSub; ++t) {
+              tc::stage(stg, lane, t, lm[t][2 * p], lm[t][2 * p + 1]);
+            }
+            __syncwarp();
+            tc::contract<S::kTiles, S::kLanes>(d1, stg, ap + S::kProduct,
+                                               kGSteps * S::kStep, lane);
           }
         }
-        __syncthreads();
+        // lane (g, t) holds rows g and g + 8 at multipoles 2 t + e in
+        // d[e] and d[2 + e]: map 4 tq + g / 2, component g % 2
+        const int g = lane >> 2;
+        if (g < 2 * NB) {
 #pragma unroll
-        for (int i = 0; i < kFlush; ++i) {
-          const int v = tid + i * kThreads, iv = v % V;
-          const int lf = j0 + sec * kRows + c * LC + iv / NC;
-          if (v < NB * V && lf <= lmax) {
-            T* const fout = (iv % NC) < 2 ? out_p : out_m;
-            const size_t fo = col + (v / V) * plane + lf * rs + (iv & 1);
-            T sum = T(0);
+          for (int tq = 0; tq < S::kTiles; ++tq) {
+            T* const pj = part +
+                          (warp * NB + 4 * tq + g / 2) * (kRows * NC) +
+                          (u * kSub + 2 * (lane & 3)) * NC + (g & 1);
 #pragma unroll
-            for (int w = 0; w < kWarps; ++w) {
-              sum += part[((g & 1) * kWarps + w) * (NB * V) + v];
+            for (int e = 0; e < 2; ++e) {
+              // (-1)^t with t = 2 (lane % 4) + e
+              pj[e * NC] = e ? d0[tq][e] - d1[tq][e] : d0[tq][e] + d1[tq][e];
+              pj[e * NC + 2] = e ? d1[tq][2 + e] - d0[tq][2 + e]
+                                 : d1[tq][2 + e] + d0[tq][2 + e];
             }
-            fout[fo] = prev[i] + sum * norm_of<T>(lf);
           }
         }
       }
+      __syncthreads();
+      const int lf = j0 + sec * kRows + tid;
+      if (lf <= lmax) {
+        const T norm = norm_of<T>(lf);
+        for (int j = 0; j < NB; ++j) {
+          const size_t fo = col + j * plane + lf * rs;
+          T sum[NC] = {};
+#pragma unroll
+          for (int w = 0; w < kWarps; ++w) {
+            const T* const pw = &part[(w * NB + j) * (kRows * NC) + NC * tid];
+#pragma unroll
+            for (int i = 0; i < NC; ++i) sum[i] += pw[i];
+          }
+          const T pr = tile > 0 ? out_p[fo] : T(0);
+          const T pi = tile > 0 ? out_p[fo + 1] : T(0);
+          const T mr = tile > 0 ? out_m[fo] : T(0);
+          const T mi = tile > 0 ? out_m[fo + 1] : T(0);
+          out_p[fo] = pr + sum[0] * norm;
+          out_p[fo + 1] = pi + sum[1] * norm;
+          out_m[fo] = mr + sum[2] * norm;
+          out_m[fo + 1] = mi + sum[3] * norm;
+        }
+      }
+      __syncthreads();
     }
   }
+  tally.flush(counts, lane);
 }
 
 template <typename T, bool kComp>
@@ -659,25 +709,25 @@ int launch(const void* fnp, const void* sp, const void* fnm, const void* sm,
 }
 
 // Lets the grouped kernel take its shared memory, and returns it.
-template <typename T, bool kComp, int NB>
+template <typename T, bool kComp, int NB, bool kCount>
 cudaError_t group_smem_attr(size_t* smem) {
-  *smem = group_smem<T, NB>();
-  return cudaFuncSetAttribute(pair_group_kernel<T, kComp, NB>,
+  *smem = GroupSmem<T, NB>::kBytes;
+  return cudaFuncSetAttribute(pair_group_kernel<T, kComp, NB, kCount>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               int(*smem));
 }
 
-template <typename T, bool kComp, int NB>
+template <typename T, bool kComp, int NB, bool kCount>
 int launch_group(const void* fnp, const void* sp, const void* fnm,
                  const void* sm, const void* x, const void* xr,
                  const void* logch, const void* logsh, const void* seed,
                  void* out_p, void* out_m, int batch, int nhalf, int nm,
-                 int lmax, int spin, int m0, void* stream) {
+                 int lmax, int spin, int m0, void* counts, void* stream) {
   if (batch == 0 || nm == 0) return int(cudaSuccess);
   size_t smem = 0;
-  const cudaError_t err = group_smem_attr<T, kComp, NB>(&smem);
+  const cudaError_t err = group_smem_attr<T, kComp, NB, kCount>(&smem);
   if (err != cudaSuccess) return int(err);
-  pair_group_kernel<T, kComp, NB>
+  pair_group_kernel<T, kComp, NB, kCount>
       <<<dim3(nm, batch / NB), kThreads, smem,
          static_cast<cudaStream_t>(stream)>>>(
           static_cast<const T*>(fnp), static_cast<const T*>(sp),
@@ -686,7 +736,7 @@ int launch_group(const void* fnp, const void* sp, const void* fnm,
           static_cast<const double*>(logch),
           static_cast<const double*>(logsh), static_cast<const double*>(seed),
           static_cast<T*>(out_p), static_cast<T*>(out_m), nhalf, nm, lmax,
-          spin, m0);
+          spin, m0, static_cast<unsigned long long*>(counts));
   return int(cudaGetLastError());
 }
 
@@ -706,13 +756,35 @@ int launch_nb(const void* fnp, const void* sp, const void* fnm,
                               out_p, out_m, batch, nhalf, nm, lmax, spin, m0,
                               stream);
     case 2:
-      return launch_group<T, kComp, 2>(fnp, sp, fnm, sm, x, xr, logch, logsh,
-                                       seed, out_p, out_m, batch, nhalf, nm,
-                                       lmax, spin, m0, stream);
+      return launch_group<T, kComp, 2, false>(
+          fnp, sp, fnm, sm, x, xr, logch, logsh, seed, out_p, out_m, batch,
+          nhalf, nm, lmax, spin, m0, nullptr, stream);
     case 4:
-      return launch_group<T, kComp, 4>(fnp, sp, fnm, sm, x, xr, logch, logsh,
-                                       seed, out_p, out_m, batch, nhalf, nm,
-                                       lmax, spin, m0, stream);
+      return launch_group<T, kComp, 4, false>(
+          fnp, sp, fnm, sm, x, xr, logch, logsh, seed, out_p, out_m, batch,
+          nhalf, nm, lmax, spin, m0, nullptr, stream);
+    default:
+      return int(cudaErrorInvalidValue);
+  }
+}
+
+// The grouped float32 launch with the path counts (nb 2 or 4).
+template <bool kComp>
+int launch_paths(const void* fnp, const void* sp, const void* fnm,
+                 const void* sm, const void* x, const void* xr,
+                 const void* logch, const void* logsh, const void* seed,
+                 void* out_p, void* out_m, void* counts, int batch, int nhalf,
+                 int nm, int lmax, int spin, int m0, int nb, void* stream) {
+  if (nb < 1 || batch % nb != 0) return int(cudaErrorInvalidValue);
+  switch (nb) {
+    case 2:
+      return launch_group<float, kComp, 2, true>(
+          fnp, sp, fnm, sm, x, xr, logch, logsh, seed, out_p, out_m, batch,
+          nhalf, nm, lmax, spin, m0, counts, stream);
+    case 4:
+      return launch_group<float, kComp, 4, true>(
+          fnp, sp, fnm, sm, x, xr, logch, logsh, seed, out_p, out_m, batch,
+          nhalf, nm, lmax, spin, m0, counts, stream);
     default:
       return int(cudaErrorInvalidValue);
   }
@@ -721,10 +793,10 @@ int launch_nb(const void* fnp, const void* sp, const void* fnm,
 template <typename T, bool kComp, int NB>
 int group_blocks(int* n) {
   size_t smem = 0;
-  const cudaError_t err = group_smem_attr<T, kComp, NB>(&smem);
+  const cudaError_t err = group_smem_attr<T, kComp, NB, false>(&smem);
   if (err != cudaSuccess) return int(err);
   return int(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      n, pair_group_kernel<T, kComp, NB>, kThreads, smem));
+      n, pair_group_kernel<T, kComp, NB, false>, kThreads, smem));
 }
 
 template <typename T, bool kComp>
@@ -780,6 +852,32 @@ int heracles_analysis_pair_comp_f32(const void* fnp, const void* sp,
   return launch_nb<float, true>(fnp, sp, fnm, sm, x, xr, logch, logsh, seed,
                                 out_p, out_m, batch, nhalf, nm, lmax, spin, m0,
                                 nb, stream);
+}
+
+// The float32 launch in groups of nb maps (2 or 4: the grouped kernel)
+// with ``counts`` (3 x uint64, zeroed by the caller) taking the warps'
+// sub-chunks on the steady, dead and full paths.
+int heracles_analysis_pair_paths_f32(const void* fnp, const void* sp,
+                                     const void* fnm, const void* sm,
+                                     const void* x, const void* logch,
+                                     const void* logsh, const void* seed,
+                                     void* out_p, void* out_m, void* counts,
+                                     int batch, int nhalf, int nm, int lmax,
+                                     int spin, int m0, int nb, void* stream) {
+  return launch_paths<false>(fnp, sp, fnm, sm, x, nullptr, logch, logsh, seed,
+                             out_p, out_m, counts, batch, nhalf, nm, lmax,
+                             spin, m0, nb, stream);
+}
+
+// The compensated float32 launch with the path counts.
+int heracles_analysis_pair_comp_paths_f32(
+    const void* fnp, const void* sp, const void* fnm, const void* sm,
+    const void* x, const void* xr, const void* logch, const void* logsh,
+    const void* seed, void* out_p, void* out_m, void* counts, int batch,
+    int nhalf, int nm, int lmax, int spin, int m0, int nb, void* stream) {
+  return launch_paths<true>(fnp, sp, fnm, sm, x, xr, logch, logsh, seed,
+                            out_p, out_m, counts, batch, nhalf, nm, lmax, spin,
+                            m0, nb, stream);
 }
 
 // Resident blocks per SM of the pair analysis in groups of nb maps (its

@@ -1,6 +1,6 @@
-// The per-warp choice of path shared by the spin-0 analysis and the two
-// synthesis kernels (sht_analysis.cu, sht_synthesis.cu,
-// sht_synthesis_pair.cu).
+// The per-warp choice of path shared by the spin-0 analysis, the pair
+// analysis' groups of maps and the two synthesis kernels (sht_analysis.cu,
+// sht_analysis_pair.cu, sht_synthesis.cu, sht_synthesis_pair.cu).
 //
 // A ring's value is a mantissa times 2^(60 k) (wigner_recurrence.cuh) and
 // only k = 0 or -1 emit.  At the start of every sub-chunk of kSub

@@ -100,8 +100,8 @@
 // batch, else cudaErrorInvalidValue) on the given stream and return
 // cudaGetLastError(); heracles_synthesis_spin0_blocks_per_sm gives the
 // resident blocks per SM of a variant and nb;
-// heracles_synthesis_spin0_{,comp_}paths_f32 are diagnostic launches (one
-// map a block) that also count the warps' sub-chunks on each path
+// heracles_synthesis_spin0_{,comp_}paths_f32 are diagnostic launches (nb
+// 1, one map a block) that also count the warps' sub-chunks on each path
 // (steady, dead, full).
 // Every launch takes the block of orders m0..m0+nm-1 into its columns
 // 0..nm-1 (the seed planes are the block's, indexed by column), so a
@@ -584,12 +584,15 @@ int heracles_synthesis_spin0_comp_f32(const void* alm, const void* x,
 }
 
 // The float32 launch with ``counts`` (3 x uint64, zeroed by the caller)
-// taking the warps' sub-chunks on the steady, dead and full paths.
+// taking the warps' sub-chunks on the steady, dead and full paths; the
+// counted kernel is the nb = 1 one, any other nb is refused.
 int heracles_synthesis_spin0_paths_f32(const void* alm, const void* x,
                                        const void* logch, const void* logsh,
                                        const void* seed, void* gn, void* gs,
                                        void* counts, int batch, int nhalf,
-                                       int nm, int lmax, int m0, void* stream) {
+                                       int nm, int lmax, int m0, int nb,
+                                       void* stream) {
+  if (nb != 1) return int(cudaErrorInvalidValue);
   return launch<float, false, true>(alm, x, nullptr, logch, logsh, seed, gn,
                                     gs, batch, nhalf, nm, lmax, m0, counts,
                                     stream);
@@ -602,7 +605,8 @@ int heracles_synthesis_spin0_comp_paths_f32(const void* alm, const void* x,
                                             const void* seed, void* gn,
                                             void* gs, void* counts, int batch,
                                             int nhalf, int nm, int lmax,
-                                            int m0, void* stream) {
+                                            int m0, int nb, void* stream) {
+  if (nb != 1) return int(cudaErrorInvalidValue);
   return launch<float, true, true>(alm, x, xr, logch, logsh, seed, gn, gs,
                                    batch, nhalf, nm, lmax, m0, counts, stream);
 }

@@ -94,8 +94,8 @@
 // cudaErrorInvalidValue) on the given stream and return
 // cudaGetLastError(); heracles_synthesis_pair_blocks_per_sm gives the
 // resident blocks per SM of a variant and nb;
-// heracles_synthesis_pair_{,comp_}paths_f32 are diagnostic launches (one
-// map a block) that also count the warps' sub-chunks on each path
+// heracles_synthesis_pair_{,comp_}paths_f32 are diagnostic launches (nb
+// 1, one map a block) that also count the warps' sub-chunks on each path
 // (steady, dead, full).
 // Every launch takes the block of orders m0..m0+nm-1 into its columns
 // 0..nm-1 (the seed planes are the block's, indexed by column), so a
@@ -619,14 +619,16 @@ int heracles_synthesis_pair_comp_f32(const void* alm_p, const void* alm_m,
 }
 
 // The float32 launch with ``counts`` (3 x uint64, zeroed by the caller)
-// taking the warps' sub-chunks on the steady, dead and full paths.
+// taking the warps' sub-chunks on the steady, dead and full paths; the
+// counted kernel is the nb = 1 one, any other nb is refused.
 int heracles_synthesis_pair_paths_f32(const void* alm_p, const void* alm_m,
                                       const void* x, const void* logch,
                                       const void* logsh, const void* seed,
                                       void* gnp, void* gsp, void* gnm,
                                       void* gsm, void* counts, int batch,
                                       int nhalf, int nm, int lmax, int spin,
-                                      int m0, void* stream) {
+                                      int m0, int nb, void* stream) {
+  if (nb != 1) return int(cudaErrorInvalidValue);
   return launch<float, false, true>(alm_p, alm_m, x, nullptr, logch, logsh,
                                     seed, gnp, gsp, gnm, gsm, batch, nhalf, nm,
                                     lmax, spin, m0, counts, stream);
@@ -637,7 +639,8 @@ int heracles_synthesis_pair_comp_paths_f32(
     const void* alm_p, const void* alm_m, const void* x, const void* xr,
     const void* logch, const void* logsh, const void* seed, void* gnp,
     void* gsp, void* gnm, void* gsm, void* counts, int batch, int nhalf,
-    int nm, int lmax, int spin, int m0, void* stream) {
+    int nm, int lmax, int spin, int m0, int nb, void* stream) {
+  if (nb != 1) return int(cudaErrorInvalidValue);
   return launch<float, true, true>(alm_p, alm_m, x, xr, logch, logsh, seed,
                                    gnp, gsp, gnm, gsm, batch, nhalf, nm, lmax,
                                    spin, m0, counts, stream);

@@ -7,10 +7,7 @@
 //
 // Each value's sum is one fixed tree over the lanes: stage O adds the
 // partial sums of lanes that differ in bit O, from O = 16 down to 1,
-// whichever index the value has and whichever lane keeps it; a sum of two
-// does not depend on the order of its terms.  So reduce_pairs, which
-// takes 16 values through the same stages, gives each value the same
-// number as reduce_scatter of 32 values holding it.
+// whichever index the value has and whichever lane keeps it.
 
 #pragma once
 
@@ -41,19 +38,6 @@ __device__ __forceinline__ void reduce_scatter(T (&acc)[V], int lane) {
   butterfly<4, V / 8>(acc, lane);
   butterfly<2, V / 16>(acc, lane);
   butterfly<1, V / 32>(acc, lane);
-}
-
-// The 16 values of one map's sub-chunk in the grouped analysis kernels:
-// the first four stages of reduce_scatter, then the last one as an
-// exchange, so that lanes 2i and 2i + 1 both hold the warp sum of the
-// original acc[i] in acc[0] (16 shuffles).
-template <typename T>
-__device__ __forceinline__ void reduce_pairs(T (&acc)[16], int lane) {
-  butterfly<16, 8>(acc, lane);
-  butterfly<8, 4>(acc, lane);
-  butterfly<4, 2>(acc, lane);
-  butterfly<2, 1>(acc, lane);
-  acc[0] += __shfl_xor_sync(0xffffffffu, acc[0], 1);
 }
 
 }  // namespace warp_reduce

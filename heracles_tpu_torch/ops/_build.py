@@ -31,8 +31,8 @@ SOURCES = tuple(_PKG / "csrc" / name
                              "sht_synthesis.cu", "sht_synthesis_pair.cu",
                              "gram.cu", "fma_peak.cu", "spread.cu"))
 HEADERS = tuple(_PKG / "csrc" / name
-                for name in ("sht_paths.cuh", "warp_reduce.cuh",
-                             "wigner_recurrence.cuh"))
+                for name in ("sht_paths.cuh", "tc_contract.cuh",
+                             "warp_reduce.cuh", "wigner_recurrence.cuh"))
 BUILD_DIR = _PKG.parent / "build" / "heracles_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -46,31 +46,35 @@ _L = ctypes.c_longlong
 _D = ctypes.c_double
 # every extern "C" function of SOURCES: name -> (restype, argtypes); the
 # launchers return cudaGetLastError() as an int; the SHT launchers take
-# the group size nb after m0 (the diagnostic paths launchers excepted)
+# the group size nb after m0 (the diagnostic paths launchers too: the pair
+# analysis' counts its groups, the others their nb = 1 kernel)
 _SIGNATURES = {
     "heracles_analysis_spin0_f32": (_I, [_P] * 7 + [_I] * 6 + [_P]),
     "heracles_analysis_spin0_f64": (_I, [_P] * 7 + [_I] * 6 + [_P]),
-    "heracles_analysis_spin0_paths_f32": (_I, [_P] * 8 + [_I] * 5 + [_P]),
+    "heracles_analysis_spin0_paths_f32": (_I, [_P] * 8 + [_I] * 6 + [_P]),
     "heracles_analysis_spin0_comp_f32": (_I, [_P] * 8 + [_I] * 6 + [_P]),
-    "heracles_analysis_spin0_comp_paths_f32": (_I, [_P] * 9 + [_I] * 5 + [_P]),
+    "heracles_analysis_spin0_comp_paths_f32": (_I, [_P] * 9 + [_I] * 6 + [_P]),
     "heracles_analysis_spin0_blocks_per_sm": (_I, [_I, _I, _P]),
     "heracles_cuda_error_string": (ctypes.c_char_p, [_I]),
     "heracles_analysis_pair_f32": (_I, [_P] * 10 + [_I] * 7 + [_P]),
     "heracles_analysis_pair_f64": (_I, [_P] * 10 + [_I] * 7 + [_P]),
     "heracles_analysis_pair_comp_f32": (_I, [_P] * 11 + [_I] * 7 + [_P]),
+    "heracles_analysis_pair_paths_f32": (_I, [_P] * 11 + [_I] * 7 + [_P]),
+    "heracles_analysis_pair_comp_paths_f32": (_I, [_P] * 12 + [_I] * 7
+                                              + [_P]),
     "heracles_analysis_pair_blocks_per_sm": (_I, [_I, _I, _P]),
     "heracles_synthesis_spin0_f32": (_I, [_P] * 7 + [_I] * 6 + [_P]),
     "heracles_synthesis_spin0_f64": (_I, [_P] * 7 + [_I] * 6 + [_P]),
-    "heracles_synthesis_spin0_paths_f32": (_I, [_P] * 8 + [_I] * 5 + [_P]),
+    "heracles_synthesis_spin0_paths_f32": (_I, [_P] * 8 + [_I] * 6 + [_P]),
     "heracles_synthesis_spin0_comp_f32": (_I, [_P] * 8 + [_I] * 6 + [_P]),
-    "heracles_synthesis_spin0_comp_paths_f32": (_I, [_P] * 9 + [_I] * 5
+    "heracles_synthesis_spin0_comp_paths_f32": (_I, [_P] * 9 + [_I] * 6
                                                 + [_P]),
     "heracles_synthesis_spin0_blocks_per_sm": (_I, [_I, _I, _P]),
     "heracles_synthesis_pair_f32": (_I, [_P] * 10 + [_I] * 7 + [_P]),
     "heracles_synthesis_pair_f64": (_I, [_P] * 10 + [_I] * 7 + [_P]),
-    "heracles_synthesis_pair_paths_f32": (_I, [_P] * 11 + [_I] * 6 + [_P]),
+    "heracles_synthesis_pair_paths_f32": (_I, [_P] * 11 + [_I] * 7 + [_P]),
     "heracles_synthesis_pair_comp_f32": (_I, [_P] * 11 + [_I] * 7 + [_P]),
-    "heracles_synthesis_pair_comp_paths_f32": (_I, [_P] * 12 + [_I] * 6
+    "heracles_synthesis_pair_comp_paths_f32": (_I, [_P] * 12 + [_I] * 7
                                                + [_P]),
     "heracles_synthesis_pair_blocks_per_sm": (_I, [_I, _I, _P]),
     "heracles_gram_f64": (_I, [_P] * 4 + [_I] * 3 + [_P]),

@@ -26,20 +26,24 @@ decides the path:
 All four run a batch of B maps in groups of ``nb``, the twin of the
 reference's ``nb`` program: one block per (order, group) runs the Wigner
 recurrence once and contracts it against every map of the group (the
-analyses) or sums it against every map's alms (the syntheses), each
-map's sums taken in the order of the ``nb = 1`` kernel, so every ``nb``
-gives the same numbers bit for bit.  ``nb=None`` picks the group
-with :func:`pick_nb`; an ``nb`` that has no instantiation
-(``wigner.GROUP_SIZES``) or does not divide B raises ValueError on every
-device.
+analyses) or sums it against every map's alms (the syntheses).  The
+syntheses take each map's sums in the order of the ``nb = 1`` kernel, so
+every ``nb`` gives their numbers bit for bit.  The analyses' groups
+contract on the tensor cores (3xTF32 in float32 and comp, float64 DMMA:
+``csrc/tc_contract.cuh``), summing in another order: each ``nb > 1``
+repeats its own bits from launch to launch and agrees with ``nb = 1`` and
+the plain version within the float32 or float64 bar, not bit for bit.
+``nb=None`` picks the group with :func:`pick_nb`; an ``nb`` that has no
+instantiation (``wigner.GROUP_SIZES``) or does not divide B raises
+ValueError on every device.
 
 No kernel's shared memory grows with lmax; the one bound on it is
 ``LMAX_LIMIT``.  ``LAUNCHES`` counts kernel launches per kernel name,
 ``LAUNCHES_BY_PRECISION`` the same launches per (name, "f32", "f64" or
 "f32c", the compensated kernel), ``LAUNCHES_BY_NB`` per (name, nb).
-:func:`path_counts` is a diagnostic launch of the spin-0 analysis or of
-either synthesis, plain or comp, that tells which share of the work ran
-on each of the kernel's paths.
+:func:`path_counts` is a diagnostic launch of the spin-0 analysis, of the
+pair analysis' groups of maps or of either synthesis, plain or comp,
+that tells which share of the work ran on each of the kernel's paths.
 """
 
 from __future__ import annotations
@@ -58,11 +62,12 @@ __all__ = [
     "synthesis_spin0_folded",
     "synthesis_pair_folded",
     "path_counts",
+    "PATH_GROUPS",
     "LAUNCHES",
     "LAUNCHES_BY_PRECISION",
     "LAUNCHES_BY_NB",
     "LMAX_LIMIT",
-    "NB_LIMIT",
+    "NB_SIZES",
     "pick_nb",
     "reset_counts",
 ]
@@ -88,62 +93,80 @@ def reset_counts():
     wigner.PLAIN_RUNS_BY_PRECISION.clear()
 
 
-# the largest group of maps pick_nb takes, by kernel and precision
-# ("f32c": the compensated float32 kernel); pick_nb's docstring has the
-# times they rest on
-NB_LIMIT = {
-    "analysis_spin0_folded": {"f32": 4, "f64": 4, "f32c": 4},
-    "analysis_pair_folded": {"f32": 4, "f64": 2, "f32c": 4},
-    "synthesis_spin0_folded": {"f32": 4, "f64": 4, "f32c": 4},
-    "synthesis_pair_folded": {"f32": 4, "f64": 4, "f32c": 4},
+# the groups of maps pick_nb may take, by kernel and precision ("f32c":
+# the compensated float32 kernel); pick_nb's docstring has the times and
+# the rule they rest on
+NB_SIZES = {
+    "analysis_spin0_folded": {"f32": (1, 4), "f64": (1, 4),
+                              "f32c": (1, 2, 4, 8)},
+    "analysis_pair_folded": {"f32": (1, 2, 4), "f64": (1, 2, 4),
+                             "f32c": (1, 2, 4)},
+    "synthesis_spin0_folded": {"f32": (1, 2, 4), "f64": (1, 2, 4),
+                               "f32c": (1, 2, 4)},
+    "synthesis_pair_folded": {"f32": (1, 2, 4), "f64": (1, 2, 4),
+                              "f32c": (1, 2, 4)},
+}
+
+# the groups of maps whose kernel has a counting twin (path_counts): the
+# pair analysis' grouped kernel, the others' nb = 1 kernel
+PATH_GROUPS = {
+    "analysis_spin0_folded": (1,),
+    "analysis_pair_folded": (2, 4),
+    "synthesis_spin0_folded": (1,),
+    "synthesis_pair_folded": (1,),
 }
 
 
 def pick_nb(B, lmax, name, precision="f32"):
     """The group of maps of a launch on a batch of ``B``: the largest
-    ``nb`` of ``wigner.GROUP_SIZES[name]`` that divides ``B`` and is at
-    most ``NB_LIMIT[name][precision]``; 1 for B = 1.
+    ``nb`` of ``NB_SIZES[name][precision]`` that divides ``B`` (1 for
+    B = 1, or where none larger does).
 
-    The limits are the fastest group of a batch of 8 on the card: ms a
-    launch at nside 1024, lmax 1536 (``tools/sht_kernel_bench.py --nside
-    1024 --lmax 1536 --batch 8 --nb 1,2,4,8 [--double | --comp]``, one
-    NVIDIA H100 80GB HBM3 at 700 W, best of 3; the chosen group starred):
+    The sizes follow the card's times of a batch of 8 at two sizes
+    (``tools/sht_kernel_bench.py --batch 8 --nb 1,2,4,8 [--double |
+    --comp]``, one NVIDIA H100 80GB HBM3 at 700 W, best of 3; each row
+    from one run): a group is allowed where, at both sizes, it runs
+    within 5% of every smaller allowed group (nb 1 always is).  ms a
+    launch at nside 1024, lmax 1536 (allowed groups starred):
 
     ========== ====== ====== ====== ======  =====================
     kernel     nb 1   nb 2   nb 4   nb 8    resident blocks / SM
     ========== ====== ====== ====== ======  =====================
-    B1 f32     9.22   6.63   5.20*  6.03    6, 5, 4, 2
-    B1 f64     15.51  11.01  10.33* 15.75   3, 3, 2, 1
-    B1 comp    17.64  8.76   6.39*  7.92    5, 5, 4, 2
-    B2 f32     23.19  16.23  14.55*         4, 4, 3
-    B2 f64     37.28  32.33* 38.20          2, 2, 1
-    B2 comp    36.25  21.96  19.58*         3, 4, 3
-    B3 f32     6.74   4.53   3.60*  4.14    7, 5, 5, 5
-    B3 f64     9.98   7.08   5.55*  6.79    5, 3, 3, 3
-    B3 comp    10.87  6.86   4.86*  4.62    6, 5, 5, 5
-    B4 f32     17.77  12.17  10.77*         4, 4, 4
-    B4 f64     29.40  19.46  18.11*         2, 2, 2
-    B4 comp    34.32  16.33  13.04*         3, 4, 4
+    B1 f32     9.54*  10.44  5.49*  5.96    6, 6, 4, 2
+    B1 f64     15.33* 14.88  9.93*  11.93   3, 3, 2, 1
+    B1 comp    17.56* 12.83* 6.72*  6.74*   5, 6, 4, 2
+    B2 f32     23.43* 18.80* 12.90*         4, 4, 2
+    B2 f64     37.23* 31.33* 25.66*         2, 2, 1
+    B2 comp    36.58* 23.86* 15.13*         3, 4, 2
+    B3 f32     6.74*  4.53*  3.60*  4.14    7, 5, 5, 5
+    B3 f64     9.98*  7.08*  5.55*  6.79    5, 3, 3, 3
+    B3 comp    10.87* 6.86*  4.86*  4.62    6, 5, 5, 5
+    B4 f32     17.77* 12.17* 10.77*         4, 4, 4
+    B4 f64     29.40* 19.46* 18.11*         2, 2, 2
+    B4 comp    34.32* 16.33* 13.04*         3, 4, 4
     ========== ====== ====== ====== ======  =====================
 
-    An analysis group's shared memory (the ring tile's spectra of its
-    maps) cuts its blocks per SM, which is where nb 8 of B1 and nb 4 of
-    B2 in float64 lose.  A synthesis group keeps its sums in registers
-    and owns fewer rings a thread as nb grows, so a block's tile of rings
-    shrinks and each tile reads the order's alm column again.  B3's nb 8
-    (a tile of 128 rings) wins only in comp here, and loses in comp too
-    at nside 4096, lmax 3000 on 8 maps (B3 comp 143.01 / 83.18 / 58.34 /
-    77.81 ms at nb 1 / 2 / 4 / 8), where B4's float32 nb 2 edges out nb 4
-    (220.24 / 163.19 / 170.25 ms): the limits take the group that loses
-    by at most 5% at either size.  The analyses' groups rank the same at
-    both sizes.  ``lmax`` is the reference's argument (its limit came
+    At nside 4096, lmax 3000 on 8 maps: B1 115.30 / 134.43 / 72.65 /
+    79.29 ms (f32), 186.40 / 210.08 / 134.79 / 166.56 (f64), 222.79 /
+    174.62 / 87.95 / 86.47 (comp) at nb 1 / 2 / 4 / 8; B2 323.07 /
+    255.02 / 168.64 (f32), 532.13 / 440.62 / 356.94 (f64), 516.54 /
+    320.90 / 197.68 (comp) at nb 1 / 2 / 4.  The analyses' groups
+    contract on the tensor cores, a cost of each group whatever its nb,
+    so B1's nb 2 (its 8 rows fill half of each product) loses to nb 1
+    in float32 at both sizes and in float64 at nside 4096, and nb 8 (2
+    blocks an SM) loses to nb 4 in float32 and float64.  A synthesis group keeps
+    its sums in registers and owns fewer rings a thread as nb grows, so
+    a block's tile of rings shrinks and each tile reads the order's alm
+    column again: B3's nb 8 (a tile of 128 rings) loses at nside 1024
+    in float32 and float64, and in comp at nside 4096, lmax 3000 on 8
+    maps (B3 comp 143.01 / 83.18 / 58.34 / 77.81 ms at nb 1 / 2 / 4 /
+    8), where B4's float32 nb 4 stays within 5% of nb 2 (220.24 / 163.19
+    / 170.25 ms).  ``lmax`` is the reference's argument (its limit came
     from the TPU's VMEM); no kernel's shared memory grows with it on the
     card, so the rule does not read it.
     """
     del lmax
-    limit = NB_LIMIT[name][precision]
-    return max(nb for nb in wigner.GROUP_SIZES[name]
-               if nb <= limit and B % nb == 0)
+    return max(nb for nb in NB_SIZES[name][precision] if B % nb == 0)
 
 
 def _group(name, nb, F, lmax, dd):
@@ -236,9 +259,9 @@ def _launch(name, inputs, x, logch, logsh, lmax, spin, out_rows, nout,
     only) launches the compensated float32 instantiation, with each
     ring's r = x_lo / x_hi (:func:`wigner.comp_ratio`).  ``nb``: the
     group of maps (checked by the caller).  ``paths=True``
-    launches the kernel's diagnostic twin instead (float32 and nb = 1
-    only, not counted in ``LAUNCHES``) and returns its three path counts
-    as an int64 tensor.
+    launches the kernel's diagnostic twin instead (float32 only, at an
+    ``nb`` of ``PATH_GROUPS``; not counted in ``LAUNCHES``) and returns
+    its three path counts as an int64 tensor.
     """
     from . import _build
 
@@ -278,7 +301,7 @@ def _launch(name, inputs, x, logch, logsh, lmax, spin, out_rows, nout,
                          f"{'f64' if is_double else 'f32'}")
     counts = [torch.zeros(3, dtype=torch.int64, device=dev)] if paths else []
     ints = ((B, x.shape[0], nm, lmax) + ((int(spin),) if pair else ())
-            + (m0,) + (() if paths else (nb,)))
+            + (m0, nb))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(*(t.data_ptr() for t in flat), xv.data_ptr(),
@@ -294,20 +317,29 @@ def _launch(name, inputs, x, logch, logsh, lmax, spin, out_rows, nout,
     return [o.reshape(batch + (out_rows, nm)) for o in outs]
 
 
-def path_counts(name, *args, m0=0, dd=False, x_lo=None):
+def path_counts(name, *args, m0=0, dd=False, x_lo=None, nb=None):
     """Sub-chunks of 8 multipoles that the warps of one launch ran on the
     steady, the dead and the full path: a dict of three ints.
 
-    ``name`` is ``"analysis_spin0_folded"``, ``"synthesis_spin0_folded"``
-    or ``"synthesis_pair_folded"`` and ``args``, ``m0``, ``dd`` and
-    ``x_lo`` are that function's own, complex64 tensors on the card
-    (``dd="comp"`` counts the compensated kernel's paths).
-    A diagnostic twin of the kernel runs (the same code with three
-    counters); its outputs are dropped and ``LAUNCHES`` does not count it.
+    ``name`` is ``"analysis_spin0_folded"``, ``"analysis_pair_folded"``,
+    ``"synthesis_spin0_folded"`` or ``"synthesis_pair_folded"`` and
+    ``args``, ``m0``, ``dd`` and ``x_lo`` are that function's own,
+    complex64 tensors on the card (``dd="comp"`` counts the compensated
+    kernel's paths).  ``nb``: one of ``PATH_GROUPS[name]``, the groups
+    whose kernel has a counting twin (None: the largest of them that
+    divides the batch and is at most :func:`pick_nb`'s).  A diagnostic
+    twin of the kernel runs (the same code with three counters); its
+    outputs are dropped and ``LAUNCHES`` does not count it.
     """
     if args[0].device.type != "cuda":
         raise ValueError("path_counts: the tensors must lie on the card")
-    if name == "analysis_spin0_folded":
+    if name not in PATH_GROUPS:
+        raise ValueError(f"path_counts: {name} has no path counts")
+    if name == "analysis_pair_folded":
+        FNp, Sp, FNm, Sm, x, logch, logsh, lmax, spin = args
+        inputs, what, rows, nout = (FNp, Sp, FNm, Sm), "spectra", x.shape[0], 2
+        spin, out_rows = abs(int(spin)), int(lmax) + 1
+    elif name == "analysis_spin0_folded":
         Fe, Fo, x, logch, logsh, lmax = args
         inputs, spin, what, rows, nout = (Fe, Fo), None, "spectra", x.shape[0], 1
         out_rows = int(lmax) + 1
@@ -319,9 +351,16 @@ def path_counts(name, *args, m0=0, dd=False, x_lo=None):
         alm_p, alm_m, x, logch, logsh, lmax, spin = args
         inputs, what, rows, nout = (alm_p, alm_m), "alms", int(lmax) + 1, 4
         spin, out_rows = abs(int(spin)), x.shape[0]
-    else:
-        raise ValueError(f"path_counts: {name} has no path counts")
     _check(name, what, inputs, rows, (x, logch, logsh), x.shape[0])
+    sizes = PATH_GROUPS[name]
+    B = int(np.prod(inputs[0].shape[:-2], dtype=np.int64))
+    if nb is None:
+        top = _group(name, None, inputs[0], int(lmax), dd)
+        nb = max((s for s in sizes if s <= top and B % s == 0), default=None)
+    if nb not in sizes:
+        raise ValueError(f"path_counts: {name} counts its paths at nb in "
+                         f"{sizes}, not {nb}")
+    wigner.check_group(name, nb, B)
     if dd == "comp":
         x_lo = torch.zeros(x.shape) if x_lo is None else x_lo
     elif dd:
@@ -329,7 +368,7 @@ def path_counts(name, *args, m0=0, dd=False, x_lo=None):
     else:
         x_lo = None
     counts = _launch(name, inputs, x, logch, logsh, int(lmax), spin, out_rows,
-                     nout, m0=int(m0), paths=True, x_lo=x_lo)
+                     nout, m0=int(m0), paths=True, x_lo=x_lo, nb=nb)
     return dict(zip(("steady", "dead", "full"), counts.tolist()))
 
 

@@ -118,10 +118,14 @@ def _pallas(name, nb):
 def test_float32_matches_the_pallas_kernel_at_nb(name, nb):
     geom, _ = _geometry(NSIDE)
     ops = _spectra(name, PALLAS_BATCH)
-    # None: each package's own choice, here the same group
-    pick = sht_kernels.pick_nb(PALLAS_BATCH, LMAX, name)
-    assert pick == _reference_nb(name, PALLAS_BATCH, LMAX) == 2
-    want = _pallas(name, pick if nb is None else nb)
+    # None: each package's own choice, the reference's nb 2; the port's
+    # follows the card's times (nb 2 where NB_SIZES allows it, else 1),
+    # the same numbers on the plain path
+    ref_nb = _reference_nb(name, PALLAS_BATCH, LMAX)
+    assert ref_nb == 2
+    assert sht_kernels.pick_nb(PALLAS_BATCH, LMAX, name) == (
+        2 if 2 in sht_kernels.NB_SIZES[name]["f32"] else 1)
+    want = _pallas(name, ref_nb if nb is None else nb)
     sht_kernels.reset_counts()
     got = getattr(sht_kernels, name)(*map(T, ops), *map(T, geom), LMAX,
                                      *_extra(name), nb=nb)
@@ -182,16 +186,31 @@ def test_every_nb_gives_the_same_bits(name, mode):
 @pytest.mark.parametrize("name", NAMES)
 def test_pick_nb_rule(name, precision):
     sizes = wigner.GROUP_SIZES[name]
-    limit = sht_kernels.NB_LIMIT[name][precision]
-    assert limit in sizes
+    allowed = sht_kernels.NB_SIZES[name][precision]
+    assert 1 in allowed and set(allowed) <= set(sizes)
     for B in range(1, 33):
         nb = sht_kernels.pick_nb(B, LMAX, name, precision)
-        assert nb in sizes and nb <= limit and B % nb == 0, (B, nb)
-        assert all(B % c or c > limit or c <= nb for c in sizes), (B, nb)
+        assert nb in allowed and B % nb == 0, (B, nb)
+        assert all(B % c or c <= nb for c in allowed), (B, nb)
     assert sht_kernels.pick_nb(1, LMAX, name, precision) == 1
     for prime in (11, 13, 31):
         assert sht_kernels.pick_nb(prime, LMAX, name, precision) == 1
-    assert sht_kernels.pick_nb(2 * limit, 3000, name, precision) == limit
+    # a batch of 2 runs in a group only where nb 2 is allowed
+    assert sht_kernels.pick_nb(2, LMAX, name, precision) == (
+        2 if 2 in allowed else 1)
+    top = max(allowed)
+    assert sht_kernels.pick_nb(2 * top, 3000, name, precision) == top
+
+
+def test_pick_nb_skips_a_group_that_loses_to_nb1():
+    """The spin-0 analysis' float32 nb 2 loses to nb 1 on the card
+    (``pick_nb``'s table): a batch of 2 or 6 runs at nb 1, of 4 or 8 at
+    nb 4; comp keeps nb 2 and takes nb 8."""
+    name = "analysis_spin0_folded"
+    assert [sht_kernels.pick_nb(B, LMAX, name) for B in (2, 4, 6, 8)] == [
+        1, 4, 1, 4]
+    assert [sht_kernels.pick_nb(B, LMAX, name, "f32c")
+            for B in (2, 6, 8)] == [2, 2, 8]
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -254,6 +273,7 @@ def test_each_shard_picks_for_its_own_batch(picks):
     maps = T(rng.normal(size=(BATCH, 12 * nside**2)))
     mesh = tpar.make_mesh(2, m_axis=1, devices=["cpu"] * 2)
     got = tpar.map2alm_sharded(mesh, maps, lmax)
-    assert picks == [(2, NAMES[0], "f64", 2)] * 2
+    nb = 2 if 2 in sht_kernels.NB_SIZES[NAMES[0]]["f64"] else 1
+    assert picks == [(2, NAMES[0], "f64", nb)] * 2
     _close(got[..., :lmax + 1], sht.map2alm(maps, lmax, packed=False),
            (1e-10, 0.0))

@@ -172,16 +172,20 @@ def test_every_nb_gives_the_same_bits(name, mode):
 @pytest.mark.parametrize("name", NAMES)
 def test_pick_nb_rule(name, precision):
     sizes = wigner.GROUP_SIZES[name]
-    limit = sht_kernels.NB_LIMIT[name][precision]
-    assert limit in sizes
+    allowed = sht_kernels.NB_SIZES[name][precision]
+    assert 1 in allowed and set(allowed) <= set(sizes)
     for B in range(1, 33):
         nb = sht_kernels.pick_nb(B, LMAX, name, precision)
-        assert nb in sizes and nb <= limit and B % nb == 0, (B, nb)
-        assert all(B % c or c > limit or c <= nb for c in sizes), (B, nb)
+        assert nb in allowed and B % nb == 0, (B, nb)
+        assert all(B % c or c <= nb for c in allowed), (B, nb)
     assert sht_kernels.pick_nb(1, LMAX, name, precision) == 1
     for prime in (11, 13, 31):
         assert sht_kernels.pick_nb(prime, LMAX, name, precision) == 1
-    assert sht_kernels.pick_nb(2 * limit, 3000, name, precision) == limit
+    # a batch of 2 runs in a group only where nb 2 is allowed
+    assert sht_kernels.pick_nb(2, LMAX, name, precision) == (
+        2 if 2 in allowed else 1)
+    top = max(allowed)
+    assert sht_kernels.pick_nb(2 * top, 3000, name, precision) == top
 
 
 @pytest.mark.parametrize("name", NAMES)

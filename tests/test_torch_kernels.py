@@ -968,18 +968,21 @@ def test_comp_kernels_match_plain(cuda, name, nside, lmax, batch):
 @pytest.mark.parametrize("name", _NAMES)
 def test_comp_zero_stream_is_the_plain_kernel(cuda, name):
     """``dd="comp"`` without ``x_lo`` (a zero stream) launches the comp
-    kernel and gives the plain float32 kernel's outputs bit for bit."""
+    kernel and gives the plain float32 kernel's outputs bit for bit, at
+    each group of maps that divides the batch of 2 (the automatic picks
+    may differ by precision)."""
     nside, lmax = 64, 191
     ins, geom, extra = _kernel_operands(name, nside, lmax, torch.complex64,
                                         cuda, 32)
     kernel = getattr(sht_kernels, name)
-    plain = _as_tuple(kernel(*ins, *geom, lmax, *extra))
-    sht_kernels.reset_counts()
-    comp = _as_tuple(kernel(*ins, *geom, lmax, *extra, dd="comp"))
-    torch.cuda.synchronize()
-    assert dict(sht_kernels.LAUNCHES_BY_PRECISION) == {(name, "f32c"): 1}
-    for c, p in zip(comp, plain, strict=True):
-        assert torch.equal(c, p)
+    for nb in (1, 2):
+        plain = _as_tuple(kernel(*ins, *geom, lmax, *extra, nb=nb))
+        sht_kernels.reset_counts()
+        comp = _as_tuple(kernel(*ins, *geom, lmax, *extra, dd="comp", nb=nb))
+        torch.cuda.synchronize()
+        assert dict(sht_kernels.LAUNCHES_BY_PRECISION) == {(name, "f32c"): 1}
+        for c, p in zip(comp, plain, strict=True):
+            assert torch.equal(c, p), nb
 
 
 @pytest.mark.parametrize("m0", [0, 64, 160, 192])
@@ -1104,22 +1107,92 @@ def _bits(out):
                    else torch.float64) for o in out]
 
 
+_SYNTHESES = ("synthesis_spin0_folded", "synthesis_pair_folded")
+_ANALYSES = ("analysis_spin0_folded", "analysis_pair_folded")
+
+
+def _launch_once(kernel, name, nb, args, kw):
+    """The outputs' bits of one call at ``nb``, which must count exactly one
+    launch at that nb."""
+    before = dict(sht_kernels.LAUNCHES_BY_NB)
+    got = _bits(kernel(*args, nb=nb, **kw))
+    torch.cuda.synchronize()
+    after = dict(sht_kernels.LAUNCHES_BY_NB)
+    assert after.pop((name, nb)) == before.pop((name, nb), 0) + 1
+    assert after == before
+    return got
+
+
 @pytest.mark.parametrize("mode", ["f32", "f64", "comp"])
-@pytest.mark.parametrize("name", _GROUPED)
+@pytest.mark.parametrize("name", _SYNTHESES)
 def test_every_nb_is_bit_for_bit_nb1(cuda, name, mode):
-    """Each grouped instantiation gives the nb = 1 kernel's outputs bit for
+    """Each grouped synthesis gives the nb = 1 kernel's outputs bit for
     bit (signed zeros included), and one launch a call."""
     args, kw = _nb_inputs(name, mode, cuda)
     kernel = getattr(sht_kernels, name)
     base = _bits(kernel(*args, nb=1, **kw))
     for nb in wigner.GROUP_SIZES[name][1:]:
-        before = dict(sht_kernels.LAUNCHES_BY_NB)
-        got = _bits(kernel(*args, nb=nb, **kw))
-        torch.cuda.synchronize()
-        assert sht_kernels.LAUNCHES_BY_NB[name, nb] == before.get(
-            (name, nb), 0) + 1
+        got = _launch_once(kernel, name, nb, args, kw)
         for g, b in zip(got, base, strict=True):
             assert torch.equal(g, b), (name, mode, nb)
+
+
+@pytest.mark.parametrize("mode", ["f32", "f64", "comp"])
+@pytest.mark.parametrize("name", _ANALYSES)
+def test_every_analysis_nb_repeats_and_agrees(cuda, name, mode):
+    """Each grouped analysis (the ring contraction on the tensor cores, in
+    another order than nb = 1's) repeats its own bits from launch to
+    launch, counts one launch at its nb a call, and lies within the
+    float32 bar (float32, comp) or 1e-11 of the largest value (float64) of
+    the nb = 1 kernel and of the plain version."""
+    args, kw = _nb_inputs(name, mode, cuda)
+    kernel = getattr(sht_kernels, name)
+    cdtype = torch.complex128 if mode == "f64" else torch.complex64
+    plain = getattr(wigner, name + "_plain")
+    pkw = dict(m0=kw["m0"])
+    if mode == "comp":
+        pkw["x_lo"] = kw["x_lo"]
+    want = plain(*args, **pkw)
+    want = want if isinstance(want, tuple) else (want,)
+    base = kernel(*args, nb=1, **kw)
+    base = base if isinstance(base, tuple) else (base,)
+    for nb in wigner.GROUP_SIZES[name][1:]:
+        first = _launch_once(kernel, name, nb, args, kw)
+        again = _launch_once(kernel, name, nb, args, kw)
+        for a, b in zip(first, again, strict=True):
+            assert torch.equal(a, b), (name, mode, nb)
+        got = kernel(*args, nb=nb, **kw)
+        got = got if isinstance(got, tuple) else (got,)
+        for g, b, w in zip(got, base, want, strict=True):
+            _assert_close(g, b, cdtype)
+            _assert_close(g, w, cdtype)
+
+
+@pytest.mark.parametrize("dd", [False, "comp"])
+@pytest.mark.parametrize("nb", [2, 4])
+def test_pair_group_path_counts(cuda, nb, dd):
+    """The pair analysis' groups count their warps' sub-chunks by path: a
+    warp of 64 rings (a tile of 256) takes its column's multipoles in
+    eights; at nside 256 the warp nearest the pole is dead at the highest
+    orders.  comp chooses by d alone: the plain kernel's counts."""
+    nside, lmax, batch = 256, 191, 4
+    nhalf, nm = 2 * nside, lmax + 1
+    args, geom = _inputs(nside, lmax, batch, 4, torch.complex64, cuda, 12)
+    kw = dict(dd="comp", x_lo=_x_lo(geom)) if dd else {}
+    before = dict(sht_kernels.LAUNCHES)
+    counts = sht_kernels.path_counts("analysis_pair_folded", *args, *geom,
+                                     lmax, 2, nb=nb, **kw)
+    assert dict(sht_kernels.LAUNCHES) == before
+    j0 = np.maximum(np.arange(nm), 2)
+    subs = int(np.ceil((lmax + 1 - j0) / 8).sum())
+    assert sum(counts.values()) == batch // nb * 4 * -(-nhalf // 256) * subs
+    assert counts["steady"] > 0 and counts["dead"] > 0 and counts["full"] > 0
+    if dd:
+        assert counts == sht_kernels.path_counts(
+            "analysis_pair_folded", *args, *geom, lmax, 2, nb=nb)
+    with pytest.raises(ValueError, match="counts its paths at nb"):
+        sht_kernels.path_counts("analysis_pair_folded", *args, *geom, lmax, 2,
+                                nb=1)
 
 
 def _nb1_digest(name, mode, device, **nb):

@@ -3,7 +3,7 @@
     python3 tools/sht_kernel_bench.py [--root DIR] [--label NAME]
                                       [--nside 4096] [--lmax 3000]
                                       [--double | --comp] [--batch B]
-                                      [--nb 1,2,4,8]
+                                      [--nb 1,2,4,8] [--sass]
 
 Builds the kernels of the ``heracles_tpu_torch`` package under ``--root``
 (default: this checkout), runs the spin-0 and spin-pair analysis and
@@ -13,15 +13,19 @@ shapes (2 nside northern rings, lmax + 1 orders; a stack of ``--batch``
 maps, e.g. the DICES batch of 8), and prints, on lines that start with
 ``--label``:
 
-* ptxas' registers and spills of the SHT kernels;
+* ptxas' registers and spills of the SHT kernels (of a fresh build);
+  with ``--sass`` the HMMA, DMMA and SHFL instructions of each grouped
+  analysis instantiation in the SASS (``chip_smoke.group_sass``, which
+  disassembles the whole library: about a minute);
 * per kernel the times of three launches after a warm-up (ms, CUDA
   events) and a digest of its outputs; with ``--nb`` each kernel once
   for each listed group of maps that it has and that divides the batch
   (``name/nb{n}``; a kernel without groups in the package runs once as
   ``name``, on its package's own choice, and a package without any
   groups takes no ``--nb``);
-* where the package has them, the path counts of the spin-0 analysis and
-  of the syntheses and the resident blocks per SM.
+* where the package has them, the path counts of the spin-0 analysis, of
+  the pair analysis' groups of maps (at each listed ``nb`` it has) and of
+  the syntheses, and the resident blocks per SM.
 
 Two checkouts given the same seed get the same inputs, so equal digests
 mean that two versions of a kernel agree bit for bit.  To compare two
@@ -32,6 +36,7 @@ Needs a CUDA card and nvcc; imports no JAX.
 
 import argparse
 import hashlib
+import importlib.util
 import json
 import sys
 from pathlib import Path
@@ -52,6 +57,9 @@ def main():
                              "batch axis)")
     parser.add_argument("--nb", default=None,
                         help="comma-separated groups of maps of the kernels")
+    parser.add_argument("--sass", action="store_true",
+                        help="count the grouped analyses' HMMA, DMMA and "
+                             "SHFL instructions")
     args = parser.parse_args()
     sys.path.insert(0, args.root)
 
@@ -77,6 +85,17 @@ def main():
                                            "synthesis_kernel", "group_kernel"))
         if keep and ("Compiling" in line or "Used" in line or "spill" in line):
             print(label, line.strip()[:200])
+
+    if args.sass:
+        # the grouped analyses' tensor-core and shuffle instructions, read
+        # by this checkout's chip_smoke.py from the library just built
+        spec = importlib.util.spec_from_file_location(
+            "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+        smoke = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(smoke)
+        for (kernel, prec, nb), ops in smoke.group_sass(kl.path).items():
+            print(label, f"sass group/{kernel}/{prec}/nb{nb}",
+                  {op: ops[op] for op in ("HMMA", "DMMA", "SHFL")})
 
     x, lch, lsh = sht._geometry(args.nside, dev)
     nhalf, nm = x.shape[0], lmax + 1
@@ -156,6 +175,14 @@ def main():
         synth0 = "heracles_synthesis_spin0_paths_f32" in _build._SIGNATURES
         print(label, "paths analysis_spin0_folded", sht_kernels.path_counts(
             "analysis_spin0_folded", F[0], F[1], x, lch, lsh, lmax, **kw))
+        if args.nb and "heracles_analysis_pair_paths_f32" in _build._SIGNATURES:
+            for nb in map(int, args.nb.split(",")):
+                if nb > 1 and nb in wigner.GROUP_SIZES["analysis_pair_folded"] \
+                        and (args.batch or 1) % nb == 0:
+                    print(label, f"paths analysis_pair_folded/nb{nb}",
+                          sht_kernels.path_counts(
+                              "analysis_pair_folded", *F, x, lch, lsh, lmax,
+                              2, nb=nb, **kw))
         if args.nb:
             for kernel in ("analysis_spin0", "analysis_pair",
                            "synthesis_spin0", "synthesis_pair"):
