@@ -122,13 +122,15 @@ with its seconds:
    of orders (m0 = 1536) bit for bit the full comp launch's columns;
 13. the device trace (``tools/torch_trace_capture.py``, torch.profiler):
    bin 0's spin-0 ``map2alm`` and phase 7's refined transform of bin 0's
-   POS and SHE maps, each traced once with the port's stages labelled from
-   outside the package; the trace must hold device events, its launches of
-   B1-B5 must equal the kernels' launch counts over the same window, B1's
-   device time per launch must lie within 10% of phase 4's CUDA-event
-   time, busy + idle must equal the window, and no stage label may be dead;
-   prints each trace's idle share, top 10 ops and top 5 idle gaps by the
-   host work that made the card wait;
+   POS and SHE maps, each traced once, the port's own spans
+   (``heracles_tpu_torch.tracing``) labelling its stages; the trace must
+   hold device events, its launches of B1-B5 must equal the kernels'
+   launch counts over the same window, B1's device time per launch must
+   lie within 10% of phase 4's CUDA-event time, busy + idle must equal the
+   window, and no span the op should enter may be missing; prints each
+   trace's idle share, top 10 ops, top 5 idle gaps by the host work that
+   made the card wait, and the host waits, copies and table builds the
+   program counted;
 14. the groups of maps at full width: B1 and B3 on a stack of 4 maps, B2
    and B4 on 2 (the reference's groups at lmax 3000), at every ``nb``
    dividing the stack, each timed beside its bound(s), the automatic group
@@ -561,13 +563,12 @@ def catalog_arrays(rows=NROWS):
 
 
 def reset_counts():
-    """Zero every kernel's launch count and every plain-version run count."""
-    from heracles_tpu_torch.ops import fma_peak, gram, nufft, sht_kernels
+    """Zero every counter of the port (``heracles_tpu_torch.tracing``): the
+    kernels' launch counts, the plain-version run counts, the host waits,
+    copies and table builds."""
+    from heracles_tpu_torch import tracing
 
-    sht_kernels.reset_counts()
-    gram.reset_counts()
-    fma_peak.reset_counts()
-    nufft.reset_counts()
+    tracing.reset()
 
 
 def counts():
@@ -2353,6 +2354,7 @@ def phase13(dev, smi, p3, b1_ms):
     import tempfile
 
     import heracles_tpu_torch as th
+    from heracles_tpu_torch import tracing
     from heracles_tpu_torch.ops import sht
 
     ttc = _trace_tool()
@@ -2373,10 +2375,15 @@ def phase13(dev, smi, p3, b1_ms):
             torch.cuda.synchronize()
             path = Path(tmp) / f"{op}.trace.json"
             reset_counts()
-            stages = ttc.capture(fn, 1, dev, path)
+            ttc.capture(fn, 1, dev, path)
             launches, plain_runs = counts()
+            host = {name: sum(tracing.counts()[name].values())
+                    for name in ("host_syncs", "host_copies", "table_builds")}
             nbytes = path.stat().st_size
-            summary = ttc.summarise(ttc.load_trace(path))  # raises on none
+            trace = ttc.load_trace(path)
+            summary = ttc.summarise(trace)  # raises on none
+            spans = ttc.spans_in(trace)
+            del trace
             path.unlink()
             by_tag = ttc.launches_by_table(summary)
             got = {TRACE_TAGS[k]: int(v) for k, v in by_tag.items()
@@ -2392,8 +2399,8 @@ def phase13(dev, smi, p3, b1_ms):
                   <= 1e-9 * window, f"phase 13 {case}: busy "
                   f"{summary['busy_ms']} + idle {summary['idle_ms']} != "
                   f"window {window}")
-            dead = stages.dead(ttc.OP_LABELS[op])
-            check(not dead, f"phase 13 {case}: dead stage labels {dead}")
+            dead = ttc.dead(spans, ttc.OP_LABELS[op])
+            check(not dead, f"phase 13 {case}: dead spans {dead}")
             b1 = ttc.device_ms_by_table(summary)["B1"] / by_tag["B1"]
             check(abs(b1 - b1_ms) <= TRACE_B1_TOL * b1_ms,
                   f"phase 13 {case}: B1 {b1:.3f} ms a launch in the trace, "
@@ -2411,8 +2418,8 @@ def phase13(dev, smi, p3, b1_ms):
                 f"{summary['busy_ms']:.2f} ms, idle {summary['idle_ms']:.2f} "
                 f"ms, idle share {summary['idle_share']:.4f}; launches "
                 f"{got} equal the launch counts; B1 {b1:.3f} ms a launch "
-                f"against phase 4's {b1_ms:.3f} ms; no dead label of "
-                f"{len(ttc.OP_LABELS[op])}; launch-to-start skew "
+                f"against phase 4's {b1_ms:.3f} ms; no dead span of "
+                f"{len(ttc.OP_LABELS[op])}; {host}; launch-to-start skew "
                 f"{summary['launch_skew_us']:.1f} us as recorded (device "
                 f"clock moved {summary['clock_shift_us']:.1f} us); "
                 f"{summary['events']} events, {nbytes} bytes")

@@ -27,6 +27,7 @@ from typing import Protocol, runtime_checkable
 import numpy as np
 import torch
 
+from . import tracing
 from .healpix import ang2pix_ring, npix2nside
 
 __all__ = [
@@ -364,9 +365,15 @@ class CatalogBase(metaclass=ABCMeta):
     def select(self, selection):
         if isinstance(selection, (tuple, list)):
             selection = self._join(*selection)
-        for page in self._pages(selection):
-            for filt in self._filters:
-                filt(page)
+        pages = self._pages(selection)
+        while True:
+            # the page's read and filters, not the consumer's work on it
+            with tracing.span("catalog.page"):
+                page = next(pages, None)
+                if page is None:
+                    return
+                for filt in self._filters:
+                    filt(page)
             yield page
 
 

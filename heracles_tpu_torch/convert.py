@@ -15,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import tracing
 from .core import TocDict
 from .devicemap import DeviceMap
 
@@ -34,7 +35,8 @@ def to_torch(tocdict, device="cuda"):
         md = dict(getattr(getattr(value, "dtype", None), "metadata", None) or {})
         arr = np.asarray(value)
         arr = np.ascontiguousarray(arr, dtype=np.dtype(arr.dtype.str))
-        out[key] = DeviceMap(torch.as_tensor(arr, device=device), metadata=md)
+        out[key] = DeviceMap(tracing.upload("convert.to_torch", arr, device),
+                             metadata=md)
     return out
 
 

@@ -18,6 +18,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import tracing
+
 __all__ = ["DeviceMap"]
 
 _NUMPY = {
@@ -93,7 +95,7 @@ class DeviceMap:
         return self._array.shape[0]
 
     def __array__(self, dtype=None, copy=None):
-        out = self._array.detach().cpu().numpy()
+        out = tracing.to_host("devicemap.to_host", self._array)
         if dtype is not None:
             return out.astype(dtype)
         out = np.array(out)
@@ -103,6 +105,7 @@ class DeviceMap:
     def block_until_ready(self):
         """Wait for the work queued on the tensor's card; returns self."""
         if self._array.device.type == "cuda":
+            tracing.synced("devicemap.block_until_ready", self._array)
             torch.cuda.synchronize(self._array.device)
         return self
 
@@ -116,8 +119,9 @@ class DeviceMap:
         if isinstance(other, DeviceMap):
             return other._array
         if isinstance(other, np.ndarray):
-            return torch.as_tensor(np.asarray(other, self._dtype.str),
-                                   device=self._array.device)
+            return tracing.upload("devicemap.coerce",
+                                  np.asarray(other, self._dtype.str),
+                                  self._array.device)
         return other
 
     # in place on the tensor: the pipeline's fields normalise their

@@ -39,6 +39,7 @@ from itertools import combinations
 import numpy as np
 import torch
 
+from .. import tracing
 from ..convert import to_torch
 from ..core import update_metadata
 from ..devicemap import DeviceMap
@@ -77,7 +78,7 @@ def _labels(jk_map):
     if isinstance(jk_map, DeviceMap):
         jk_map = jk_map.array
     if isinstance(jk_map, torch.Tensor):
-        return jk_map.detach().cpu().numpy()
+        return tracing.to_host("jackknife.labels", jk_map)
     return np.asarray(jk_map)
 
 
@@ -152,6 +153,7 @@ def _estimate_alm_bytes(data_maps, vis_maps, fields, njk):
     return (njk + 1) * total
 
 
+@tracing.spanned("jackknife.compute_jk_alms")
 def compute_jk_alms(data_maps, vis_maps, jk_map, fields, dir="./dices",
                     progress=None, region_batch=8, device_cache=None,
                     mesh=None):
@@ -235,7 +237,8 @@ def compute_jk_alms(data_maps, vis_maps, jk_map, fields, dir="./dices",
         dev_vis = _device_region_maps(vis_maps, fields)
         first = next(iter(dev_data.values()))[0]
         # labels compare in the maps' dtype (exact up to 2^24 in float32)
-        jk_dev = torch.as_tensor(jk_map, dtype=first.dtype, device=first.device)
+        jk_dev = tracing.upload("jackknife.labels", jk_map, first.device,
+                                first.dtype)
         device_state = (dev_data, dev_vis, jk_dev)
     # full-footprint alms (k = 0)
     with progress.task("ALMs 0"):
@@ -300,7 +303,7 @@ def _device_region_maps(maps, fields):
         arr = np.asarray(m)
         arr = np.ascontiguousarray(arr, dtype=np.dtype(arr.dtype.str))
         device = fields[key[0]].mapper_or_error.device
-        out[key] = (torch.as_tensor(arr, device=device), md)
+        out[key] = (tracing.upload("jackknife.region_maps", arr, device), md)
     return out
 
 
@@ -316,8 +319,8 @@ def _dispatch_batched_jk_alms(ks, fields, dir, device_state, cache,
     and writes the per-region FITS caches.
     """
     dev_data, dev_vis, jk_dev = device_state
-    ks_arr = torch.as_tensor(np.asarray(ks, np.float32), dtype=jk_dev.dtype,
-                             device=jk_dev.device)
+    ks_arr = tracing.upload("jackknife.regions", np.asarray(ks, np.float32),
+                            jk_dev.device, jk_dev.dtype)
 
     def batched(dev_maps, method):
         out = {}
@@ -397,6 +400,7 @@ def _compute_single_jk_alm(k, data_maps, vis_maps, jk_map, fields, dir,
     cache["vis", k] = vis_alms
 
 
+@tracing.spanned("jackknife.compute_jk_cls_from_alms")
 def compute_jk_cls_from_alms(
     jk_map,
     fields,
@@ -484,7 +488,8 @@ def compute_jk_cls_from_alms(
         def samples(name, batch):
             alms, R = full[name], regions_on_device[name]
             dev = next(iter(alms.values())).device
-            idx = torch.as_tensor(np.asarray(batch, np.int64) - 1, device=dev)
+            idx = tracing.upload("jackknife.regions",
+                                 np.asarray(batch, np.int64) - 1, dev)
             stacks = {key: _assemble_deletek(alms[key].array, R[key], idx)
                       for key in alms}
             md = {key: alms[key].metadata for key in alms}
@@ -575,6 +580,7 @@ def bias(cls):
     }
 
 
+@tracing.spanned("jackknife.jackknife_fsky")
 def jackknife_fsky(jk_map, jk=0, jk2=0, ratio=True):
     """Sky fraction after deleting (up to) two regions.
 

@@ -17,6 +17,8 @@ import os
 import numpy as np
 import torch
 
+from . import tracing
+
 __all__ = [
     "nside2npix",
     "npix2nside",
@@ -343,13 +345,14 @@ def ud_grade(m, nside_out, *, power=None, dtype=None):
         out = m
     elif nside_in > nside_out:
         gather = _udgrade_gather(nside_in, nside_out)
-        out = m[..., torch.as_tensor(gather, device=m.device)].mean(dim=-1)
+        out = m[..., tracing.upload("healpix.ud_grade", gather,
+                                    m.device)].mean(dim=-1)
     else:
         gather = _udgrade_gather(nside_out, nside_in)
         parent = np.empty(nside2npix(nside_out), dtype=np.int64)
         parent[gather.reshape(-1)] = np.repeat(
             np.arange(nside2npix(nside_in)), (nside_out // nside_in) ** 2)
-        out = m[..., torch.as_tensor(parent, device=m.device)]
+        out = m[..., tracing.upload("healpix.ud_grade", parent, m.device)]
     if power:
         out = out * (nside_in / nside_out) ** power
     if dtype is not None:

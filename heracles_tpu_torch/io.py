@@ -36,6 +36,7 @@ from weakref import WeakValueDictionary
 import numpy as np
 import torch
 
+from . import tracing
 from .core import toc_match
 from .devicemap import DeviceMap
 from .fits import FitsFile, Header
@@ -157,7 +158,7 @@ def _host(a):
     if isinstance(a, DeviceMap):
         return np.asarray(a)
     if isinstance(a, torch.Tensor):
-        return a.detach().cpu().numpy()
+        return tracing.to_host("io.to_host", a)
     return a
 
 
@@ -353,11 +354,13 @@ def read_vmap(filename, nside=None, field=0, *, transform=False, lmax=None,
         if lmax is None:
             lmax = sht.resolve_lmax(nside_map)
         dev = torch.device(device)
-        alm = sht.map2alm(torch.as_tensor(vmap, device=dev), lmax=lmax,
-                          weights="ring")
-        pw = torch.as_tensor(sht.pixel_window(nside_map, lmax), device=dev)
+        alm = sht.map2alm(tracing.upload("io.read_vmap", vmap, dev),
+                          lmax=lmax, weights="ring")
+        pw = tracing.upload("io.read_vmap", sht.pixel_window(nside_map, lmax),
+                            dev)
         ls, _ = sht._pack_index(lmax, lmax, dev)
-        vmap = np.ascontiguousarray((alm / pw[ls]).cpu().numpy())
+        vmap = np.ascontiguousarray(tracing.to_host("io.read_vmap",
+                                                    alm / pw[ls]))
 
     return vmap
 

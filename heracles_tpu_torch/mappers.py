@@ -25,6 +25,7 @@ from functools import cached_property
 import numpy as np
 import torch
 
+from . import tracing
 from .devicemap import DeviceMap
 from .healpix import ang2pix_ring, nside2npix, nside2pixarea, ud_grade
 from .ops import nufft, sht
@@ -136,6 +137,8 @@ class HealpixMapper:
         """
         dev = state.device
         # torch.tensor copies: catalogue pages are read-only numpy arrays
+        tracing.copied("mappers.add", "h2d", dev, 3)
+        tracing.synced("mappers.add", dev, 3)
         ipix = ang2pix_ring(
             self._nside,
             torch.tensor(lon, dtype=torch.float64, device=dev),
@@ -177,8 +180,10 @@ class HealpixMapper:
             pw = pw[1]
         fl = np.ones(self._lmax + 1)
         fl[s:] /= pw[s:]
+        tracing.built("mappers.deconvolve")
         ls, _ = sht._pack_index(self._lmax, self._lmax, self._device)
-        return torch.as_tensor(fl, dtype=dtype, device=self._device)[ls]
+        return tracing.upload("mappers.deconvolve", fl, self._device,
+                              dtype)[ls]
 
     def _unwrap(self, data, metadata):
         """(tensor, metadata) of a DeviceMap, a tensor or a numpy array.
@@ -192,10 +197,12 @@ class HealpixMapper:
             return data, dict(metadata or {})
         md = dict(getattr(data.dtype, "metadata", None) or {})
         md.update(metadata or {})
-        arr = torch.as_tensor(np.asarray(data, np.dtype(data.dtype.str)),
-                              device=self._device)
+        arr = tracing.upload("mappers.unwrap",
+                             np.asarray(data, np.dtype(data.dtype.str)),
+                             self._device)
         return arr, md
 
+    @tracing.spanned("mappers.HealpixMapper.transform")
     def transform(self, data, spin=0, *, metadata=None):
         """Spin-0/2 spherical harmonic analysis with quadrature weights.
 
@@ -210,7 +217,8 @@ class HealpixMapper:
         alm = sht.map2alm(arr, lmax=self._lmax, spin=spin, weights="ring",
                           iterations=self._iterations, dd=self._dd)
         if self._deconv:
-            alm = alm * self._fl_packed(spin, alm.real.dtype)
+            with tracing.span("mappers.deconvolve"):
+                alm = alm * self._fl_packed(spin, alm.real.dtype)
         return DeviceMap(alm, metadata={**md, "deconv": self._deconv})
 
     def transform_resident(self, data, spin=0, *, metadata=None):
@@ -269,7 +277,9 @@ class HealpixMapper:
         alm = sht.pack_alm(rect[..., : self._lmax + 1], self._lmax,
                            self._lmax)
         if self._deconv:
-            alm = alm * self._fl_packed(spin, alm.real.dtype).to(alm.device)
+            with tracing.span("mappers.deconvolve"):
+                alm = alm * self._fl_packed(spin,
+                                            alm.real.dtype).to(alm.device)
         return DeviceMap(alm, metadata={**md, "deconv": self._deconv})
 
     def synthesize_sharded(self, mesh, alm, spin=0):
@@ -504,16 +514,17 @@ class DiscreteMapper:
                 ph = np.pad(ph, (0, pad))
                 v = np.pad(v, ((0, 0), (0, pad)))
             order = np.argsort(th, kind="stable")
-            geom = [torch.as_tensor(a, device=dev)
+            site = "mappers.adjoint_synthesis"
+            geom = [tracing.upload(site, a, dev)
                     for a in sht._point_geometry(th[order])]
-            ph = torch.as_tensor(ph[order], device=dev)
+            ph = tracing.upload(site, ph[order], dev)
             v = v[:, order]
             if spin == 0:
-                vt = torch.as_tensor(v, device=dev).to(real)
+                vt = tracing.upload(site, v, dev).to(real)
                 out += _adjoint_spin0(*geom, ph, vt, lmax)
             else:
-                u = torch.complex(torch.as_tensor(v[0], device=dev),
-                                  torch.as_tensor(v[1], device=dev))
+                u = torch.complex(tracing.upload(site, v[0], dev),
+                                  tracing.upload(site, v[1], dev))
                 eb = _adjoint_spin(*geom, ph, u[None].to(self._dtype), lmax,
                                    spin)
                 out += eb.reshape(out.shape)

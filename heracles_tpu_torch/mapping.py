@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from . import _scheduler as coroutines
+from . import tracing
 from .core import TocDict, toc_match, update_metadata
 from .devicemap import DeviceMap
 from .progress import NoProgress
@@ -32,6 +33,7 @@ async def _map_field(key, field, catalog, progress, task_done):
     return result
 
 
+@tracing.spanned("mapping.map_catalogs")
 def map_catalogs(
     fields,
     catalogs,
@@ -81,6 +83,7 @@ def map_catalogs(
     return out
 
 
+@tracing.spanned("mapping.transform")
 def transform(fields, data, *, out=None, progress=None, batch=8, mesh=None):
     """Transform maps to alms via each field's mapper.
 

@@ -23,6 +23,8 @@ import subprocess
 import time
 from pathlib import Path
 
+from .. import tracing
+
 __all__ = ["KernelLibrary", "build", "find_nvcc", "load_library"]
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -192,6 +194,7 @@ def load_library():
     path = _library_path()
     seconds, log = 0.0, ""
     if not path.exists():
+        tracing.built("_build.library")
         path, seconds, log = build()
     lib = ctypes.CDLL(str(path))
     for name, (restype, argtypes) in _SIGNATURES.items():

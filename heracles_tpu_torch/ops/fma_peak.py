@@ -24,12 +24,13 @@ and ``PLAIN_RUNS`` count kernel launches and plain runs under the name
 from __future__ import annotations
 
 import argparse
-import collections
 import functools
 import math
 import operator
 
 import torch
+
+from .. import tracing
 
 __all__ = ["chains", "chains_plain", "default_rows", "run", "LAUNCHES",
            "PLAIN_RUNS", "reset_counts"]
@@ -40,14 +41,13 @@ OPS_PER_STEP = {"fma": 2, "rec3": 3}
 NCHAINS = (1, 2, 4, 8)
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
-LAUNCHES = collections.Counter()
-PLAIN_RUNS = collections.Counter()
+LAUNCHES = tracing.counter("fma_peak.LAUNCHES")
+PLAIN_RUNS = tracing.counter("fma_peak.PLAIN_RUNS")
 
 
 def reset_counts():
-    """Zero the kernel launch count and the plain-version run count."""
-    LAUNCHES.clear()
-    PLAIN_RUNS.clear()
+    """Zero every counter of :mod:`..tracing`, this module's among them."""
+    tracing.reset()
 
 
 def executed_steps(steps):
@@ -160,8 +160,11 @@ def run(kind, rows, steps, nchain, *, dtype, device, reps=3):
         start.record()
         out = chains(a, b, kind, steps, nchain)
         stop.record()
+        tracing.synced("fma_peak.run", device)
         stop.synchronize()
         best = min(best, start.elapsed_time(stop) / 1e3)
+    tracing.synced("fma_peak.run", device)
+    tracing.copied("fma_peak.run", "d2h", device)
     if not bool(torch.isfinite(out).all()):
         raise RuntimeError(f"{kind} probe produced non-finite values")
     n_ops = rows * 128 * steps * nchain * OPS_PER_STEP[kind]

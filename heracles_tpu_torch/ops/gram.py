@@ -28,21 +28,20 @@ version, both under the name ``"gram"``.
 
 from __future__ import annotations
 
-import collections
-
 import torch
+
+from .. import tracing
 
 __all__ = ["gram", "gram_plain", "gram_sharded", "LAUNCHES", "PLAIN_RUNS",
            "reset_counts"]
 
-LAUNCHES = collections.Counter()
-PLAIN_RUNS = collections.Counter()
+LAUNCHES = tracing.counter("gram.LAUNCHES")
+PLAIN_RUNS = tracing.counter("gram.PLAIN_RUNS")
 
 
 def reset_counts():
-    """Zero the kernel launch count and the plain-version run count."""
-    LAUNCHES.clear()
-    PLAIN_RUNS.clear()
+    """Zero every counter of :mod:`..tracing`, this module's among them."""
+    tracing.reset()
 
 
 def _check(A, B, u):
@@ -93,6 +92,7 @@ def _launch(A, B, u):
     return M
 
 
+@tracing.spanned("gram.gram")
 def gram(A, B, u=None):
     """M[a, b] = sum_k A[k, a] u[k] B[k, b] in float64.
 

@@ -37,12 +37,12 @@ under the name ``"spread"``.
 
 from __future__ import annotations
 
-import collections
 import functools
 
 import numpy as np
 import torch
 
+from .. import tracing
 from . import sht
 
 __all__ = [
@@ -72,14 +72,13 @@ MAX_SUB = 1024
 STAGE_BIN, STAGE_ORDER, STAGE_SPREAD = 1, 2, 4
 STAGES_ALL = STAGE_BIN | STAGE_ORDER | STAGE_SPREAD
 
-LAUNCHES = collections.Counter()
-PLAIN_RUNS = collections.Counter()
+LAUNCHES = tracing.counter("nufft.LAUNCHES")
+PLAIN_RUNS = tracing.counter("nufft.PLAIN_RUNS")
 
 
 def reset_counts():
-    """Zero the spreader's launch count and its plain-version run count."""
-    LAUNCHES.clear()
-    PLAIN_RUNS.clear()
+    """Zero every counter of :mod:`..tracing`, this module's among them."""
+    tracing.reset()
 
 
 def kernel_width(epsilon):
@@ -156,7 +155,12 @@ def _tensor(a, dtype, device):
     """``a`` as a tensor of ``dtype`` on ``device`` (numpy input is copied:
     catalogue pages may be read-only)."""
     if isinstance(a, torch.Tensor):
+        if not a.is_cuda:
+            tracing.copied("nufft.inputs", "h2d", device)
+            tracing.synced("nufft.inputs", device)
         return a.to(device=device, dtype=dtype)
+    tracing.copied("nufft.inputs", "h2d", device)
+    tracing.synced("nufft.inputs", device)
     return torch.tensor(np.asarray(a), dtype=dtype, device=device)
 
 
@@ -442,7 +446,8 @@ def _reduce_grid(grid, lmax, w, spin, cdtype):
     dev = grid.device
     nm = lmax + 1
     nc = 2 * nm
-    inv_phi, dec = (torch.as_tensor(a, device=dev)
+    tracing.built("nufft.deconv_factors")
+    inv_phi, dec = (tracing.upload("nufft.reduce_grid", a, dev)
                     for a in _deconv_factors(lmax, w))
     if grid.is_complex():
         full = torch.fft.fft(grid, dim=-1)
@@ -470,7 +475,8 @@ def _reduce_grid(grid, lmax, w, spin, cdtype):
         # fold the southern torus half: row nc-1-j pairs with row j
         GS = torch.flip(G[..., nc // 2 :, :], dims=(-2,))
         outs.append((G[..., : nc // 2, :] + sgn * GS).to(cdtype))
-    x, logch, logsh = (torch.as_tensor(a, device=dev)
+    tracing.built("nufft.coarse_geometry")
+    x, logch, logsh = (tracing.upload("nufft.reduce_grid", a, dev)
                        for a in _coarse_geometry(lmax))
     return sht._analysis_points(tuple(outs), x, logch, logsh, lmax, ns)
 

@@ -37,6 +37,7 @@ import tempfile
 import numpy as np
 import torch
 
+from .. import tracing
 from ..healpix import _pix2ring_ipix, nest2ring, pix2ang_ring, ring2nest
 from . import wigner
 from .sht import _data_dir
@@ -51,6 +52,7 @@ def _cache_dir():
             or os.path.join(tempfile.gettempdir(), "heracles_tpu_cache"))
 
 
+@tracing.spanned("pixwin.find_cached")
 def find_cached(nside, lmax, pol):
     """A shipped or cached exact window covering (nside, lmax, pol), else None.
 
@@ -70,6 +72,7 @@ def find_cached(nside, lmax, pol):
             continue
         if lm < lmax or (pol and not pl):
             continue
+        tracing.built("pixwin.find_cached")
         try:
             arr = np.load(path)
         except (OSError, ValueError):
@@ -230,6 +233,8 @@ def _rep_powers(th, ph, lmax, pol, chunk=64, rings=None, device="cuda"):
     f64 = torch.float64
 
     def put(a, dtype=f64):
+        tracing.copied("pixwin.exact", "h2d", dev)
+        tracing.synced("pixwin.exact", dev)
         return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=dev)
 
     x = put(np.cos(th_rows))
@@ -251,7 +256,7 @@ def _rep_powers(th, ph, lmax, pol, chunk=64, rings=None, device="cuda"):
         fw = (torch.view_as_complex(frow) / nch).repeat(1, 1, nblocks)
         out.append(wigner.lambda_power_scan(ms, ns, x[sl], logch[sl], logsh[sl],
                                             lmax, fw, weights))
-    return torch.cat(out).cpu().numpy()
+    return tracing.to_host("pixwin.exact", torch.cat(out))
 
 
 @functools.lru_cache(maxsize=16)
@@ -275,6 +280,7 @@ def pixel_window_exact(nside, lmax, *, pol=False, factor=16, cap_samples=1,
     logger.info(
         "computing exact pixel window nside=%d lmax=%d pol=%s", nside, lmax, pol
     )
+    tracing.built("pixwin.exact")
     pix, wts = _pixel_classes(nside, cap_samples)
     th, ph, rings = _children_angles_rings(nside, pix, factor)
     powers = _rep_powers(th, ph, lmax, pol, rings=rings, device=device)

@@ -29,6 +29,8 @@ import math
 import numpy as np
 import torch
 
+from .. import tracing
+
 __all__ = ["ring_analysis", "ring_synthesis", "ring_plan"]
 
 _COMPLEX = {torch.float32: torch.complex64, torch.float64: torch.complex128,
@@ -96,9 +98,11 @@ def ring_plan(nside, mext):
     return tuple(buckets)
 
 
-def _upload(a, device, dtype=None):
-    """Host array ``a`` on ``device``.  Pageable host memory is staged at
-    once, so the copy need not wait for the work queued on the card."""
+def _upload(site, a, device, dtype=None):
+    """Host array ``a`` on ``device``, a host copy counted at ``site``.
+    Pageable host memory is staged at once, so the copy need not wait for
+    the work queued on the card."""
+    tracing.copied(site, "h2d", device)
     return torch.as_tensor(a, dtype=dtype).to(device, non_blocking=True)
 
 
@@ -116,6 +120,7 @@ def _bluestein_dft(vals, nph, L, *, sign, out_extent):
     holds sum_p vals[r, p] exp(sign 2 pi i k p / nph[r]), provided
     L >= data extent + out_extent - 1.
     """
+    tracing.built("ringfft.chirp")
     dev = vals.device
     nphc = nph[:, None]
     p = torch.arange(L, dtype=torch.int64, device=dev)[None, :]
@@ -135,6 +140,7 @@ def _cap_rows(maps, pix0, nph, nmax, L):
     int); the rings are contiguous from pixel ``pix0``.  The row indices
     are built on the maps' device.
     """
+    tracing.built("ringfft.cap_rows")
     starts = pix0 + torch.cumsum(nph, 0) - nph
     p = torch.arange(nmax, device=maps.device)
     inside = p < nph[:, None]
@@ -145,6 +151,7 @@ def _cap_rows(maps, pix0, nph, nmax, L):
     return out
 
 
+@tracing.spanned("ringfft.ring_analysis")
 def ring_analysis(maps, nside, nm, *, weight=None, m0=0):
     """Per-ring Fourier coefficients F[..., r, m] = sum_p v_p e^{-i m phi_p}.
 
@@ -165,13 +172,18 @@ def ring_analysis(maps, nside, nm, *, weight=None, m0=0):
     mext = m0 + nm
     plan = ring_plan(nside, mext)
     m = torch.arange(m0, mext, dtype=torch.float64, device=dev)[None, :]
-    w = None if weight is None else _upload(weight, dev, torch.float64)
+    site = "ringfft.ring_analysis"
+    w = None
+    if weight is not None:
+        tracing.built("ringfft.weights")
+        w = _upload(site, weight, dev, torch.float64)
 
     out_pos, out_neg = [], []
     for b in plan:
         L = b["L"]
         r0, r1 = b["rings"]
-        phi0 = _upload(b["phi0"], dev)[:, None]
+        tracing.built("ringfft.phase")
+        phi0 = _upload(site, b["phi0"], dev)[:, None]
         phase = torch.polar(torch.ones_like(m * phi0), -m * phi0)
         if w is not None:
             phase = phase * w[r0:r1, None]
@@ -191,7 +203,7 @@ def ring_analysis(maps, nside, nm, *, weight=None, m0=0):
             if complex_in:
                 out_neg.append(C[..., torch.remainder(-k, L)] * phase.conj())
             continue
-        nph = _upload(b["nph"], dev)
+        nph = _upload(site, b["nph"], dev)
         rows = _cap_rows(maps, b["pix"][0], nph, int(b["nph"].max()),
                          L).to(cdt)
         C = _bluestein_dft(rows, nph, L, sign=-1, out_extent=mext)
@@ -211,6 +223,7 @@ def _ring_pixels(nph, npix, L):
     ``nph``: (R,) int64 tensor of ring lengths summing to ``npix``; the
     index is built on its device, in pixel order.
     """
+    tracing.built("ringfft.ring_pixels")
     dev = nph.device
     row = torch.repeat_interleave(torch.arange(nph.numel(), device=dev), nph,
                                   output_size=npix)
@@ -226,6 +239,7 @@ def _fold_orders(h, L):
     return torch.cat([h, pad], dim=-1).reshape(h.shape[:-1] + (q, L)).sum(-2)
 
 
+@tracing.spanned("ringfft.ring_synthesis")
 def ring_synthesis(h_pos, h_neg, nside, *, real_output=True):
     """Inverse of :func:`ring_analysis`: evaluate per-ring Fourier series.
 
@@ -243,11 +257,13 @@ def ring_synthesis(h_pos, h_neg, nside, *, real_output=True):
     dev = h_pos.device
     plan = ring_plan(nside, nm)
     m = torch.arange(nm, dtype=torch.float64, device=dev)[None, :]
+    site = "ringfft.ring_synthesis"
     pieces = []
     for b in plan:
         L = b["L"]
         r0, r1 = b["rings"]
-        phi0 = _upload(b["phi0"], dev)[:, None]
+        tracing.built("ringfft.phase")
+        phi0 = _upload(site, b["phi0"], dev)[:, None]
         phase = torch.polar(torch.ones_like(m * phi0), m * phi0).to(cdt)
         hp = h_pos[..., r0:r1, :] * phase
         if h_neg is None:
@@ -273,7 +289,7 @@ def ring_synthesis(h_pos, h_neg, nside, *, real_output=True):
                 v = v.real
             pieces.append(v.reshape(v.shape[:-2] + ((r1 - r0) * L,)))
             continue
-        nph = _upload(b["nph"], dev)
+        nph = _upload(site, b["nph"], dev)
         nmax = int(b["nph"].max())
         pad = hp.new_zeros(hp.shape[:-1] + (L - nm,))
         if h_neg is None:

@@ -32,6 +32,7 @@ import os
 import numpy as np
 import torch
 
+from .. import tracing
 from ..healpix import npix2nside, nside2pixarea, ring_geometry
 from . import ringfft, sht_kernels
 
@@ -69,8 +70,13 @@ def alm_size(lmax, mmax=None):
 
 def _pack_index(lmax, mmax, device):
     """(l_idx, m_idx) tensors giving rect coords of each packed entry."""
+    tracing.built("sht.pack_index")
     m = torch.arange(mmax + 1, device=device)
     counts = lmax + 1 - m
+    # without an output size the op reads two values back: the total and
+    # whether every count is non-negative
+    tracing.synced("sht.pack_index", m, 2)
+    tracing.copied("sht.pack_index", "d2h", m, 2)
     ms = torch.repeat_interleave(m, counts)
     # order m's run starts at (l, m) = (m, m)
     start = torch.cumsum(counts, 0) - counts
@@ -83,6 +89,7 @@ def _flat_pack_index(lmax, mmax, device):
     return ls * (mmax + 1) + ms
 
 
+@tracing.spanned("sht.pack_alm")
 def pack_alm(alm_rect, lmax=None, mmax=None):
     """Rectangular (..., lmax+1, mmax+1) -> healpy-packed (..., nlm)."""
     lmax = alm_rect.shape[-2] - 1 if lmax is None else int(lmax)
@@ -91,6 +98,7 @@ def pack_alm(alm_rect, lmax=None, mmax=None):
     return flat[..., _flat_pack_index(lmax, mmax, alm_rect.device)]
 
 
+@tracing.spanned("sht.unpack_alm")
 def unpack_alm(alm_packed, lmax, mmax=None):
     """healpy-packed (..., nlm) -> rectangular (..., lmax+1, mmax+1)."""
     mmax = lmax if mmax is None else int(mmax)
@@ -132,6 +140,7 @@ def ring_weights(nside, lmax_w=None):
     """
     nside = int(nside)
     lmax_w = 3 * nside if lmax_w is None else int(lmax_w)
+    tracing.built("sht.ring_weights")
     data = _data_dir()
     if data is not None:
         path = os.path.join(data, f"ringweights_{nside}_{lmax_w}.npy")
@@ -188,7 +197,8 @@ def _fold_rings(F, nside):
 def _geometry(nside, device):
     """Northern-ring x (float64), log cos(theta/2), log sin(theta/2)."""
     nhalf = 2 * nside
-    return tuple(ringfft._upload(a[:nhalf], device)
+    tracing.built("sht.geometry")
+    return tuple(ringfft._upload("sht.geometry", a[:nhalf], device)
                  for a in _geom_arrays(nside))
 
 
@@ -202,7 +212,10 @@ def _x_lo_array(nside):
 
 def _x_lo(nside, dd, device):
     """``x_lo`` for the kernels: the residual where ``dd`` is "comp"."""
-    return ringfft._upload(_x_lo_array(nside), device) if dd == "comp" else None
+    if dd != "comp":
+        return None
+    tracing.built("sht.x_lo")
+    return ringfft._upload("sht.x_lo", _x_lo_array(nside), device)
 
 
 def _dd_mode(dd):
@@ -222,6 +235,7 @@ def _folded_inputs(Fw, ns, m0=0):
     """
     nm = Fw[0].shape[-1]
     nside = (Fw[0].shape[-2] + 1) // 4
+    tracing.built("sht.fold_sign")
     msign = torch.ones(nm, dtype=Fw[0].real.dtype, device=Fw[0].device)
     msign[(m0 + 1) % 2::2] = -1.0
     folded = [_fold_rings(f, nside) for f in Fw]
@@ -243,9 +257,10 @@ def _analysis_rect(Fw, lmax, ns, dd=False, m0=0):
     """
     nside = (Fw[0].shape[-2] + 1) // 4
     dev = Fw[0].device
-    x, logch, logsh = _geometry(nside, dev)
-    args = _folded_inputs(Fw, ns, m0)
-    kw = dict(dd=dd, x_lo=_x_lo(nside, dd, dev))
+    with tracing.span("sht.fold"):
+        x, logch, logsh = _geometry(nside, dev)
+        args = _folded_inputs(Fw, ns, m0)
+        kw = dict(dd=dd, x_lo=_x_lo(nside, dd, dev))
     if len(ns) == 1:
         return (sht_kernels.analysis_spin0_folded(*args, x, logch, logsh,
                                                   lmax, m0, **kw),)
@@ -310,17 +325,22 @@ def _synthesis_rect(alms, lmax, ns, nside, dd=False, m0=0):
     complex64 ring spectra in every mode.
     """
     dev = alms[0].device
-    x, logch, logsh = _geometry(nside, dev)
-    kw = dict(dd=dd, x_lo=_x_lo(nside, dd, dev))
+    with tracing.span("sht.fold"):
+        x, logch, logsh = _geometry(nside, dev)
+        kw = dict(dd=dd, x_lo=_x_lo(nside, dd, dev))
     if len(ns) == 1:
-        GN, GS = sht_kernels.synthesis_spin0_folded(alms[0], x, logch, logsh,
-                                                    lmax, m0, **kw)
-        return (_unfold_rings(GN, GS),)
-    GNp, GSp, GNm, GSm = sht_kernels.synthesis_pair_folded(
-        alms[0], alms[1], x, logch, logsh, lmax, abs(int(ns[0])), m0, **kw)
-    return _unfold_rings(GNp, GSp), _unfold_rings(GNm, GSm)
+        folded = [sht_kernels.synthesis_spin0_folded(alms[0], x, logch, logsh,
+                                                     lmax, m0, **kw)]
+    else:
+        GNp, GSp, GNm, GSm = sht_kernels.synthesis_pair_folded(
+            alms[0], alms[1], x, logch, logsh, lmax, abs(int(ns[0])), m0,
+            **kw)
+        folded = [(GNp, GSp), (GNm, GSm)]
+    with tracing.span("sht.fold"):
+        return tuple(_unfold_rings(GN, GS) for GN, GS in folded)
 
 
+@tracing.spanned("sht.map2alm")
 def map2alm(maps, lmax=None, mmax=None, *, spin=0, weights="ring",
             iterations=0, packed=True, dd=None):
     """Spin-0/2 spherical harmonic analysis of HEALPix RING maps.
@@ -380,6 +400,7 @@ def _map2alm_block(maps, nside, lmax, m0, nm, spin, w, dd=False):
                                m0))
 
 
+@tracing.spanned("sht.alm2map")
 def alm2map(alm, nside, lmax=None, mmax=None, *, spin=0, packed=True,
             dd=None):
     """Spin-0/2 spherical harmonic synthesis onto HEALPix RING maps.
@@ -450,6 +471,7 @@ def _host_copy_async(arr):
     """
     if arr.device.type != "cuda":
         return lambda: arr.detach().numpy().copy()
+    tracing.copied("sht.host_copy", "d2h", arr)
     computed = torch.cuda.Event()
     computed.record(torch.cuda.current_stream(arr.device))
     side = _copy_stream(arr.device)
@@ -462,6 +484,7 @@ def _host_copy_async(arr):
     arr.record_stream(side)
 
     def finish():
+        tracing.synced("sht.host_copy", arr)
         copied.synchronize()
         return host.numpy()
 
@@ -479,6 +502,8 @@ def _on_device(a, device):
     if isinstance(a, torch.Tensor):
         return a
     a = np.asarray(a)
+    tracing.copied("sht.on_device", "h2d", device)
+    tracing.synced("sht.on_device", device)
     return torch.as_tensor(np.ascontiguousarray(a, np.dtype(a.dtype.str)),
                            device=device)
 
@@ -505,7 +530,7 @@ def alm2map_host(alm, nside, lmax=None, *, device="cuda", **kw):
     """:func:`alm2map` for host callers: numpy (or tensor) alms in, numpy
     maps out; numpy alms are synthesised on ``device``."""
     out = alm2map(_on_device(alm, device), nside, lmax, **kw)
-    return out.detach().cpu().numpy()
+    return tracing.to_host("sht.alm2map_host", out)
 
 
 def pixel_window(nside, lmax, *, pol=False, method="auto", device="cuda"):

@@ -48,12 +48,12 @@ that tells which share of the work ran on each of the kernel's paths.
 
 from __future__ import annotations
 
-import collections
 import functools
 
 import numpy as np
 import torch
 
+from .. import tracing
 from . import wigner
 
 __all__ = [
@@ -72,9 +72,9 @@ __all__ = [
     "reset_counts",
 ]
 
-LAUNCHES = collections.Counter()
-LAUNCHES_BY_PRECISION = collections.Counter()
-LAUNCHES_BY_NB = collections.Counter()
+LAUNCHES = tracing.counter("sht_kernels.LAUNCHES")
+LAUNCHES_BY_PRECISION = tracing.counter("sht_kernels.LAUNCHES_BY_PRECISION")
+LAUNCHES_BY_NB = tracing.counter("sht_kernels.LAUNCHES_BY_NB")
 
 # the kernels' dead path (csrc/sht_paths.cuh) rests on a step of the
 # recurrence growing a value by less than sqrt(2 lmax) + 2 < 2^8.1: 8 steps
@@ -85,12 +85,10 @@ _REAL = {torch.complex64: torch.float32, torch.complex128: torch.float64}
 
 
 def reset_counts():
-    """Zero the kernel launch counts and the plain-version run counts."""
-    LAUNCHES.clear()
-    LAUNCHES_BY_PRECISION.clear()
-    LAUNCHES_BY_NB.clear()
-    wigner.PLAIN_RUNS.clear()
-    wigner.PLAIN_RUNS_BY_PRECISION.clear()
+    """Zero every counter of :mod:`..tracing` (the kernel launch counts,
+    the plain-version run counts, the host waits, copies and table
+    builds)."""
+    tracing.reset()
 
 
 # the groups of maps pick_nb may take, by kernel and precision ("f32c":
@@ -290,6 +288,8 @@ def _launch(name, inputs, x, logch, logsh, lmax, spin, out_rows, nout,
     lch = logch.to(device=dev, dtype=torch.float64).contiguous()
     lsh = logsh.to(device=dev, dtype=torch.float64).contiguous()
     # staged at once: the copy waits for no work queued on the card
+    tracing.built("sht_kernels.seed_planes")
+    tracing.copied("sht_kernels.seed_planes", "h2d", dev)
     seed = torch.as_tensor(_seed_planes(m0, nm, spin)).to(dev,
                                                           non_blocking=True)
     outs = [torch.empty((B, out_rows, nm), dtype=A.dtype, device=dev)
@@ -369,9 +369,12 @@ def path_counts(name, *args, m0=0, dd=False, x_lo=None, nb=None):
         x_lo = None
     counts = _launch(name, inputs, x, logch, logsh, int(lmax), spin, out_rows,
                      nout, m0=int(m0), paths=True, x_lo=x_lo, nb=nb)
+    tracing.synced("sht_kernels.path_counts", counts)
+    tracing.copied("sht_kernels.path_counts", "d2h", counts)
     return dict(zip(("steady", "dead", "full"), counts.tolist()))
 
 
+@tracing.spanned("sht_kernels.analysis_spin0_folded")
 def analysis_spin0_folded(Fe, Fo, x, logch, logsh, lmax, m0=0, *, dd=False,
                           x_lo=None, nb=None):
     """alm[..., l, m] = sum_r lam_lm(x_r) (Fe on even l, Fo on odd l)[..., r, m].
@@ -401,6 +404,7 @@ def analysis_spin0_folded(Fe, Fo, x, logch, logsh, lmax, m0=0, *, dd=False,
     return alm
 
 
+@tracing.spanned("sht_kernels.analysis_pair_folded")
 def analysis_pair_folded(FNp, Sp, FNm, Sm, x, logch, logsh, lmax, spin,
                          m0=0, *, dd=False, x_lo=None, nb=None):
     """Folded spin-pair analysis; returns (alm_p, alm_m).
@@ -427,6 +431,7 @@ def analysis_pair_folded(FNp, Sp, FNm, Sm, x, logch, logsh, lmax, spin,
                                 lmax + 1, 2, m0=m0, x_lo=x_lo, nb=nb))
 
 
+@tracing.spanned("sht_kernels.synthesis_spin0_folded")
 def synthesis_spin0_folded(alm, x, logch, logsh, lmax, m0=0, *, dd=False,
                            x_lo=None, nb=None):
     """Folded spin-0 synthesis: rectangular alm -> (GN, GS) ring spectra.
@@ -450,6 +455,7 @@ def synthesis_spin0_folded(alm, x, logch, logsh, lmax, m0=0, *, dd=False,
                                 x.shape[0], 2, m0=m0, x_lo=x_lo, nb=nb))
 
 
+@tracing.spanned("sht_kernels.synthesis_pair_folded")
 def synthesis_pair_folded(alm_p, alm_m, x, logch, logsh, lmax, spin, m0=0, *,
                           dd=False, x_lo=None, nb=None):
     """Folded spin-pair synthesis; returns (GNp, GSp, GNm, GSm).

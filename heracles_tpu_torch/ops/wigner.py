@@ -38,12 +38,13 @@ The mixing matrices' host-f64 tables (:func:`wigner_table_host`,
 
 from __future__ import annotations
 
-import collections
 import functools
 import math
 
 import numpy as np
 import torch
+
+from .. import tracing
 
 __all__ = [
     "wigner_seed_log",
@@ -77,8 +78,8 @@ _NO_SEED = -(2**30)
 # runs of the plain kernel versions, by kernel name (a run on the card
 # shows that the main path did not go through its kernel), and the same
 # runs by (name, "f32", "f64" or "f32c"), the last the comp recurrence
-PLAIN_RUNS = collections.Counter()
-PLAIN_RUNS_BY_PRECISION = collections.Counter()
+PLAIN_RUNS = tracing.counter("wigner.PLAIN_RUNS")
+PLAIN_RUNS_BY_PRECISION = tracing.counter("wigner.PLAIN_RUNS_BY_PRECISION")
 
 
 # the groups of maps that share one recurrence in the kernels' launches:
@@ -126,6 +127,9 @@ def comp_ratio(x, x_lo, device):
     xf = x.to(device=device, dtype=torch.float32)
     if x_lo is None:
         return torch.zeros_like(xf)
+    if not (isinstance(x_lo, torch.Tensor) and x_lo.is_cuda):
+        tracing.copied("wigner.comp_ratio", "h2d", device)
+        tracing.synced("wigner.comp_ratio", device)
     xl = torch.as_tensor(x_lo).to(device=device, dtype=torch.float32)
     return torch.where(xf != 0, xl / xf, torch.zeros_like(xf))
 
@@ -202,12 +206,12 @@ def wigner_seed_log(mp, npar, logch, logsh):
     dev, dt = logch.device, logch.dtype
 
     def lane(a):
-        return torch.as_tensor(np.asarray(a, np.float64), dtype=dt,
-                               device=dev)[:, None]
+        return tracing.upload("wigner.plain", np.asarray(a, np.float64), dev,
+                              dt)[:, None]
 
     logval = (lane(logc) + lane(np.abs(mp + npar)) * logch[None, :]
               + lane(np.abs(mp - npar)) * logsh[None, :])
-    return (torch.as_tensor(j0, device=dev), lane(sign)[:, 0], logval)
+    return (tracing.upload("wigner.plain", j0, dev), lane(sign)[:, 0], logval)
 
 
 def wigner_seed_host(ms, ns, theta):
@@ -249,7 +253,8 @@ def _lane_seeds(ms, ns, logch, logsh, dtype):
     dev = logch.device
 
     def lane(a):
-        return torch.as_tensor(np.asarray(a, np.float64), device=dev)[None, :]
+        return tracing.upload("wigner.plain", np.asarray(a, np.float64),
+                              dev)[None, :]
 
     pc = lane(np.abs(ms + ns))
     ps = lane(np.abs(ms - ns))
@@ -288,7 +293,8 @@ def _coeff_tables(ms, ns, j0, lmax, dtype, device):
         A1 = (2.0 * L - 1.0) * inv
         A0 = -(2.0 * L - 1.0) * mn / (np.maximum(L - 1.0, 1.0) * L) * inv
         B = a_of(L - 1.0) * inv
-    return tuple(torch.as_tensor(t, device=device).to(dtype) for t in (A1, A0, B))
+    return tuple(tracing.upload("wigner.plain", t, device).to(dtype)
+                 for t in (A1, A0, B))
 
 
 def _sorted_lanes(ms, ns):
@@ -388,7 +394,7 @@ def _unsort(outs, order, device):
     """Undo the lane permutation of :func:`_sorted_lanes` on the last axis."""
     if order is None:
         return outs
-    inv = torch.as_tensor(np.argsort(order), device=device)
+    inv = tracing.upload("wigner.plain", np.argsort(order), device)
     return [o.index_select(-1, inv) for o in outs]
 
 
@@ -404,7 +410,7 @@ def _folded_scan(ms, ns, x, logch, logsh, lmax, Fa, Fb, split, x_lo=None):
     ms, ns, j0, order = _sorted_lanes(ms, ns)
     device = Fa.device
     if order is not None:
-        idx = torch.as_tensor(order, device=device)
+        idx = tracing.upload("wigner.plain", order, device)
         Fa = Fa.index_select(-1, idx)
         Fb = Fb.index_select(-1, idx)
     Fa = Fa.resolve_conj().resolve_neg()
@@ -445,13 +451,14 @@ def _folded_synth(ms, ns, x, logch, logsh, lmax, a, aS, x_lo=None):
     ms, ns, j0, order = _sorted_lanes(ms, ns)
     device = a.device
     if order is not None:
-        idx = torch.as_tensor(order, device=device)
+        idx = tracing.upload("wigner.plain", order, device)
         a = a.index_select(-1, idx)
         aS = aS.index_select(-1, idx)
     dtype = a.real.dtype
     ells = np.arange(lmax + 1, dtype=np.float64)
-    norm = torch.as_tensor(np.sqrt((2.0 * ells + 1.0) * (0.25 / math.pi)),
-                           device=device).to(dtype)[:, None, None]
+    norm = tracing.upload("wigner.plain",
+                          np.sqrt((2.0 * ells + 1.0) * (0.25 / math.pi)),
+                          device).to(dtype)[:, None, None]
     ar = torch.view_as_real(a.resolve_conj().resolve_neg()) * norm
     aSr = torch.view_as_real(aS.resolve_conj().resolve_neg()) * norm
     batch = a.shape[:-2]
@@ -514,7 +521,8 @@ def lambda_synthesis_scan_folded(ms, ns, x, logch, logsh, lmax, alm,
     almP = _swap_blocks(alm) if cross else alm
     GN, S = _folded_synth(ms, ns, x, logch, logsh, lmax, alm, almP, x_lo)
     GS = _swap_blocks(S) if cross else S
-    msign = torch.as_tensor(_msign(ms), dtype=GN.real.dtype, device=GN.device)
+    msign = tracing.upload("wigner.plain", _msign(ms), GN.device,
+                           GN.real.dtype)
     return GN, GS * msign
 
 
@@ -531,7 +539,7 @@ def _lane_sums(ms, ns, x, logch, logsh, lmax, Fw):
     ms, ns, j0, order = _sorted_lanes(ms, ns)
     device = Fw.device
     if order is not None:
-        Fw = Fw.index_select(-1, torch.as_tensor(order, device=device))
+        Fw = Fw.index_select(-1, tracing.upload("wigner.plain", order, device))
     dtype = Fw.real.dtype
     Fr = torch.view_as_real(Fw.resolve_conj().resolve_neg())
     rings = x.shape
@@ -574,10 +582,11 @@ def lambda_power_scan(ms, ns, x, logch, logsh, lmax, Fw, weights):
     never held for more than one l.  ``weights``: (K, lanes) real.
     Returns (..., K, lmax+1) real.
     """
-    w = torch.as_tensor(np.asarray(weights, np.float64), device=Fw.device)
+    w = tracing.upload("wigner.plain", np.asarray(weights, np.float64),
+                       Fw.device)
     order, rows = _lane_sums(ms, ns, x, logch, logsh, lmax, Fw)
     if order is not None:
-        w = w[:, torch.as_tensor(order, device=Fw.device)]
+        w = w[:, tracing.upload("wigner.plain", order, Fw.device)]
     w = w.to(Fw.real.dtype)
     out = torch.zeros(Fw.shape[:-2] + (w.shape[0], lmax + 1),
                       dtype=Fw.real.dtype, device=Fw.device)
@@ -680,7 +689,8 @@ def lambda_synthesis_scan(ms, ns, x, logch, logsh, lmax, alm):
     ms, ns, j0, order = _sorted_lanes(ms, ns)
     device = alm.device
     if order is not None:
-        alm = alm.index_select(-1, torch.as_tensor(order, device=device))
+        alm = alm.index_select(-1, tracing.upload("wigner.plain", order,
+                                                  device))
     dtype = alm.real.dtype
     ar = torch.view_as_real(alm.resolve_conj().resolve_neg())
     G = torch.zeros(alm.shape[:-2] + (x.shape[0], ms.size, 2), dtype=dtype,
@@ -711,6 +721,7 @@ def wigner_table(m, n, x, logch, logsh, lmax):
     return out
 
 
+@tracing.spanned("wigner.wigner_table_host")
 def wigner_table_host(m, n, theta, lmax):
     """Host-f64 Wigner-d table d^l_{-m,-n}(theta), shape (lmax+1, nr).
 
@@ -760,6 +771,7 @@ def wigner_table_host(m, n, theta, lmax):
     return out
 
 
+@tracing.spanned("wigner.legendre_sum_host")
 def legendre_sum_host(coeffs, x):
     """Host-f64 sum_l coeffs[l] P_l(x) via the streaming recurrence.
 

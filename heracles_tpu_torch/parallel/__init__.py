@@ -37,6 +37,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import tracing
 from ..devicemap import DeviceMap
 from ..healpix import npix2nside, nside2npix
 from ..ops import sht
@@ -129,10 +130,10 @@ def example_batch(mesh, *, nside=16, lmax=24, seed=0, spin2=False):
     rng = np.random.default_rng(seed)
     dev = mesh.devices.flat[0]
     maps = rng.normal(size=(nbins, nside2npix(nside))).astype(np.float32)
-    out = (torch.as_tensor(maps, device=dev),)
+    out = (tracing.upload("parallel.example_batch", maps, dev),)
     if spin2:
         qu = rng.normal(size=(nbins, 2, nside2npix(nside))).astype(np.float32)
-        out += (torch.as_tensor(qu, device=dev),)
+        out += (tracing.upload("parallel.example_batch", qu, dev),)
     return out
 
 
@@ -220,6 +221,15 @@ def _check_engine(engine):
             "device picks the path); only 'auto' is accepted")
 
 
+def _moved(site, t, device):
+    """``t`` on ``device``; a copy from the host to a card counted at
+    ``site``."""
+    if not t.is_cuda:
+        tracing.copied(site, "h2d", device)
+        tracing.synced(site, device)
+    return t.to(device)
+
+
 def _whole(a):
     """A whole input as a tensor: a DeviceMap's, a tensor where it lies,
     numpy on the host (each shard's block is moved to its device)."""
@@ -248,6 +258,7 @@ def _m_block(lmax, n_m):
     return -(-nm_pad // (n_m * m_chunk)) * m_chunk
 
 
+@tracing.spanned("parallel.map2alm_sharded")
 def map2alm_sharded(mesh, maps, lmax, *, weights="ring", spin=0,
                     engine="auto", dd=None):
     """Sharded analysis: bins over "batch", harmonic orders over "m".
@@ -270,7 +281,8 @@ def map2alm_sharded(mesh, maps, lmax, *, weights="ring", spin=0,
     w = sht._weights_arr(nside, weights)
     blocks = _batch_blocks(maps, nb)
     devices = list(mesh.devices.flat)
-    local = [blocks[i // n_m].to(d) for i, d in enumerate(devices)]
+    local = [_moved("parallel.map2alm_sharded", blocks[i // n_m], d)
+             for i, d in enumerate(devices)]
     parts = [sht._map2alm_block(m, nside, lmax, (i % n_m) * per, per, spin,
                                 w, dd) for i, m in enumerate(local)]
     return _assemble(mesh, parts, maps.shape[0])
@@ -316,7 +328,9 @@ def alm2map_sharded(mesh, alms, nside, *, lmax=None, spin=0, engine="auto",
         alms = torch.nn.functional.pad(alms, (0, pad))
     blocks = _batch_blocks(alms, nb)
     devices = list(mesh.devices.flat)
-    local = [blocks[i // n_m][..., (i % n_m) * per:(i % n_m + 1) * per].to(d)
+    local = [_moved("parallel.alm2map_sharded",
+                    blocks[i // n_m][..., (i % n_m) * per:(i % n_m + 1) * per],
+                    d)
              for i, d in enumerate(devices)]
     Gs = [sht._synthesis_block(a, nside, lmax, spin, dd, (i % n_m) * per)
           for i, a in enumerate(local)]
@@ -332,6 +346,7 @@ def alm2map_sharded(mesh, alms, nside, *, lmax=None, spin=0, engine="auto",
                        dest=mesh.devices.flat[0])[: alms.shape[0]]
 
 
+@tracing.spanned("parallel.pipeline_step")
 def pipeline_step(mesh, maps, lmax, maps2=None, *, engine="auto", dd=None):
     """Full sharded pipeline step: maps -> alms -> all-pair spectra.
 
@@ -359,9 +374,10 @@ def pipeline_step(mesh, maps, lmax, maps2=None, *, engine="auto", dd=None):
     b2 = 0 if maps2 is None else maps2.shape[0] // nb
 
     devices = list(mesh.devices.flat)
-    local = [(maps[(i // n_m) * b0:(i // n_m + 1) * b0].to(d),
+    site = "parallel.pipeline_step"
+    local = [(_moved(site, maps[(i // n_m) * b0:(i // n_m + 1) * b0], d),
               None if maps2 is None
-              else maps2[(i // n_m) * b2:(i // n_m + 1) * b2].to(d))
+              else _moved(site, maps2[(i // n_m) * b2:(i // n_m + 1) * b2], d))
              for i, d in enumerate(devices)]
 
     planes = []
@@ -396,5 +412,6 @@ def pipeline_step(mesh, maps, lmax, maps2=None, *, engine="auto", dd=None):
     blocks = np.arange(nb)[:, None] * (b0 + 2 * b2)
     rows0 = (blocks + np.arange(b0)).ravel()
     rows2 = (blocks + b0 + np.arange(2 * b2)).ravel()
-    perm = torch.as_tensor(np.concatenate([rows0, rows2]), device=out.device)
+    perm = tracing.upload("parallel.pipeline_step",
+                          np.concatenate([rows0, rows2]), out.device)
     return out[perm][:, perm]

@@ -46,6 +46,7 @@ from itertools import combinations_with_replacement, product
 import numpy as np
 import torch
 
+from . import tracing
 from .core import TocDict, toc_match, update_metadata
 from .devicemap import DeviceMap
 from .ops import gram, sht
@@ -102,6 +103,9 @@ def rect_pair_grid(a1, a2, ms):
     batched, not paired: sample s's planes pair only with sample s's.
     """
     f64 = torch.float64
+    tracing.built("twopoint.pair_weights")
+    if not (isinstance(ms, torch.Tensor) and ms.device == a1.device):
+        tracing.copied("twopoint.pair_grid", "h2d", a1)
     # staged at once: the copy waits for no work queued on the card
     ms = torch.as_tensor(ms).to(a1.device, non_blocking=True)
     eps = torch.where(ms == 0, 1.0, 2.0).to(f64)
@@ -177,7 +181,10 @@ def _cross_grids(plan, nsamples, lmax, mesh=None, split=1):
         l1, l2 = _nlm2lmax(n1), _nlm2lmax(n2)
         lout = min(l1, l2) if lmax is None else min(lmax, l1, l2)
         if mesh is None:
-            grid = _pair_grid(s1, s2.to(s1.device), l1, l2, lout).cpu().numpy()
+            with tracing.span("twopoint.pair_grid"):
+                grid = _pair_grid(s1, s2.to(s1.device), l1, l2, lout)
+            with tracing.span("twopoint.to_host"):
+                grid = tracing.to_host("twopoint.to_host", grid)
         else:
             devices = list(mesh.devices.flat)
             b1 = s1.tensor_split(len(devices), dim=split)
@@ -186,9 +193,12 @@ def _cross_grids(plan, nsamples, lmax, mesh=None, split=1):
                   else [s2] * len(devices))
             local = [(a.to(d), b.to(d)) for a, b, d in zip(b1, b2, devices)
                      if a.shape[split]]
-            blocks = [_pair_grid(a, b, l1, l2, lout) for a, b in local]
-            grid = np.concatenate([b.cpu().numpy() for b in blocks],
-                                  axis=split)
+            with tracing.span("twopoint.pair_grid"):
+                blocks = [_pair_grid(a, b, l1, l2, lout) for a, b in local]
+            with tracing.span("twopoint.to_host"):
+                grid = np.concatenate(
+                    [tracing.to_host("twopoint.to_host", b) for b in blocks],
+                    axis=split)
         grids[n1, n2] = grid
     return grids, slot
 
@@ -268,6 +278,7 @@ def _debias_cl(cl, bias=None, md=None, *, inplace=False, device="cuda"):
     return cl
 
 
+@tracing.spanned("twopoint.angular_power_spectra")
 def angular_power_spectra(
     alms,
     alms2=None,
@@ -340,10 +351,12 @@ def angular_power_spectra(
               else mesh.devices.flat[0])
 
     # pass 3 (host): metadata, noise bias, Result assembly
-    for key, alm1, alm2 in plan:
-        cl = np.array(_grid_block(grids, slot, one[id(alm1)], one[id(alm2)])[0])
-        cls[key] = _pair_result(key, cl, _metadata(alm1), _metadata(alm2),
-                                debias, bins, weights, device)
+    with tracing.span("twopoint.results"):
+        for key, alm1, alm2 in plan:
+            cl = np.array(_grid_block(grids, slot, one[id(alm1)],
+                                      one[id(alm2)])[0])
+            cls[key] = _pair_result(key, cl, _metadata(alm1), _metadata(alm2),
+                                    debias, bins, weights, device)
 
     logger.info(
         "computed %d cl(s) in %s",
@@ -450,6 +463,7 @@ def angular_power_spectra_samples(
     )
 
 
+@tracing.spanned("twopoint.angular_power_spectra_sample_stacks")
 def angular_power_spectra_sample_stacks(
     stacks,
     metadata,
@@ -487,13 +501,15 @@ def angular_power_spectra_sample_stacks(
 
     # pass 3 (host): per-sample metadata, bias, Result assembly
     outs = [TocDict() for _ in range(nsamples)]
-    for key, a1, a2 in plan:
-        k1, k2, i1, i2 = key
-        block = _grid_block(grids, slot, a1, a2)
-        for s in range(nsamples):
-            outs[s][key] = _pair_result(key, np.array(block[s]),
-                                        metadata[k1, i1], metadata[k2, i2],
-                                        debias, bins, weights, device)
+    with tracing.span("twopoint.results"):
+        for key, a1, a2 in plan:
+            k1, k2, i1, i2 = key
+            block = _grid_block(grids, slot, a1, a2)
+            for s in range(nsamples):
+                outs[s][key] = _pair_result(key, np.array(block[s]),
+                                            metadata[k1, i1],
+                                            metadata[k2, i2], debias, bins,
+                                            weights, device)
     return outs
 
 
@@ -522,7 +538,9 @@ def _compute_device(values):
 def _leggauss(npoints):
     """Cached Gauss-Legendre rule: numpy's eigen-solve takes seconds at the
     production 4501 nodes, and every spin combination shares the rule."""
-    return np.polynomial.legendre.leggauss(npoints)
+    tracing.built("twopoint.leggauss")
+    with tracing.span("twopoint.leggauss"):
+        return np.polynomial.legendre.leggauss(npoints)
 
 
 def _gl_nodes(npoints):
@@ -542,17 +560,21 @@ def _mixmat_tables(l1max, l2max, s1, s2, npoints, device, block=None):
     weights change per call.  ``block=(i, n)``: only the nodes of block i
     of n (:func:`_node_block`).
     """
-    _, _, theta = _gl_nodes(npoints)
-    if block is not None:
-        theta = _node_block(theta, *block, fill=np.pi / 2)
+    tracing.built("twopoint.mixmat_tables")
+    with tracing.span("twopoint.mixmat_tables"):
+        _, _, theta = _gl_nodes(npoints)
+        if block is not None:
+            theta = _node_block(theta, *block, fill=np.pi / 2)
 
-    def upload(m, n, lmax):
-        table = wigner_table_host(m, n, theta, lmax)
-        return torch.as_tensor(np.ascontiguousarray(table.T), device=device)
+        def upload(m, n, lmax):
+            table = wigner_table_host(m, n, theta, lmax)
+            return tracing.upload("twopoint.mixmat_tables",
+                                  np.ascontiguousarray(table.T), device)
 
-    A = upload(s1, s2, l1max)
-    B = A if (s1, s2, l1max) == (-s1, -s2, l2max) else upload(-s1, -s2, l2max)
-    return A, B
+        A = upload(s1, s2, l1max)
+        B = (A if (s1, s2, l1max) == (-s1, -s2, l2max)
+             else upload(-s1, -s2, l2max))
+        return A, B
 
 
 def _node_block(a, i, n, fill=0.0):
@@ -583,6 +605,7 @@ def _mixmat_operands(cl3, l1max, l2max, s1, s2, eb, device, block=None,
     if block is not None:
         us = [_node_block(u, *block) for u in us]
     # staged at once: the copy waits for no work queued on the card
+    tracing.copied("twopoint.mixmat_operands", "h2d", device, len(us))
     return A, B, [torch.as_tensor(u).to(device, non_blocking=True)
                   for u in us]
 
@@ -636,8 +659,8 @@ def _mixmat_gl_dispatch(cl3, l1max, l2max, s1, s2, eb, device, mesh=None):
                     dest=device)
               for k in range(len(weights))]
     ells2 = np.arange(l2max + 1, dtype=np.float64)
-    pref = torch.as_tensor(2 * np.pi * (2 * ells2 + 1) / (4 * np.pi),
-                           device=device)
+    pref = tracing.upload("twopoint.mixmat",
+                          2 * np.pi * (2 * ells2 + 1) / (4 * np.pi), device)
     if not eb:
         M = Gs[0] * pref
     else:
@@ -647,7 +670,7 @@ def _mixmat_gl_dispatch(cl3, l1max, l2max, s1, s2, eb, device, mesh=None):
         M_plus = torch.where(even, G_e, G_o) * pref
         M_minus = torch.where(even, G_o, G_e) * pref
         M = torch.stack([M_plus, M_minus, M_plus - M_minus])
-    return lambda: M.cpu().numpy()
+    return lambda: tracing.to_host("twopoint.mixmat", M)
 
 
 def _mixmat_dispatch(cl, *, l1max, l2max, l3max, spin, eb, device,
@@ -657,7 +680,7 @@ def _mixmat_dispatch(cl, *, l1max, l2max, l3max, spin, eb, device,
     Every cl dtype is computed in float64 (float32 converts exactly) and
     the matrix is float64, as both paths of the reference return it.
     """
-    cl = _tensor(cl).cpu().numpy()
+    cl = tracing.to_host("twopoint.mixmat", _tensor(cl))
     if l3max is not None:
         cl = cl[..., : l3max + 1]
     lmax_default = cl.shape[-1] - 1
@@ -669,6 +692,7 @@ def _mixmat_dispatch(cl, *, l1max, l2max, l3max, spin, eb, device,
                                mesh)
 
 
+@tracing.spanned("twopoint.mixmat")
 def mixmat(cl, *, l1max=None, l2max=None, l3max=None, spin=(0, 0),
            device="cuda", mesh=None):
     """MASTER mixing matrix M[l1, l2] for a (possibly spin-weighted) pair.
@@ -684,6 +708,7 @@ def mixmat(cl, *, l1max=None, l2max=None, l3max=None, spin=(0, 0),
     )()
 
 
+@tracing.spanned("twopoint.mixmat_eb")
 def mixmat_eb(cl, *, l1max=None, l2max=None, l3max=None, spin=(2, 2),
               device="cuda", mesh=None):
     """E/B mixing-matrix blocks (EE<->EE, EE<->BB, EB<->EB) for spin pairs.
@@ -709,6 +734,7 @@ def _fields_device(fields):
     return torch.device("cuda")
 
 
+@tracing.spanned("twopoint.mixing_matrices")
 def mixing_matrices(
     fields,
     cls,
@@ -787,6 +813,7 @@ def mixing_matrices(
     return out
 
 
+@tracing.spanned("twopoint.pinv")
 def _pinv_batch(a, rcond, device):
     """Batched rcond-cut pseudo-inverse of a host (k, n, m) float64 stack.
 
@@ -794,8 +821,8 @@ def _pinv_batch(a, rcond, device):
     values relative to the largest, which is what ``rcond`` means to the
     reference.  The spin-2 blocks (M+, M-, EB) invert independently.
     """
-    a = torch.as_tensor(np.array(a, np.float64), device=device)
-    return torch.linalg.pinv(a, rtol=rcond).cpu().numpy()
+    a = tracing.upload("twopoint.pinv", np.array(a, np.float64), device)
+    return tracing.to_host("twopoint.pinv", torch.linalg.pinv(a, rtol=rcond))
 
 
 def invert_mixing_matrix(M, rcond=1e-5, progress=None, *, device="cuda"):

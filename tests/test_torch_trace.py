@@ -4,8 +4,10 @@
 
 The summariser is held to hand-built traces whose busy time, gaps and
 labels are known exactly (the sums differ from the hand values by float
-rounding only: ``rel=1e-12``).  The stage labels must leave every result
-bit for bit unchanged and restore every attribute.  The profiler's stages
+rounding only: ``rel=1e-12``).  A capture must leave every result bit for
+bit unchanged, each op must enter the program's spans the tool lists for
+it, and every span of the program must be entered by an op or by a test
+here.  The profiler's stages
 are held to ``sht.map2alm`` bit for bit and, in float64, to the JAX
 package's ``map2alm`` and the JAX tool's C(l) at ``atol = 1e-10 * scale``
 (tests/test_torch_ops.py's bar).  No card here: the tools' ``main()``
@@ -289,14 +291,22 @@ def test_kernel_label(name, label):
                                     else None)
 
 
+def _captured(tmp_path, fn, name="op"):
+    """The Chrome trace of one rep of ``fn`` captured by the tool on the
+    CPU."""
+    path = tmp_path / f"{name}.json"
+    ttc.capture(fn, 1, "cpu", path)
+    return ttc.load_trace(path)
+
+
 def test_cpu_trace_has_no_device_events(tmp_path):
     """A real torch.profiler trace of the spin-0 op on the CPU."""
     fn = ttc.build_op("spin0", 8, 12, "cpu")
     fn()
     path = tmp_path / "spin0.json"
-    stages = ttc.capture(fn, 2, "cpu", path)
-    assert stages.dead(ttc.OP_LABELS["spin0"]) == []
+    ttc.capture(fn, 2, "cpu", path)
     trace = ttc.load_trace(path)
+    assert ttc.dead(ttc.spans_in(trace), ttc.OP_LABELS["spin0"]) == []
     reps = [e for e in trace["traceEvents"] if e.get("name") == REP]
     assert len(reps) == 2
     with pytest.raises(ValueError, match="no device events"):
@@ -311,7 +321,9 @@ def _rng_map(nside, spin, dtype=np.float64, seed=1):
 
 
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
-def test_stage_labels_leave_results_unchanged(dtype):
+def test_spans_leave_results_unchanged(dtype, tmp_path):
+    """The same calls outside and inside the tool's capture: equal results,
+    bit for bit, and the capture's trace holds the calls' spans."""
     import heracles_tpu_torch as th
 
     nside, lmax = 8, 12
@@ -329,80 +341,105 @@ def test_stage_labels_leave_results_unchanged(dtype):
                 mapper.transform(m2, spin=2).array]
 
     want = run()
-    with ttc.StageLabels() as stages:
-        got = run()
-    for g, w in zip(got, want):
+    got = []
+    spans = ttc.spans_in(_captured(tmp_path, lambda: got.extend(run())))
+    for g, w in zip(got, want, strict=True):
         assert g.dtype == w.dtype and torch.equal(g, w)
     # two in map2alm(iterations=2), one direct, two in each mapper transform
-    assert stages.entered["sht.alm2map"] == 2 + 1 + 2 * 2
-    assert stages.entered["mappers.HealpixMapper.transform"] == 2
+    assert spans["sht.alm2map"] == 2 + 1 + 2 * 2
+    assert spans["mappers.HealpixMapper.transform"] == 2
 
 
-def _bindings():
-    """id of every global of the package's modules and of the labelled
-    class attribute, by (module, name)."""
-    from heracles_tpu_torch.mappers import HealpixMapper
+def _program_spans():
+    """Every span name written in the program's source (``tracing.span`` /
+    ``tracing.spanned`` with a literal name)."""
+    names = set()
+    pkg = os.path.join(REPO, "heracles_tpu_torch")
+    for root, _, files in os.walk(pkg):
+        for f in files:
+            if f.endswith(".py"):
+                with open(os.path.join(root, f)) as fh:
+                    names |= set(re.findall(
+                        r'tracing\.span(?:ned)?\(\s*"([\w.]+)"', fh.read()))
+    return names
 
-    out = {(m.__name__, k): id(v) for m in ttc._package_modules()
-           for k, v in vars(m).items()}
-    out["HealpixMapper", "transform"] = id(vars(HealpixMapper)["transform"])
-    return out
+
+def _spans(trace):
+    """(name, start, end) of each span of the trace, in start order."""
+    return sorted((e["name"], float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                  for e in trace["traceEvents"] if e.get("ph") == "X"
+                  and e.get("cat") == "user_annotation")
 
 
-def test_stage_labels_restore_on_exit_and_exception():
+def test_spans_nest_across_an_exception(tmp_path, monkeypatch):
+    """A call that raises inside three nested spans: each span is closed
+    in the trace, inside its parent, and the next call's spans are not
+    inside them."""
     import heracles_tpu_torch as th
-    from heracles_tpu_torch import mapping
+    from heracles_tpu_torch.ops import sht_kernels
 
-    ttc.StageLabels().__enter__().__exit__(None, None, None)  # load modules
-    before = _bindings()
-    stages = ttc.StageLabels()
-    with stages:
-        assert hasattr(sht.map2alm, "__wrapped__")
-        assert th.map_catalogs is mapping.map_catalogs  # the alias too
-        assert hasattr(mapping.map_catalogs, "__wrapped__")
-    assert _bindings() == before
-    with pytest.raises(RuntimeError, match="inside"):
-        with ttc.StageLabels():
-            raise RuntimeError("inside")
-    assert _bindings() == before
-    # a stage that does not exist: the ones patched before it are undone
-    bad = ttc.StageLabels(ttc.STAGES[:5] + (
-        ("heracles_tpu_torch.ops.sht", "no_such_stage"),))
-    with pytest.raises(KeyError):
-        bad.__enter__()
-    assert _bindings() == before
+    mapper = th.HealpixMapper(8, 12, device="cpu")
+    m = _rng_map(8, 0)
+
+    def boom(*args, **kwargs):
+        raise RuntimeError("inside the kernel's span")
+
+    def fn():
+        with monkeypatch.context() as mp:
+            mp.setattr(sht_kernels, "_run", boom)
+            with pytest.raises(RuntimeError, match="kernel's span"):
+                mapper.transform(m)
+        mapper.transform(m)
+
+    spans = _spans(_captured(tmp_path, fn))
+    names = ("mappers.HealpixMapper.transform", "sht.map2alm",
+             "sht_kernels.analysis_spin0_folded")
+    # (start, end) of each call's span of each name, the failed call first
+    calls = {n: [(a, b) for name, a, b in spans if name == n] for n in names}
+    assert all(len(v) == 2 for v in calls.values()), calls
+    failed, done = zip(*(calls[n] for n in names))
+    for outer, inner in zip(failed, failed[1:]):
+        assert outer[0] <= inner[0] <= inner[1] <= outer[1]
+    # every span of the next call starts after the failed call's ended
+    assert min(a for a, _ in done) >= failed[0][1]
 
 
 OP_KW = {"pipeline": dict(rows=2000), "dices": dict(regions=3)}
 
 
 @pytest.mark.parametrize("op", ttc.OPS)
-def test_op_enters_its_labels(op):
+def test_op_enters_its_spans(op, tmp_path):
     lmax = 8 if op == "dices" else 12
     fn = ttc.build_op(op, 8, lmax, "cpu", **OP_KW.get(op, {}))
     fn()
-    with ttc.StageLabels() as stages:
-        out = fn()
-    assert np.isfinite(out)
-    assert stages.dead(ttc.OP_LABELS[op]) == []
+    out = []
+    spans = ttc.spans_in(_captured(tmp_path, lambda: out.append(fn()), op))
+    assert np.isfinite(out[0])
+    assert ttc.dead(spans, ttc.OP_LABELS[op]) == []
 
 
-def test_labels_off_the_ops_are_entered():
-    """The stages no op runs: the inversion's pinv and the sharded
-    analysis."""
+def test_spans_off_the_ops_are_entered(tmp_path):
+    """The spans no op runs: the inversion's pinv, the sharded analysis,
+    the two mixing-matrix entry points and the pixel-window cache lookup
+    (an nside above 32); with the ops' spans they are every span of the
+    program."""
     rng = np.random.default_rng(2)
-    mm = twopoint.mixmat(np.abs(rng.normal(size=9)), l1max=8, l2max=8,
-                         l3max=8, device="cpu")
+    cl = np.abs(rng.normal(size=9))
     mesh = parallel.make_mesh(2, m_axis=2, devices=["cpu"] * 2)
     maps = _rng_map(8, 0)[None]
-    with ttc.StageLabels() as stages:
+
+    def fn():
+        mm = twopoint.mixmat(cl, l1max=8, l2max=8, l3max=8, device="cpu")
+        twopoint.mixmat_eb(cl, l1max=8, l2max=8, l3max=8, device="cpu")
         twopoint._pinv_batch(mm[None], 1e-5, "cpu")
         parallel.map2alm_sharded(mesh, maps, 12)
-    assert stages.dead(["twopoint._pinv_batch",
-                        "parallel.map2alm_sharded"]) == []
-    every = set().union(*map(set, ttc.OP_LABELS.values()), {
-        "twopoint._pinv_batch", "parallel.map2alm_sharded"})
-    assert every == set(ttc.StageLabels().labels())
+        sht.pixel_window(64, 8)
+
+    off = ["twopoint.pinv", "parallel.map2alm_sharded", "twopoint.mixmat",
+           "twopoint.mixmat_eb", "pixwin.find_cached"]
+    assert ttc.dead(ttc.spans_in(_captured(tmp_path, fn)), off) == []
+    every = set().union(*map(set, ttc.OP_LABELS.values()), off)
+    assert every == _program_spans()
 
 
 @pytest.mark.parametrize("spin", [0, 2])

@@ -3,12 +3,12 @@
 Twin of ``tools/trace_capture.py`` for ``heracles_tpu_torch``: runs one op
 once untraced (build and warm-up), then ``--reps`` times under
 ``torch.profiler.profile(activities=[CPU, CUDA])``, each rep inside the
-tool's own annotation and ending in ``torch.cuda.synchronize()``, with
-the port's stages labelled from outside the package (:class:`StageLabels`).
-It prints the device time per op name (ms per rep), the launches, the
-device's busy and idle time over the reps' windows, and the idle gaps
-summed by the host work that made the card wait, and appends one record
-per op to ``tools/torch_trace_capture.json``.
+tool's own annotation and ending in ``torch.cuda.synchronize()``; the
+port's own spans (:mod:`heracles_tpu_torch.tracing`) label its stages in
+the trace.  It prints the device time per op name (ms per rep), the
+launches, the device's busy and idle time over the reps' windows, and
+the idle gaps summed by the host work that made the card wait, and
+appends one record per op to ``tools/torch_trace_capture.json``.
 
     python3 tools/torch_trace_capture.py
         [--op spin0|spin2|synthesis|transform|pipeline|dices|mesh|gram]
@@ -49,7 +49,6 @@ from __future__ import annotations
 import argparse
 import bisect
 import collections
-import functools
 import gzip
 import json
 import os
@@ -91,76 +90,38 @@ KERNEL_TABLE = {
 _KERNEL_RE = re.compile(r"(?<![\w])(" + "|".join(
     sorted(KERNEL_TABLE, key=len, reverse=True)) + r")(<[^()]*>)?")
 
-# (module, attribute) of the stages labelled during a trace: the label is
-# the module's last name and the attribute.  Module attributes are also
-# patched wherever another of the package's modules bound the same object.
-STAGES = (
-    ("heracles_tpu_torch.ops.ringfft", "ring_analysis"),
-    ("heracles_tpu_torch.ops.ringfft", "ring_synthesis"),
-    ("heracles_tpu_torch.ops.sht", "map2alm"),
-    ("heracles_tpu_torch.ops.sht", "_map2alm_once"),
-    ("heracles_tpu_torch.ops.sht", "_map2alm_block"),
-    ("heracles_tpu_torch.ops.sht", "_folded_inputs"),
-    ("heracles_tpu_torch.ops.sht", "alm2map"),
-    ("heracles_tpu_torch.ops.sht", "_synthesis_block"),
-    ("heracles_tpu_torch.ops.sht_kernels", "analysis_spin0_folded"),
-    ("heracles_tpu_torch.ops.sht_kernels", "analysis_pair_folded"),
-    ("heracles_tpu_torch.ops.sht_kernels", "synthesis_spin0_folded"),
-    ("heracles_tpu_torch.ops.sht_kernels", "synthesis_pair_folded"),
-    ("heracles_tpu_torch.ops.gram", "gram"),
-    ("heracles_tpu_torch.mappers", "HealpixMapper.transform"),
-    ("heracles_tpu_torch.mapping", "map_catalogs"),
-    ("heracles_tpu_torch.mapping", "transform"),
-    ("heracles_tpu_torch.twopoint", "angular_power_spectra"),
-    ("heracles_tpu_torch.twopoint", "angular_power_spectra_sample_stacks"),
-    ("heracles_tpu_torch.twopoint", "mixing_matrices"),
-    ("heracles_tpu_torch.twopoint", "_leggauss"),
-    ("heracles_tpu_torch.twopoint", "_mixmat_tables"),
-    ("heracles_tpu_torch.twopoint", "_pinv_batch"),
-    ("heracles_tpu_torch.ops.wigner", "wigner_table_host"),
-    ("heracles_tpu_torch.ops.wigner", "legendre_sum_host"),
-    ("heracles_tpu_torch.dices.jackknife", "compute_jk_alms"),
-    ("heracles_tpu_torch.dices.jackknife", "compute_jk_cls_from_alms"),
-    ("heracles_tpu_torch.dices.jackknife", "jackknife_fsky"),
-    ("heracles_tpu_torch.parallel", "map2alm_sharded"),
-    ("heracles_tpu_torch.parallel", "pipeline_step"),
-)
-
-
-def stage_label(module, attr):
-    return f"{module.rsplit('.', 1)[-1]}.{attr}"
-
-
-# the labels each op must enter (the others it may)
-_ANALYSIS = ("ringfft.ring_analysis", "sht._map2alm_block",
-             "sht._folded_inputs")
+# the program's spans (heracles_tpu_torch.tracing) that each op must enter
+# (the others it may)
+_ANALYSIS = ("ringfft.ring_analysis", "sht.fold")
 OP_LABELS = {
-    "spin0": ("sht.map2alm", "sht._map2alm_once", *_ANALYSIS,
+    "spin0": ("sht.map2alm", *_ANALYSIS,
               "sht_kernels.analysis_spin0_folded"),
-    "spin2": ("sht.map2alm", "sht._map2alm_once", *_ANALYSIS,
+    "spin2": ("sht.map2alm", *_ANALYSIS,
               "sht_kernels.analysis_pair_folded"),
-    "synthesis": ("sht.alm2map", "sht._synthesis_block",
+    "synthesis": ("sht.alm2map", "sht.unpack_alm", "sht.fold",
                   "ringfft.ring_synthesis",
                   "sht_kernels.synthesis_spin0_folded"),
     "transform": ("mappers.HealpixMapper.transform", "sht.map2alm",
-                  "sht._map2alm_once", *_ANALYSIS, "sht.alm2map",
-                  "sht._synthesis_block", "ringfft.ring_synthesis",
+                  *_ANALYSIS, "sht.alm2map", "ringfft.ring_synthesis",
+                  "sht.pack_alm", "mappers.deconvolve",
                   "sht_kernels.analysis_spin0_folded",
                   "sht_kernels.analysis_pair_folded",
                   "sht_kernels.synthesis_spin0_folded",
                   "sht_kernels.synthesis_pair_folded"),
-    "pipeline": ("mapping.map_catalogs", "mapping.transform",
+    "pipeline": ("mapping.map_catalogs", "catalog.page", "mapping.transform",
                  "mappers.HealpixMapper.transform", "sht.map2alm",
-                 "sht._map2alm_once", *_ANALYSIS,
+                 *_ANALYSIS, "sht.pack_alm", "mappers.deconvolve",
                  "sht_kernels.analysis_spin0_folded",
                  "sht_kernels.analysis_pair_folded",
-                 "twopoint.angular_power_spectra", "twopoint.mixing_matrices",
-                 "twopoint._leggauss", "twopoint._mixmat_tables",
-                 "wigner.wigner_table_host",
+                 "twopoint.angular_power_spectra", "twopoint.pair_grid",
+                 "sht.unpack_alm", "twopoint.to_host", "twopoint.results",
+                 "twopoint.mixing_matrices", "twopoint.leggauss",
+                 "twopoint.mixmat_tables", "wigner.wigner_table_host",
                  "wigner.legendre_sum_host", "gram.gram"),
     "dices": ("jackknife.compute_jk_alms", "jackknife.compute_jk_cls_from_alms",
               "jackknife.jackknife_fsky",
               "twopoint.angular_power_spectra_sample_stacks",
+              "twopoint.pair_grid", "twopoint.to_host", "twopoint.results",
               "mappers.HealpixMapper.transform", "sht.map2alm", *_ANALYSIS,
               "sht_kernels.analysis_spin0_folded",
               "sht_kernels.analysis_pair_folded"),
@@ -172,98 +133,18 @@ OP_LABELS = {
 OPS = tuple(OP_LABELS)
 
 
-# -- stage labels ----------------------------------------------------------
-
-class StageLabels:
-    """Wrap the listed stages in ``torch.profiler.record_function(label)``
-    for the length of a ``with`` block, then restore every attribute.
-
-    ``stages``: (module, attribute) pairs, the attribute possibly a
-    ``Class.method``.  A module attribute is patched in its module's
-    globals, so that calls by bare name inside it see the wrapper, and in
-    every loaded module of the package that bound the same object.
-    ``entered`` counts each label's calls inside the block; a label never
-    entered is dead (:meth:`dead`): its target was reached by another
-    binding.  The wrappers pass arguments and results through unchanged.
-    """
-
-    def __init__(self, stages=STAGES):
-        self.stages = tuple(stages)
-        self.entered = collections.Counter()
-        self._saved = []
-        self._originals = {}  # id(wrapper): (wrapper, original)
-
-    def _wrap(self, fn, label):
-        @functools.wraps(fn)
-        def wrapper(*args, **kwargs):
-            self.entered[label] += 1
-            with torch.profiler.record_function(label):
-                return fn(*args, **kwargs)
-        self._originals[id(wrapper)] = (wrapper, fn)
-        return wrapper
-
-    def _patch(self, owner, name, wrapper):
-        self._saved.append((owner, name, vars(owner)[name]))
-        setattr(owner, name, wrapper)
-
-    def __enter__(self):
-        import importlib
-
-        # every module first, so that none is imported while another's
-        # attributes are patched
-        targets = []
-        for module, attr in self.stages:
-            owner = importlib.import_module(module)
-            *path, name = attr.split(".")
-            for part in path:
-                owner = getattr(owner, part)
-            targets.append((stage_label(module, attr), owner, name, not path))
-        try:
-            for label, owner, name, is_module in targets:
-                fn = vars(owner)[name]
-                wrapper = self._wrap(fn, label)
-                self._patch(owner, name, wrapper)
-                if not is_module:
-                    continue
-                for other in _package_modules():
-                    if other is owner:
-                        continue
-                    for key, value in list(vars(other).items()):
-                        if value is fn:
-                            self._patch(other, key, wrapper)
-        except BaseException:
-            self._restore()
-            raise
-        return self
-
-    def _restore(self):
-        while self._saved:
-            owner, name, value = self._saved.pop()
-            setattr(owner, name, value)
-        # a module first imported inside the block may have bound a wrapper
-        for other in _package_modules():
-            for key, value in list(vars(other).items()):
-                hit = self._originals.get(id(value))
-                if hit is not None and hit[0] is value:
-                    setattr(other, key, hit[1])
-        self._originals.clear()
-
-    def __exit__(self, *exc):
-        self._restore()
-        return False
-
-    def labels(self):
-        return [stage_label(m, a) for m, a in self.stages]
-
-    def dead(self, expected=None):
-        """The labels of ``expected`` (default: all) never entered."""
-        return [lab for lab in (self.labels() if expected is None else expected)
-                if not self.entered[lab]]
+def spans_in(trace):
+    """How often each span (a ``user_annotation`` event) is in a Chrome
+    trace, by name."""
+    return collections.Counter(
+        e["name"] for e in trace.get("traceEvents", [])
+        if e.get("ph") == "X" and e.get("cat") == "user_annotation")
 
 
-def _package_modules():
-    return [m for name, m in list(sys.modules.items())
-            if m is not None and name.startswith("heracles_tpu_torch")]
+def dead(spans, expected):
+    """The names of ``expected`` that ``spans`` (:func:`spans_in`'s count)
+    does not hold: spans the op should have entered."""
+    return [name for name in expected if not spans[name]]
 
 
 # -- the summariser: pure functions over a Chrome-trace dict ---------------
@@ -693,8 +574,7 @@ def _pipeline_op(nside, lmax, dev, rows):
         catalogs[i].visibility = vis
 
     # a cold step, as phase 3 runs it: the host caches of the quadrature
-    # rule and the Wigner tables emptied (through the functions themselves,
-    # not the labels' wrappers)
+    # rule and the Wigner tables emptied
     caches = (twopoint._leggauss, twopoint._mixmat_tables)
 
     def run():
@@ -734,22 +614,19 @@ def _dices_op(dev, nside, lmax, regions):
 
 def capture(fn, reps, device, path, *, stack=False):
     """Run ``fn`` ``reps`` times under the profiler, each rep inside the
-    tool's annotation and ending in a synchronisation, with every stage
-    labelled; writes the Chrome trace to ``path`` and returns the
-    :class:`StageLabels`."""
+    tool's annotation and ending in a synchronisation; the program's spans
+    join the trace on their own.  Writes the Chrome trace to ``path``."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     activities = [ProfilerActivity.CPU]
     if torch.device(device).type == "cuda":
         activities.append(ProfilerActivity.CUDA)
-    stages = StageLabels()
-    with stages, profile(activities=activities, with_stack=stack) as prof:
+    with profile(activities=activities, with_stack=stack) as prof:
         for _ in range(reps):
             with record_function(REP_LABEL):
                 fn()
                 _sync(device)
     prof.export_chrome_trace(str(path))
-    return stages
 
 
 def append_record(record):
@@ -795,14 +672,17 @@ def main(argv=None):
         nside, lmax = _chip_smoke().DICES_NSIDE, _chip_smoke().DICES_LMAX
     path = os.path.join(args.outdir, f"{args.op}_n{nside}_l{lmax}.trace.json")
     t0 = time.perf_counter()
-    stages = capture(fn, reps, "cuda", path, stack=args.stack)
+    capture(fn, reps, "cuda", path, stack=args.stack)
     t_trace = time.perf_counter() - t0
-    summary = summarise(load_trace(path), min_gap_us=args.min_gap_us)
-    dead = stages.dead(OP_LABELS[args.op])
+    trace = load_trace(path)
+    summary = summarise(trace, min_gap_us=args.min_gap_us)
+    spans = spans_in(trace)
+    del trace
+    missing = dead(spans, OP_LABELS[args.op])
     print(f"# {path} ({os.path.getsize(path)} bytes)")
     print(f"# card: {smi} | {kind}")
     print(report(summary, args.top))
-    print(f"# stage labels entered: {dict(stages.entered)}; dead: {dead}")
+    print(f"# spans in the trace: {dict(spans)}; dead: {missing}")
     record = dict(
         op=args.op, nside=nside, lmax=lmax, reps=reps,
         min_gap_us=args.min_gap_us, stack=args.stack, card=smi, kind=kind,
@@ -820,11 +700,11 @@ def main(argv=None):
         gaps=dict(list(summary["gaps"].items())[:args.top]),
         longest_gaps=summary["longest_gaps"],
         per_rep=summary["per_rep"],
-        entered=dict(stages.entered), dead=dead,
+        spans=dict(spans), dead=missing,
     )
     append_record(record)
-    if dead:
-        raise SystemExit(f"torch_trace_capture: dead stage labels {dead}")
+    if missing:
+        raise SystemExit(f"torch_trace_capture: dead spans {missing}")
 
 
 if __name__ == "__main__":
