@@ -29,7 +29,8 @@ with its seconds:
    visibility, 2 tomographic bins of 5e6 rows, nside 4096, lmax 3000,
    float32 maps, through ``map_catalogs`` -> ``transform`` ->
    ``angular_power_spectra`` -> ``mixing_matrices`` of the mask spectra,
-   with the kernels' launch counts over that run;
+   with the kernels' launch counts over that run (the ring analysis'
+   kernels held to exact counts: one analysis a map);
 4. bin 0's POS and SHE analyses at full size through each kernel and its
    plain version (times, agreement), the share of the spin-0 analysis'
    work on each of its paths (a diagnostic launch), and float32 against
@@ -145,7 +146,19 @@ with its seconds:
    n4096 / l3000, each with exact launch counts by (kernel, nb), no plain
    run, and bit for bit the same call with the syntheses' ``NB_SIZES``
    rows set to (1,); B3 and B4 at every ``nb`` on a stack of 8 at n1024 /
-   l1536 against their plain versions, timed beside their bounds.
+   l1536 against their plain versions, timed beside their bounds;
+15. the ring analysis (``ringfft.ring_analysis``: the kernels of
+   ``csrc/ringfft.cu`` around cuFFT) at the benchmark cell's shape, one
+   float32 map at nside 4096 with 3001 orders and the ring weights, on
+   one complex spin-2 map and on the second order block of a two-block
+   mesh (m0 > 0): each against its plain version (``ring_analysis_plain``,
+   the torch ops that ran on the card before the kernels) and their
+   float64 run, the kernels' float32 error at most 1.25 times the plain
+   version's; times (best of 3) beside the plain version's, the bound of
+   the maps in and F out and that of the kernels' own passes; the complex
+   map and the block no slower than their plain version; a warm call
+   builds and uploads nothing, and its launches are counted.  (Phase 3
+   holds the pipeline's launches of these kernels to exact counts.)
 
 Then a JSON line of the kernels (with each one's bound: the least time
 the card could take for the same work; the grouped launches of phase 9's
@@ -234,12 +247,18 @@ KERNELS = {
     "synthesis_pair_folded_comp": (
         "heracles_tpu_torch/csrc/sht_synthesis_pair.cu",
         "heracles_tpu/ops/pallas_sht.py:2501"),
+    # no Pallas kernel: the glue around the ring FFTs, which the JAX package
+    # leaves to XLA (its chirp spectra cached at heracles_tpu/ops/ringfft.py:220)
+    "ring_analysis": ("heracles_tpu_torch/csrc/ringfft.cu",
+                      "none (heracles_tpu/ops/ringfft.py:220, XLA)"),
 }
 SHT_NAMES = ("analysis_spin0_folded", "analysis_pair_folded",
              "synthesis_spin0_folded", "synthesis_pair_folded")
 # the kernels of the pipeline path (phase 3); the probe has its own path
 # (phase 6), synthesis its own (phase 7)
 PIPELINE_KERNELS = ("analysis_spin0_folded", "analysis_pair_folded", "gram")
+# the ring analysis' kernels (``ringfft.LAUNCHES``) on the pipeline path
+RING_KERNELS = ("ring_rows", "ring_spectrum", "ring_orders")
 SYNTHESIS_KERNELS = ("synthesis_spin0_folded", "synthesis_pair_folded")
 
 # Gram kernel vs plain: float64 sums in another order
@@ -2736,6 +2755,113 @@ def phase14(dev, smi, stack0):
     return path_by_nb, report
 
 
+def ring_bounds(nside, nm, m0, cdtype, complex_in, batch=1):
+    """(bound of the maps in and F out, bound of the kernels' passes), ms
+    at HBM's rate.  The first is the least the analysis could move: the
+    maps read once, F (and Fneg) written once.  The second counts this
+    design's own passes: a cap bucket's (rows, L) buffer written by the
+    rows kernel, read and written by each FFT and by the spectrum kernel,
+    and its first orders read by the orders kernel; the chirp spectra
+    (north rows) read once; the belt's spectrum written by its FFT and its
+    orders read."""
+    from heracles_tpu_torch.ops.ringfft import ring_plan
+
+    citem = torch.empty((), dtype=cdtype).element_size()
+    dirs = 2 if complex_in else 1
+    io = batch * 12 * nside ** 2 * (citem if complex_in else citem // 2)
+    io += batch * dirs * (4 * nside - 1) * nm * citem
+    passes = io
+    for b in ring_plan(nside, m0 + nm):
+        rows = b["rings"][1] - b["rings"][0]
+        passes += batch * dirs * rows * nm * citem  # the orders read
+        if b["belt"]:
+            width = b["L"] if complex_in else b["L"] // 2 + 1
+            passes += batch * rows * width * citem
+            continue
+        passes += 7 * batch * dirs * rows * b["L"] * citem
+        passes += rows * b["L"] * citem / 2  # a pair's table: its north rows
+    return io / HBM_BYTES_PER_S * 1e3, passes / HBM_BYTES_PER_S * 1e3
+
+
+def phase15(dev, smi):
+    """The ring analysis' kernels at the cell's shape, on a complex map and
+    on the second order block of a two-block mesh (m0 > 0) against their
+    plain version (the parent's torch ops on the card) and its float64
+    run; timed beside the plain version and the bounds, the complex map
+    and the block no slower than their plain version.  Returns the report
+    row of the float32 map."""
+    from heracles_tpu_torch import tracing
+    from heracles_tpu_torch.ops import ringfft, sht
+    from heracles_tpu_torch.parallel import _m_block
+
+    t = time.perf_counter()
+    npix = 12 * NSIDE ** 2
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(15)
+    w = sht._weights_on(NSIDE, "ring", dev)
+    spin0 = torch.randn((1, npix), generator=gen, device=dev)
+    qu = torch.randn((2, npix), generator=gen, device=dev)
+    spin2 = torch.complex(qu[0], qu[1])[None]
+    del qu
+    per = _m_block(LMAX, 2)
+    cases = (("spin-0 float32", spin0, 0, LMAX + 1),
+             ("spin-2 complex64", spin2, 0, LMAX + 1),
+             (f"spin-0 float32 block m0 {per}", spin0, per, per))
+    parts, rows = [], {}
+    for what, maps, m0, nm in cases:
+        complex_in = maps.is_complex()
+        outs = 2 if complex_in else 1
+        kw = dict(weight=w, m0=m0)
+        truth = ringfft.ring_analysis_plain(maps.to(torch.complex128 if complex_in
+                                                    else torch.float64),
+                                            NSIDE, nm, **kw)
+        want, plain_ms = best_ms(lambda: ringfft.ring_analysis_plain(
+            maps, NSIDE, nm, **kw))
+        got, ms = best_ms(lambda: ringfft.ring_analysis(maps, NSIDE, nm,
+                                                        **kw))
+        tracing.reset()
+        ringfft.ring_analysis(maps, NSIDE, nm, **kw)
+        torch.cuda.synchronize()
+        c = tracing.counts()
+        check(not [k for k in c["table_builds"] if k.startswith("ringfft.")]
+              and not [k for k, _ in c["host_copies"]
+                       if k.startswith("ringfft.")],
+              f"phase 15 {what}: a warm call built or uploaded {c}")
+        launches = dict(ringfft.LAUNCHES)
+        errs = []
+        for i in range(outs):
+            err = compare(got[i], want[i], *TOL[torch.complex64],
+                          what=f"ring_analysis {what}")
+            e_k = float((got[i].to(torch.complex128) - truth[i]).abs().max()
+                        / truth[i].abs().max())
+            e_p = float((want[i].to(torch.complex128) - truth[i]).abs().max()
+                        / truth[i].abs().max())
+            check(e_k <= 1.25 * e_p, f"phase 15 {what}: the kernels' float32 "
+                  f"error {e_k:.3e} above 1.25 x the plain version's {e_p:.3e}")
+            errs.append((err[0], e_k, e_p))
+        io_ms, passes_ms = ring_bounds(NSIDE, nm, m0, torch.complex64,
+                                       complex_in)
+        if complex_in or m0:
+            check(ms <= plain_ms, f"phase 15 {what}: kernels {ms:.2f} ms, "
+                  f"slower than the plain version's {plain_ms:.2f} ms")
+        rows[what] = dict(ms=ms, plain_ms=plain_ms, bound_ms=io_ms,
+                          bound_by="bytes", passes_bound_ms=passes_ms,
+                          max_abs_err=max(e[0] for e in errs),
+                          launches_per_call=sum(launches.values()))
+        parts.append(
+            f"{what}: kernels {ms:.3f} ms, plain {plain_ms:.3f} ms "
+            f"({plain_ms / ms:.2f}x), bound {io_ms:.3f} ms (the maps in and "
+            f"F out; {passes_ms:.3f} ms the bytes of the passes); against the "
+            f"float64 plain run " + ", ".join(
+                f"kernels {e_k:.2e}, plain {e_p:.2e}" for _, e_k, e_p in errs)
+            + f"; launches a call {launches}")
+        del truth, want, got
+    print(f"phase 15 ring analysis at n{NSIDE}, {LMAX + 1} orders, ring "
+          f"weights: {'; '.join(parts)}; card {smi} "
+          f"({time.perf_counter() - t:.1f} s)", flush=True)
+    return rows["spin-0 float32"]
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch sees no CUDA device; this script "
@@ -2869,6 +2995,18 @@ def main():
         check(launches.get(name, 0) > 0, f"{name} never launched in the slice")
     check(launches.get("gram") == 13, f"expected 13 gram launches, got "
           f"{launches.get('gram')}")
+    # every map transforms alone at this nside (the stack budget), one ring
+    # analysis each: a rows and a spectrum launch per cap bucket pair, an
+    # orders launch per pair and one for the belt (``ringfft.LAUNCHES``,
+    # apart from ``counts()``, whose exact checks of other phases hold the
+    # SHT and Gram kernels alone)
+    ring_launches = {k: ringfft.LAUNCHES.get(k, 0) for k in RING_KERNELS}
+    pairs = (len(ringfft.ring_plan(NSIDE, LMAX + 1)) - 1) // 2
+    want = dict(zip(RING_KERNELS, (pairs * len(maps), pairs * len(maps),
+                                   (pairs + 1) * len(maps))))
+    check(ring_launches == want, f"ring analysis launches {ring_launches} "
+          f"in the pipeline's {len(maps)} transforms, expected {want}")
+    launches["ring_analysis"] = sum(ring_launches.values())
     check(sum(plain_runs.values()) == 0, f"plain versions ran: {plain_runs}")
     check(len(cls) == 21, f"expected 21 spectra, got {len(cls)}")
     for key, cl in cls.items():
@@ -2885,7 +3023,7 @@ def main():
           f"{t_alms:.2f} s, spectra {t_cls:.2f} s, mixmats {t_mms:.2f} s; "
           f"total through spectra {t_spectra:.2f} s, through mixmats "
           f"{t_spectra + t_mms:.2f} s; peak {peak / 2**30:.2f} GiB; launches "
-          f"{launches}; plain runs {plain_runs}; {len(cls)} finite spectra, "
+          f"{launches} (ring analysis {ring_launches}); plain runs {plain_runs}; {len(cls)} finite spectra, "
           f"{len(mms)} finite mixing matrices; card {smi} "
           f"(setup {setup:.1f} s, {time.perf_counter() - t:.1f} s)", flush=True)
 
@@ -3100,6 +3238,9 @@ def main():
     path_by_nb, path_report = phase14(dev, smi, stack0)
     del stack0
 
+    # -- phase 15: the ring analysis' kernels at the cell's shape ----------
+    report["ring_analysis"] = phase15(dev, smi)
+
     def mean(key):
         return float(np.mean([c[key] for c in contractions.values()]))
 
@@ -3126,6 +3267,11 @@ def main():
             # no single PyTorch call computes the recurrence-generated
             # contractions or the probe's chains
             "library_ms": report[name].get("library_ms"),
+            # the ring analysis: the bound of its design's own passes, and
+            # one call's launches (phase 15) beside the pipeline's (phase 3)
+            **{key: report[name][key] for key in ("passes_bound_ms",
+                                                  "launches_per_call")
+               if key in report[name]},
         }
         for name, (source, replaces) in KERNELS.items()
     ]

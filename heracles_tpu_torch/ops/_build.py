@@ -31,7 +31,8 @@ _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(_PKG / "csrc" / name
                 for name in ("sht_analysis.cu", "sht_analysis_pair.cu",
                              "sht_synthesis.cu", "sht_synthesis_pair.cu",
-                             "gram.cu", "fma_peak.cu", "spread.cu"))
+                             "gram.cu", "fma_peak.cu", "spread.cu",
+                             "ringfft.cu"))
 HEADERS = tuple(_PKG / "csrc" / name
                 for name in ("sht_paths.cuh", "tc_contract.cuh",
                              "warp_reduce.cuh", "wigner_recurrence.cuh"))
@@ -84,6 +85,14 @@ _SIGNATURES = {
     "heracles_fma_peak_f64": (_I, [_P] * 3 + [_I] * 4 + [_P]),
     "heracles_spread_es": (_I, [_P] * 4 + [_L, _I, _I, _L, _L, _I, _D]
                            + [_P] * 8 + [_I] * 4 + [_P]),
+    "heracles_ring_rows_f32": (_I, [_P, _L] + [_P] * 3 + [_I] * 8 + [_P]),
+    "heracles_ring_rows_f64": (_I, [_P, _L] + [_P] * 3 + [_I] * 8 + [_P]),
+    "heracles_ring_spectrum_f32": (_I, [_P] * 2 + [_I] * 5 + [_P]),
+    "heracles_ring_spectrum_f64": (_I, [_P] * 2 + [_I] * 5 + [_P]),
+    "heracles_ring_orders_f32": (_I, [_P, _L, _I, _I, _P, _P] + [_I] * 9
+                                 + [_P] * 4),
+    "heracles_ring_orders_f64": (_I, [_P, _L, _I, _I, _P, _P] + [_I] * 9
+                                 + [_P] * 4),
 }
 
 

@@ -12,13 +12,26 @@ and ``4*nside`` in the belt), so:
   length and whose output extent is the order range, so orders m >= nph
   (aliased) come out directly.
 
-Ring rows are extracted, and written back by the synthesis, by one index
-operation per bucket whose index is built on the tensors' device.  Chirps
-and phases are built in float64 and rounded to the working type.  The
-plan's host arrays go to the card without waiting for the work queued
-there (:func:`_upload`), and nothing is read back, so a transform queues
-its work without waiting on the card (the loop over a device mesh's
-shards relies on it).
+The tensor's device picks the analysis' path.  On a CUDA card,
+:func:`ring_analysis` runs the hand-written kernels of
+``heracles_tpu_torch/csrc/ringfft.cu`` around cuFFT (``torch.fft``): the
+cap rows read straight from the maps and chirped, the product with each
+bucket's cached chirp spectrum, and the orders' chirp, phase and weight
+written straight into F.  What depends only on the sizes (the rings'
+starts, lengths and phi0, the chirp spectra) is built once per (nside,
+order extent, dtype, card) and kept there (:func:`_card_plan`), so a
+warm call uploads and rebuilds nothing.  ``LAUNCHES`` counts the kernels'
+launches by kernel.  On the CPU it runs :func:`ring_analysis_plain`, which
+builds every table in the call, in float64, and rounds it to the working
+type; the kernels repeat its arithmetic in the same order.  The synthesis
+is plain torch on every device.
+
+Ring rows are written back by the synthesis by one index operation per
+bucket whose index is built on the tensors' device.  The plan's host
+arrays go to the card without waiting for the work queued there
+(:func:`_upload`), and nothing is read back, so a transform queues its
+work without waiting on the card (the loop over a device mesh's shards
+relies on it).
 """
 
 from __future__ import annotations
@@ -31,7 +44,10 @@ import torch
 
 from .. import tracing
 
-__all__ = ["ring_analysis", "ring_synthesis", "ring_plan"]
+__all__ = ["LAUNCHES", "ring_analysis", "ring_analysis_plain",
+           "ring_synthesis", "ring_plan"]
+
+LAUNCHES = tracing.counter("ringfft.LAUNCHES")
 
 _COMPLEX = {torch.float32: torch.complex64, torch.float64: torch.complex128,
             torch.complex64: torch.complex64,
@@ -161,10 +177,29 @@ def ring_analysis(maps, nside, nm, *, weight=None, m0=0):
     its ring plan are those of m0 + nm orders, and the phases are taken
     per order), so its columns are that transform's, bit for bit.
     ``weight``: optional (nrings,) real per-ring factor (the quadrature
-    weights) folded into the phase.  Returns ``(F, Fneg)`` complex
-    (..., nrings, nm); ``Fneg`` (the orders -m) is None for real input,
-    where F_{-m} = conj(F_m).
+    weights) folded into the phase; on a card, a float64 tensor already
+    there is read in place, anything else is uploaded in the call.
+    Returns ``(F, Fneg)`` complex (..., nrings, nm); ``Fneg`` (the orders
+    -m) is None for real input, where F_{-m} = conj(F_m).
+
+    A CPU tensor runs :func:`ring_analysis_plain`; a CUDA tensor the
+    kernels of ``csrc/ringfft.cu`` around cuFFT, or raises.
     """
+    m0, nm = int(m0), int(nm)
+    if m0 < 0 or nm < 0:
+        raise ValueError(f"ring_analysis: orders m0={m0}, nm={nm}")
+    if maps.shape[-1] != 12 * int(nside) ** 2:
+        raise ValueError(f"ring_analysis: {maps.shape[-1]} pixels are not "
+                         f"a map of nside {nside}")
+    if maps.device.type == "cpu":
+        return ring_analysis_plain(maps, nside, nm, weight=weight, m0=m0)
+    return _ring_analysis_card(maps, int(nside), nm, weight, m0)
+
+
+def ring_analysis_plain(maps, nside, nm, *, weight=None, m0=0):
+    """:func:`ring_analysis` in torch ops on any device, every table built
+    in the call: the plain version of the kernels, which repeat its
+    arithmetic."""
     complex_in = maps.is_complex()
     cdt = _COMPLEX[maps.dtype]
     dev = maps.device
@@ -215,6 +250,130 @@ def ring_analysis(maps, nside, nm, *, weight=None, m0=0):
     if complex_in:
         return F, torch.cat(out_neg, dim=-2)
     return F, None
+
+
+# orders kernel's source rows (csrc/ringfft.cu): a cap's inverse FFT, the
+# belt's c2c spectrum, the belt's r2c half spectrum
+_CAP, _BELT_FULL, _BELT_HALF = 0, 1, 2
+
+
+@functools.lru_cache(maxsize=8)
+def _card_plan(nside, mext, cdt, device):
+    """What an analysis of ``mext`` orders in ``cdt`` needs that depends
+    only on the sizes, built once and kept on ``device``: every ring's
+    pixel start (int64), length (int32) and phi0 (float64); per cap
+    bucket pair (a north bucket and its southern mirror, which has the
+    same rings reversed and the same L) its rings and the FFT, scaled by
+    1/L, of the chirp b of each northern ring in ``cdt``, as
+    :func:`_bluestein_dft` builds it; the belt's rings and pixels.
+
+    An LRU of 8 over every card of the process: a device mesh's order
+    blocks each have their own ``mext``, so a mesh of 4 blocks and the
+    unsharded transform of each of its cards fit.  Chirp spectra at
+    nside 4096 in complex64: 0.54 GB for 3001 orders, 0.38-0.55 GB a
+    block of a mesh."""
+    tracing.built("ringfft.plan")
+    site = "ringfft.plan"
+    plan = ring_plan(nside, mext)
+    nph = np.concatenate([b["nph"] for b in plan])
+    start = np.concatenate([[0], np.cumsum(nph)[:-1]])
+    card = dict(
+        nph=_upload(site, nph.astype(np.int32), device),
+        start=_upload(site, start.astype(np.int64), device),
+        phi0=_upload(site, np.concatenate([b["phi0"] for b in plan]),
+                     device),
+        caps=[])
+    n_north = (len(plan) - 1) // 2
+    for north, south in zip(plan[:n_north], plan[::-1]):
+        L = north["L"]
+        r0, r1 = north["rings"]
+        p = torch.arange(L, dtype=torch.int64, device=device)[None, :]
+        j = torch.where(p < mext, p, L - p)
+        b = _chirp(j, card["nph"][r0:r1, None].to(torch.int64), +1, cdt)
+        card["caps"].append(dict(
+            L=L, R=r1 - r0, rn0=r0, rs0=south["rings"][0],
+            table=torch.fft.fft(b, dim=-1, norm="forward")))
+    belt = plan[n_north]
+    card["belt"] = dict(L=belt["L"], rings=belt["rings"], pix=belt["pix"])
+    return card
+
+
+def _card_weight(weight, nr, device):
+    """The per-ring weights as a float64 tensor on ``device``: read in
+    place when they lie there, else uploaded (and counted) here."""
+    if isinstance(weight, torch.Tensor) and weight.device == device:
+        w = weight.to(torch.float64)
+    else:
+        tracing.built("ringfft.weights")
+        w = _upload("ringfft.ring_analysis", weight, device, torch.float64)
+    if tuple(w.shape) != (nr,):
+        raise ValueError(f"ring_analysis: weight must have shape ({nr},), "
+                         f"got {tuple(w.shape)}")
+    return w.contiguous()
+
+
+def _ring_analysis_card(maps, nside, nm, weight, m0):
+    """:func:`ring_analysis` on a CUDA tensor: per cap bucket pair the rows
+    kernel, cuFFT forward, the spectrum kernel, cuFFT inverse and the
+    orders kernel; the belt's FFT and the orders kernel (module
+    docstring; ``csrc/ringfft.cu``)."""
+    from . import _build
+
+    kl = _build.load_library()
+    complex_in = maps.is_complex()
+    cdt = _COMPLEX[maps.dtype]
+    dev = maps.device
+    card = _card_plan(nside, m0 + nm, cdt, dev)
+    nr = card["nph"].shape[0]
+    batch, npix = maps.shape[:-1], maps.shape[-1]
+    B = math.prod(batch)
+    flat = maps.reshape(B, npix).contiguous()
+    w = None if weight is None else _card_weight(weight, nr, dev)
+    F = torch.empty((B, nr, nm), dtype=cdt, device=dev)
+    Fneg = torch.empty_like(F) if complex_in else None
+    dirs = 2 if complex_in else 1
+    prec = "f64" if cdt == torch.complex128 else "f32"
+    rows_fn = getattr(kl.lib, f"heracles_ring_rows_{prec}")
+    spectrum_fn = getattr(kl.lib, f"heracles_ring_spectrum_{prec}")
+    orders_fn = getattr(kl.lib, f"heracles_ring_orders_{prec}")
+    tables = (card["nph"].data_ptr(), card["phi0"].data_ptr(),
+              None if w is None else w.data_ptr())
+    outs = (F.data_ptr(), None if Fneg is None else Fneg.data_ptr())
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for cap in card["caps"]:
+            L, R, rn0, rs0 = cap["L"], cap["R"], cap["rn0"], cap["rs0"]
+            rows = torch.empty((B, dirs, 2 * R, L), dtype=cdt, device=dev)
+            kl.check(rows_fn(flat.data_ptr(), npix, card["start"].data_ptr(),
+                             card["nph"].data_ptr(), rows.data_ptr(), L,
+                             2 * R, R, rn0, rs0, dirs, B, int(complex_in),
+                             stream))
+            LAUNCHES["ring_rows"] += 1
+            y = torch.fft.fft(rows, dim=-1)
+            del rows
+            kl.check(spectrum_fn(y.data_ptr(), cap["table"].data_ptr(), L,
+                                 2 * R, R, dirs, B, stream))
+            LAUNCHES["ring_spectrum"] += 1
+            z = torch.fft.ifft(y, dim=-1, norm="forward")
+            del y
+            kl.check(orders_fn(z.data_ptr(), L, _CAP, L, *outs, nr, m0, nm,
+                               2 * R, R, rn0, rs0, dirs, B, *tables, stream))
+            LAUNCHES["ring_orders"] += 1
+            del z
+        belt = card["belt"]
+        L, (r0, r1), (p0, p1) = belt["L"], belt["rings"], belt["pix"]
+        rows = flat[:, p0:p1].reshape(B, r1 - r0, L)
+        if complex_in:
+            spec, mode = torch.fft.fft(rows, dim=-1), _BELT_FULL
+        else:
+            spec, mode = torch.fft.rfft(rows, dim=-1), _BELT_HALF
+        spec = spec.contiguous()
+        kl.check(orders_fn(spec.data_ptr(), spec.shape[-1], mode, L, *outs,
+                           nr, m0, nm, r1 - r0, r1 - r0, r0, 0, 1, B,
+                           *tables, stream))
+        LAUNCHES["ring_orders"] += 1
+    F = F.reshape(batch + (nr, nm))
+    return F, (None if Fneg is None else Fneg.reshape(F.shape))
 
 
 def _ring_pixels(nph, npix, L):

@@ -172,12 +172,27 @@ def ring_weights(nside, lmax_w=None):
     return np.concatenate([w_half, w_half[:-1][::-1]])
 
 
-def _weights_arr(nside, weights):
-    if weights is None:
-        return np.full(4 * nside - 1, nside2pixarea(nside))
-    if isinstance(weights, str) and weights == "ring":
-        return ring_weights(nside)
+def _weights_on(nside, weights, device):
+    """The per-ring weights of a transform on ``device``: None (the pixel
+    area), "ring" (the quadrature weights) or an array of them.  The two
+    named kinds are kept by (nside, kind, device), on a card as float64
+    tensors there; an array is a float64 host array, which the ring
+    analysis uploads in its call."""
+    if weights is None or (isinstance(weights, str) and weights == "ring"):
+        return _named_weights(int(nside), weights, torch.device(device))
     return np.asarray(weights, dtype=np.float64)
+
+
+@functools.lru_cache(maxsize=8)
+def _named_weights(nside, kind, device):
+    if kind is None:
+        w = np.full(4 * nside - 1, nside2pixarea(nside))
+    else:
+        w = ring_weights(nside)
+    if not tracing.on_card(device):
+        return w
+    tracing.built("sht.weights")
+    return ringfft._upload("sht.weights", w, device, torch.float64)
 
 
 def _fold_rings(F, nside):
@@ -381,7 +396,7 @@ def map2alm(maps, lmax=None, mmax=None, *, spin=0, weights="ring",
 def _map2alm_once(maps, nside, lmax, mmax, spin, weights, dd=False):
     """One analysis pass; rectangular alms (E, B stacked for spin 2)."""
     return _map2alm_block(maps, nside, lmax, 0, mmax + 1, spin,
-                          _weights_arr(nside, weights), dd)
+                          _weights_on(nside, weights, maps.device), dd)
 
 
 def _map2alm_block(maps, nside, lmax, m0, nm, spin, w, dd=False):

@@ -278,13 +278,13 @@ def map2alm_sharded(mesh, maps, lmax, *, weights="ring", spin=0,
     lmax, spin, dd = int(lmax), abs(int(spin)), sht._dd_mode(dd)
     nb, n_m = mesh.shape["batch"], mesh.shape["m"]
     per = _m_block(lmax, n_m)
-    w = sht._weights_arr(nside, weights)
     blocks = _batch_blocks(maps, nb)
     devices = list(mesh.devices.flat)
     local = [_moved("parallel.map2alm_sharded", blocks[i // n_m], d)
              for i, d in enumerate(devices)]
     parts = [sht._map2alm_block(m, nside, lmax, (i % n_m) * per, per, spin,
-                                w, dd) for i, m in enumerate(local)]
+                                sht._weights_on(nside, weights, m.device), dd)
+             for i, m in enumerate(local)]
     return _assemble(mesh, parts, maps.shape[0])
 
 
@@ -369,7 +369,6 @@ def pipeline_step(mesh, maps, lmax, maps2=None, *, engine="auto", dd=None):
             raise ValueError(f"pipeline_step: {a.shape[0]} {what} do not "
                              f"split over a 'batch' axis of {nb}")
     per = _m_block(lmax, n_m)
-    w = sht._weights_arr(nside, "ring")
     b0 = maps.shape[0] // nb
     b2 = 0 if maps2 is None else maps2.shape[0] // nb
 
@@ -383,6 +382,7 @@ def pipeline_step(mesh, maps, lmax, maps2=None, *, engine="auto", dd=None):
     planes = []
     for i, (spin0, pair) in enumerate(local):
         m0 = (i % n_m) * per
+        w = sht._weights_on(nside, "ring", spin0.device)
         p = sht._map2alm_block(spin0, nside, lmax, m0, per, 0, w, dd)
         if pair is not None:
             eb = sht._map2alm_block(pair, nside, lmax, m0, per, 2, w, dd)

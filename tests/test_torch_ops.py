@@ -290,7 +290,7 @@ def test_build_without_nvcc(tmp_path, monkeypatch):
     names = [src.name for src in _build.SOURCES]
     assert names == ["sht_analysis.cu", "sht_analysis_pair.cu",
                      "sht_synthesis.cu", "sht_synthesis_pair.cu", "gram.cu",
-                     "fma_peak.cu", "spread.cu"]
+                     "fma_peak.cu", "spread.cu", "ringfft.cu"]
     assert all(src.is_file() for src in _build.SOURCES + _build.HEADERS)
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))

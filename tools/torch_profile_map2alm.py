@@ -54,7 +54,7 @@ def stages(maps, lmax, spin):
     from heracles_tpu_torch.ops import ringfft, sht, sht_kernels
 
     nside = npix2nside(maps.shape[-1])
-    w = sht._weights_arr(nside, "ring")
+    w = sht._weights_on(nside, "ring", maps.device)
     x, logch, logsh = sht._geometry(nside, maps.device)
     kw = dict(dd=False, x_lo=None)
 
