@@ -29,8 +29,9 @@ with its seconds:
    visibility, 2 tomographic bins of 5e6 rows, nside 4096, lmax 3000,
    float32 maps, through ``map_catalogs`` -> ``transform`` ->
    ``angular_power_spectra`` -> ``mixing_matrices`` of the mask spectra,
-   with the kernels' launch counts over that run (the ring analysis'
-   kernels held to exact counts: one analysis a map);
+   with the kernels' launch counts over that run (the maps' stacks, the
+   analyses' groups and the ring analysis' kernels held to exact counts:
+   one analysis a stack, the 4 spin-0 maps in one, the 2 spin-2 in one);
 4. bin 0's POS and SHE analyses at full size through each kernel and its
    plain version (times, agreement), the share of the spin-0 analysis'
    work on each of its paths (a diagnostic launch), and float32 against
@@ -908,6 +909,7 @@ def l_band_rel(got, want, ls, nbands=10):
 def phase7(dev, maps, cls, fma32, smi):
     """Synthesis at full size; returns (kernel reports, launches)."""
     import heracles_tpu_torch as th
+    from heracles_tpu_torch import tracing
     from heracles_tpu_torch.ops import sht, sht_kernels, wigner
 
     t = time.perf_counter()
@@ -921,12 +923,16 @@ def phase7(dev, maps, cls, fma32, smi):
     reset_counts()
     alms, t_alms = sync_time(lambda: th.transform(fields, data))
     launches, plain_runs = counts()
-    # at nside 4096 every map transforms on its own: per map one analysis
-    # per iteration and the first, one synthesis per iteration
-    want = {"analysis_spin0_folded": (ITERATIONS + 1) * NBINS,
-            "analysis_pair_folded": (ITERATIONS + 1) * NBINS,
-            "synthesis_spin0_folded": ITERATIONS * NBINS,
-            "synthesis_pair_folded": ITERATIONS * NBINS}
+    # the bins' maps of a field transform in one stack
+    # (``mapping._STACK_BYTES``): per stack one analysis per iteration and
+    # the first, one synthesis per iteration
+    check(tracing.TRANSFORM_STACKS == {NBINS: 2},
+          f"transform stacks {dict(tracing.TRANSFORM_STACKS)}, expected "
+          f"{{{NBINS}: 2}}")
+    want = {"analysis_spin0_folded": ITERATIONS + 1,
+            "analysis_pair_folded": ITERATIONS + 1,
+            "synthesis_spin0_folded": ITERATIONS,
+            "synthesis_pair_folded": ITERATIONS}
     check(dict(launches) == want, f"transform launches {dict(launches)}, "
           f"expected {want}")
     check(sum(plain_runs.values()) == 0, f"plain versions ran: {plain_runs}")
@@ -2878,7 +2884,7 @@ def main():
           f"({time.perf_counter() - t:.2f} s)", flush=True)
 
     import heracles_tpu_torch as th
-    from heracles_tpu_torch import twopoint
+    from heracles_tpu_torch import tracing, twopoint
     from heracles_tpu_torch.ops import (
         _build, fma_peak, gram, ringfft, sht, sht_kernels, wigner)
 
@@ -2995,17 +3001,29 @@ def main():
         check(launches.get(name, 0) > 0, f"{name} never launched in the slice")
     check(launches.get("gram") == 13, f"expected 13 gram launches, got "
           f"{launches.get('gram')}")
-    # every map transforms alone at this nside (the stack budget), one ring
-    # analysis each: a rows and a spectrum launch per cap bucket pair, an
-    # orders launch per pair and one for the belt (``ringfft.LAUNCHES``,
-    # apart from ``counts()``, whose exact checks of other phases hold the
-    # SHT and Gram kernels alone)
+    # the maps of a group stack under the budget (``mapping._STACK_BYTES``):
+    # POS and VIS of both bins (spin 0) in one stack, B1 at nb 4, and the
+    # two SHE maps in another, B2 at nb 2; one ring analysis a stack: a
+    # rows and a spectrum launch per cap bucket pair, an orders launch per
+    # pair and one for the belt (``ringfft.LAUNCHES``, apart from
+    # ``counts()``, whose exact checks of other phases hold the SHT and
+    # Gram kernels alone)
+    stacks = dict(tracing.TRANSFORM_STACKS)
+    check(stacks == {2 * NBINS: 1, NBINS: 1}, f"transform stacks {stacks} "
+          f"of the pipeline's {len(maps)} maps, expected "
+          f"{{{2 * NBINS}: 1, {NBINS}: 1}}")
+    by_nb = {k: v for k, v in sht_kernels.LAUNCHES_BY_NB.items()
+             if k[0] in PIPELINE_KERNELS}
+    want_nb = {("analysis_spin0_folded", 4): 1, ("analysis_pair_folded", 2): 1}
+    check(by_nb == want_nb, f"pipeline analyses by (kernel, nb) {by_nb}, "
+          f"expected {want_nb}")
+    calls = sum(stacks.values())
     ring_launches = {k: ringfft.LAUNCHES.get(k, 0) for k in RING_KERNELS}
     pairs = (len(ringfft.ring_plan(NSIDE, LMAX + 1)) - 1) // 2
-    want = dict(zip(RING_KERNELS, (pairs * len(maps), pairs * len(maps),
-                                   (pairs + 1) * len(maps))))
+    want = dict(zip(RING_KERNELS, (pairs * calls, pairs * calls,
+                                   (pairs + 1) * calls)))
     check(ring_launches == want, f"ring analysis launches {ring_launches} "
-          f"in the pipeline's {len(maps)} transforms, expected {want}")
+          f"in the pipeline's {calls} transforms, expected {want}")
     launches["ring_analysis"] = sum(ring_launches.values())
     check(sum(plain_runs.values()) == 0, f"plain versions ran: {plain_runs}")
     check(len(cls) == 21, f"expected 21 spectra, got {len(cls)}")
@@ -3023,7 +3041,8 @@ def main():
           f"{t_alms:.2f} s, spectra {t_cls:.2f} s, mixmats {t_mms:.2f} s; "
           f"total through spectra {t_spectra:.2f} s, through mixmats "
           f"{t_spectra + t_mms:.2f} s; peak {peak / 2**30:.2f} GiB; launches "
-          f"{launches} (ring analysis {ring_launches}); plain runs {plain_runs}; {len(cls)} finite spectra, "
+          f"{launches} (ring analysis {ring_launches}; by nb {by_nb}; "
+          f"stacks {stacks}); plain runs {plain_runs}; {len(cls)} finite spectra, "
           f"{len(mms)} finite mixing matrices; card {smi} "
           f"(setup {setup:.1f} s, {time.perf_counter() - t:.1f} s)", flush=True)
 

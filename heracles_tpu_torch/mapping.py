@@ -90,9 +90,16 @@ def transform(fields, data, *, out=None, progress=None, batch=8, mesh=None):
     Fills in missing spin metadata from the field and raises on a
     mismatch.  Maps that share a mapper, spin, shape, dtype and device
     are stacked and transformed in groups of up to ``batch`` (the kernels
-    take leading batch dims), capped so that a stack holds at most 2e8
-    elements: at nside 4096 every map transforms on its own.  Per-map
-    metadata is preserved on the batched path.
+    take leading batch dims), capped so that a stack holds at most
+    ``_STACK_BYTES`` (7e9) bytes of maps (:func:`_stack_size`): at nside
+    4096, 8 float32 spin-0 maps, 4 float32 spin-2 or float64 spin-0
+    maps.  Such a stack of 8 maps costs the card, above its inputs, the
+    stack's copy (6.4 GB) and the ring analysis of 8 maps (its largest
+    cap bucket's rows and FFT buffers, ~13 GB, and the 3.1 GB of ring
+    spectra): ~20 GB in all; a smaller ``batch`` lowers it.  Per-map
+    metadata is preserved on the batched path.  Every call of a mapper's
+    ``transform`` is counted in ``tracing.TRANSFORM_STACKS``, by its
+    number of maps.
 
     ``mesh``: a :class:`~heracles_tpu_torch.parallel.Mesh`.  A group
     whose mapper has ``transform_sharded`` then goes out whole, as one
@@ -144,17 +151,20 @@ def transform(fields, data, *, out=None, progress=None, batch=8, mesh=None):
         spin = items[idxs[0]][1].spin
         sharded = (mesh is not None and gkey[0] != "solo"
                    and hasattr(mapper, "transform_sharded"))
-        elems = int(np.prod(np.shape(items[idxs[0]][2]))) or 1
+        first = items[idxs[0]][2]
         if sharded:
             step = len(idxs)
         elif gkey[0] == "solo":
             step = 1
         else:
-            step = max(1, min(batch, _STACK_ELEMS // elems))
+            step = _stack_size(np.shape(first),
+                               np.dtype(first.dtype.str).itemsize, batch)
         for start in range(0, len(idxs), step):
             chunk = idxs[start : start + step]
             labels = ", ".join(str(items[idx][0]) for idx in chunk)
             with progress.task(f"[{labels}]"):
+                if not sharded:
+                    tracing.TRANSFORM_STACKS[len(chunk)] += 1
                 if len(chunk) == 1 and not sharded:
                     m = items[chunk[0]][2]
                     results[chunk[0]] = mapper.transform(m, spin=spin)
@@ -179,8 +189,18 @@ def transform(fields, data, *, out=None, progress=None, batch=8, mesh=None):
     return out
 
 
-# largest stack (elements) one batched transform takes
-_STACK_ELEMS = 2 * 10**8
+# largest stack (bytes of maps) one batched transform takes: at nside
+# 4096, 8 float32 spin-0 maps (6.44e9 bytes) and not 5 float32 spin-2
+# maps (8.05e9), whose batch of 5 would run every kernel at nb 1
+_STACK_BYTES = 7 * 10**9
+
+
+def _stack_size(shape, itemsize, batch):
+    """How many maps of ``shape`` and ``itemsize`` bytes one batched
+    transform stacks: up to ``batch``, at most ``_STACK_BYTES`` together,
+    at least one."""
+    nbytes = max(1, int(np.prod(shape)) * int(itemsize))
+    return max(1, min(batch, _STACK_BYTES // nbytes))
 
 
 def _stack(maps):

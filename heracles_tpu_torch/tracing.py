@@ -27,7 +27,11 @@ the site that counts, named like a span:
   window computed, the ring weights read or solved).
 
 The first two count only work on a CUDA card, so they read 0 on every
-CPU path; table builds count on every device.
+CPU path; table builds count on every device, as does
+
+* ``TRANSFORM_STACKS[n]``: the calls of a mapper's ``transform`` that
+  ``mapping.transform`` makes, keyed by the number of maps in the call
+  (1 for a map alone).
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ __all__ = [
     "HOST_COPIES",
     "HOST_SYNCS",
     "TABLE_BUILDS",
+    "TRANSFORM_STACKS",
     "built",
     "copied",
     "counter",
@@ -80,6 +85,7 @@ def reset():
 HOST_SYNCS = counter("host_syncs")
 HOST_COPIES = counter("host_copies")
 TABLE_BUILDS = counter("table_builds")
+TRANSFORM_STACKS = counter("transform_stacks")
 
 
 class _NoSpan:
