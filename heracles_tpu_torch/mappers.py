@@ -74,6 +74,7 @@ class HealpixMapper:
         self._dtype = dtype
         self._device = torch.device(device)
         self._dd = dd
+        self._fl = {}
 
     @property
     def nside(self):
@@ -171,8 +172,17 @@ class HealpixMapper:
     # -- harmonic transform ------------------------------------------------
 
     def _fl_packed(self, spin, dtype):
-        """Packed (nlm,) pixel-window deconvolution filter on the device."""
+        """Packed (nlm,) pixel-window deconvolution filter on the device.
+
+        Computed at the first call per (|spin|, dtype) and kept by the
+        mapper, as the reference's ``_fl_packed_dev`` keeps it: the mapper
+        keeps the window it chose then, and a window file that reaches the
+        cache later serves new mappers.
+        """
         s = abs(spin)
+        fl = self._fl.get((s, dtype))
+        if fl is not None:
+            return fl
         # spin-2 maps deconvolve with the polarization window
         pw = sht.pixel_window(self._nside, self._lmax, pol=(s == 2),
                               device=self._device)
@@ -181,9 +191,10 @@ class HealpixMapper:
         fl = np.ones(self._lmax + 1)
         fl[s:] /= pw[s:]
         tracing.built("mappers.deconvolve")
-        ls, _ = sht._pack_index(self._lmax, self._lmax, self._device)
-        return tracing.upload("mappers.deconvolve", fl, self._device,
-                              dtype)[ls]
+        fl = tracing.upload("mappers.deconvolve", fl, self._device, dtype)
+        ls, _ = sht._pack_index(self._lmax, self._lmax, fl.device)
+        self._fl[s, dtype] = fl = fl[ls]
+        return fl
 
     def _unwrap(self, data, metadata):
         """(tensor, metadata) of a DeviceMap, a tensor or a numpy array.

@@ -68,23 +68,30 @@ def alm_size(lmax, mmax=None):
     return (mmax + 1) * (lmax + 1) - mmax * (mmax + 1) // 2
 
 
+@functools.lru_cache(maxsize=8)
 def _pack_index(lmax, mmax, device):
-    """(l_idx, m_idx) tensors giving rect coords of each packed entry."""
+    """(l_idx, m_idx) int64 tensors giving rect coords of each packed entry.
+
+    Built on the host once per (lmax, mmax, device), as the reference
+    builds it, and kept on ``device``: every caller shares the two
+    tensors, so none may write to them.
+    """
     tracing.built("sht.pack_index")
-    m = torch.arange(mmax + 1, device=device)
+    m = np.arange(mmax + 1, dtype=np.int64)
     counts = lmax + 1 - m
-    # without an output size the op reads two values back: the total and
-    # whether every count is non-negative
-    tracing.synced("sht.pack_index", m, 2)
-    tracing.copied("sht.pack_index", "d2h", m, 2)
-    ms = torch.repeat_interleave(m, counts)
+    ms = np.repeat(m, counts)
     # order m's run starts at (l, m) = (m, m)
-    start = torch.cumsum(counts, 0) - counts
-    ls = torch.arange(ms.numel(), device=device) - start[ms] + ms
-    return ls, ms
+    start = np.cumsum(counts) - counts
+    ls = np.arange(ms.size, dtype=np.int64) - start[ms] + ms
+    return (ringfft._upload("sht.pack_index", ls, device),
+            ringfft._upload("sht.pack_index", ms, device))
 
 
+@functools.lru_cache(maxsize=8)
 def _flat_pack_index(lmax, mmax, device):
+    """The packed entries' flat index into (lmax+1, mmax+1), kept as
+    :func:`_pack_index` keeps its tensors (shared: read only)."""
+    tracing.built("sht.flat_pack_index")
     ls, ms = _pack_index(lmax, mmax, device)
     return ls * (mmax + 1) + ms
 
@@ -209,8 +216,10 @@ def _fold_rings(F, nside):
     return FN, FS
 
 
+@functools.lru_cache(maxsize=8)
 def _geometry(nside, device):
-    """Northern-ring x (float64), log cos(theta/2), log sin(theta/2)."""
+    """Northern-ring x (float64), log cos(theta/2), log sin(theta/2), built
+    once per (nside, device) and kept on ``device`` (shared: read only)."""
     nhalf = 2 * nside
     tracing.built("sht.geometry")
     return tuple(ringfft._upload("sht.geometry", a[:nhalf], device)
@@ -225,8 +234,10 @@ def _x_lo_array(nside):
     return (x64 - x64.astype(np.float32).astype(np.float64)).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=8)
 def _x_lo(nside, dd, device):
-    """``x_lo`` for the kernels: the residual where ``dd`` is "comp"."""
+    """``x_lo`` for the kernels: the residual where ``dd`` is "comp", kept
+    on ``device`` as :func:`_geometry` is."""
     if dd != "comp":
         return None
     tracing.built("sht.x_lo")
@@ -239,6 +250,16 @@ def _dd_mode(dd):
     return "comp" if isinstance(dd, str) and dd == "comp" else bool(dd)
 
 
+@functools.lru_cache(maxsize=8)
+def _fold_sign(nm, m0, dtype, device):
+    """(-1)^m of the orders m0..m0+nm-1 in ``dtype``, built once per
+    (nm, m0, dtype, device) on ``device`` (shared: read only)."""
+    tracing.built("sht.fold_sign")
+    msign = torch.ones(nm, dtype=dtype, device=device)
+    msign[(m0 + 1) % 2::2] = -1.0
+    return msign
+
+
 def _folded_inputs(Fw, ns, m0=0):
     """The folded kernel inputs for full-ring spectra ``Fw`` of columns ``ns``.
 
@@ -248,11 +269,8 @@ def _folded_inputs(Fw, ns, m0=0):
     is the order ``m0`` + c).  Returns (Fe, Fo) for one spin-0 column,
     (FNp, Sp, FNm, Sm) for a +-s pair.
     """
-    nm = Fw[0].shape[-1]
     nside = (Fw[0].shape[-2] + 1) // 4
-    tracing.built("sht.fold_sign")
-    msign = torch.ones(nm, dtype=Fw[0].real.dtype, device=Fw[0].device)
-    msign[(m0 + 1) % 2::2] = -1.0
+    msign = _fold_sign(Fw[0].shape[-1], m0, Fw[0].real.dtype, Fw[0].device)
     folded = [_fold_rings(f, nside) for f in Fw]
     if len(ns) == 1:
         FN, FS = folded[0]

@@ -214,11 +214,17 @@ def _run(mode, x, x_lo, inputs, plain, launch):
 
 
 @functools.lru_cache(maxsize=16)
-def _seed_planes(m0, nm, spin):
+def _seed_planes(m0, nm, spin, device):
+    """The seed planes of the orders m0..m0+nm-1 (spin None: spin 0),
+    built on the host once per (m0, nm, spin, device) and kept on
+    ``device``; staged at once, so the copy waits for no work queued on
+    the card."""
+    tracing.built("sht_kernels.seed_planes")
+    tracing.copied("sht_kernels.seed_planes", "h2d", device)
     ms = m0 + np.arange(nm)
-    if spin is None:
-        return wigner.spin0_seed_planes(ms)
-    return wigner.pair_seed_planes(ms, spin)
+    planes = (wigner.spin0_seed_planes(ms) if spin is None
+              else wigner.pair_seed_planes(ms, spin))
+    return torch.as_tensor(planes).to(device, non_blocking=True)
 
 
 def _check(name, what, arrays, rows, rings, nhalf):
@@ -287,11 +293,7 @@ def _launch(name, inputs, x, logch, logsh, lmax, spin, out_rows, nout,
     xr = [wigner.comp_ratio(x, x_lo, dev).contiguous()] if comp else []
     lch = logch.to(device=dev, dtype=torch.float64).contiguous()
     lsh = logsh.to(device=dev, dtype=torch.float64).contiguous()
-    # staged at once: the copy waits for no work queued on the card
-    tracing.built("sht_kernels.seed_planes")
-    tracing.copied("sht_kernels.seed_planes", "h2d", dev)
-    seed = torch.as_tensor(_seed_planes(m0, nm, spin)).to(dev,
-                                                          non_blocking=True)
+    seed = _seed_planes(m0, nm, spin, dev)
     outs = [torch.empty((B, out_rows, nm), dtype=A.dtype, device=dev)
             for _ in range(nout)]
     prec = "f64" if is_double else ("f32c" if comp else "f32")

@@ -24,7 +24,9 @@ the site that counts, named like a span:
 * ``TABLE_BUILDS[table]``: arrays that depend only on the transform's
   sizes, spins, dtype and device, computed, read from a file or uploaded
   inside a call, and the one-off builds (the kernels' library, a pixel
-  window computed, the ring weights read or solved).
+  window computed, the ring weights read or solved).  A table kept on
+  its device by its builder (cached by its sizes and the device) counts,
+  with its copies, on a miss only.
 
 The first two count only work on a CUDA card, so they read 0 on every
 CPU path; table builds count on every device, as does

@@ -3,7 +3,9 @@
 ``heracles_tpu_torch.ops.pixwin`` and ``ops.wigner``'s unfolded scans
 against the reference's, in float64 on the same child angles; the port's
 ``pixel_window`` against the reference's at nside 8 and 16; the cache
-files of either package read by the other.  Every test points
+files of either package read by the other; a mapper keeps the window it
+chose at its first transform, and a window file cached later serves a
+new mapper.  Every test points
 ``HERACLES_TPU_CACHE`` at its own directory, so no window comes from an
 earlier run.
 
@@ -136,3 +138,22 @@ def test_cache_files_read_by_the_other_package(cache):
 def test_cap_window_is_the_reference_closed_form():
     np.testing.assert_array_equal(pixwin.cap_window(64, 96),
                                   jpw.cap_window(64, 96))
+
+
+def test_mapper_keeps_its_window_and_a_new_file_serves_new_mappers(cache):
+    """At nside 64 "auto" is the cap form until a window file is cached."""
+    import heracles_tpu_torch as th
+
+    nside, lmax = 64, 20
+    maps = torch.as_tensor(np.random.default_rng(3).normal(size=12 * nside**2))
+    raw = th.HealpixMapper(nside, lmax, deconvolve=False,
+                           device="cpu").transform(maps).array
+    mapper = th.HealpixMapper(nside, lmax, device="cpu")
+    first = mapper.transform(maps).array
+    np.testing.assert_allclose((first / raw).real.numpy()[: lmax + 1],
+                               1 / pixwin.cap_window(nside, lmax), rtol=1e-12)
+    np.save(cache / f"pixwin_{nside}_{lmax}_0_16_1.npy",
+            np.full(lmax + 1, 0.5))
+    assert torch.equal(mapper.transform(maps).array, first)
+    new = th.HealpixMapper(nside, lmax, device="cpu").transform(maps).array
+    assert torch.equal(new, 2 * raw)

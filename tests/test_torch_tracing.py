@@ -3,10 +3,13 @@
 On the CPU: spans reach a ``torch.profiler`` trace only while it records,
 nested as called and closed on an exception; the transform and the
 spectra give the same bits with the profiler on and off; one reset zeroes
-every counter of the registry; the CPU ``map2alm`` counts its tables and
-no host wait or copy.  On the card (``-m cuda``; skips here): the host
-waits counted equal the synchronisations torch's sync-debug mode reports,
-and the copies counted equal the trace's host-card memcpy events.  The
+every counter of the registry; a warm CPU ``map2alm`` or mapper
+``transform`` counts only the plain ring analysis' tables and no host
+wait or copy.  On the card (``-m cuda``; skips here): a warm transform
+waits, copies and builds nothing and repeats the cold call's bits; the
+host waits counted equal the synchronisations torch's sync-debug mode
+reports, and the copies counted equal the trace's host-card memcpy
+events.  The
 file imports no JAX, so on the card:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_tracing.py
@@ -142,21 +145,32 @@ def test_reset_zeroes_every_counter():
     assert not tracing.TABLE_BUILDS and not sht_kernels.LAUNCHES
 
 
+@pytest.mark.parametrize("call", ["map2alm", "transform"])
 @pytest.mark.parametrize("spin", [0, 2])
-def test_cpu_map2alm_counts_tables_and_no_host_traffic(spin):
+def test_cpu_map2alm_counts_tables_and_no_host_traffic(spin, call):
+    """A warm ``sht.map2alm``, or a warm ``HealpixMapper.transform`` with
+    the pixel window deconvolved, builds only the plain ring analysis'
+    tables: the transform's own tables and the filter are kept."""
     nside, lmax = 8, 12
     maps = _maps(nside, spin, torch.float64)[0]
-    sht.map2alm(maps, lmax, spin=spin)  # the cached host tables built
+    if call == "map2alm":
+        def run():
+            return sht.map2alm(maps, lmax, spin=spin)
+    else:
+        mapper = th.HealpixMapper(nside, lmax, deconvolve=True, device="cpu")
+
+        def run():
+            return mapper.transform(maps, spin=spin).array
+    cold = run()  # the cached tables built
     tracing.reset()
-    sht.map2alm(maps, lmax, spin=spin)
+    assert torch.equal(run(), cold)
     plan = ringfft.ring_plan(nside, lmax + 1)
     caps = sum(not b["belt"] for b in plan)
     assert dict(tracing.TABLE_BUILDS) == {
         "ringfft.weights": 1, "ringfft.phase": len(plan),
         "ringfft.cap_rows": caps,
         # complex input (spin 2) runs both directions of each cap bucket
-        "ringfft.chirp": caps * (2 if spin else 1),
-        "sht.geometry": 1, "sht.fold_sign": 1, "sht.pack_index": 1}
+        "ringfft.chirp": caps * (2 if spin else 1)}
     assert not tracing.HOST_SYNCS and not tracing.HOST_COPIES
 
 
@@ -188,7 +202,8 @@ def _increase(before, name):
 @pytest.mark.cuda
 def test_counts_match_the_cards_record(card, tmp_path):
     """One transform of 2 maps at nside 256 and their spectra, warmed up,
-    then once under the sync-debug mode and the profiler."""
+    then once under the sync-debug mode and the profiler; before that, a
+    warm transform of the 2 maps alone."""
     nside = 256
     mapper = th.HealpixMapper(nside, dtype=torch.float32, device=card)
     maps = _maps(nside, 0, torch.float32).to(card)
@@ -197,7 +212,16 @@ def test_counts_match_the_cards_record(card, tmp_path):
         alm = mapper.transform(maps, metadata={"spin": 0})
         return th.angular_power_spectra({("P", i): alm[i] for i in range(2)})
 
+    cold = mapper.transform(maps, metadata={"spin": 0}).array.clone()
     run()
+    torch.cuda.synchronize()
+    # the warm transform of the stack: no wait, copy or table build at
+    # any site, and the cold call's alms bit for bit
+    before = tracing.counts()
+    warm = mapper.transform(maps, metadata={"spin": 0}).array
+    for name in ("host_syncs", "host_copies", "table_builds"):
+        assert not _increase(before, name), name
+    assert torch.equal(warm, cold)
     torch.cuda.synchronize()
     before = tracing.counts()
     with warnings.catch_warnings(record=True) as caught:
