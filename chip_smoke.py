@@ -31,7 +31,8 @@ with its seconds:
    ``angular_power_spectra`` -> ``mixing_matrices`` of the mask spectra,
    with the kernels' launch counts over that run (the maps' stacks, the
    analyses' groups and the ring analysis' kernels held to exact counts:
-   one analysis a stack, the 4 spin-0 maps in one, the 2 spin-2 in one);
+   one analysis a stack, the 4 spin-0 maps in one, the 2 spin-2 in one,
+   and the 4 spin-0 maps' group in B1's warp-specialised body);
 4. bin 0's POS and SHE analyses at full size through each kernel and its
    plain version (times, agreement), the share of the spin-0 analysis'
    work on each of its paths (a diagnostic launch), and float32 against
@@ -133,8 +134,9 @@ with its seconds:
    trace's idle share, top 10 ops, top 5 idle gaps by the host work that
    made the card wait, and the host waits, copies and table builds the
    program counted;
-14. the groups of maps at full width: B1 and B3 on a stack of 4 maps, B2
-   and B4 on 2 (the reference's groups at lmax 3000), at every ``nb``
+14. the groups of maps at full width: B1 on a stack of 8 maps (the
+   nside-4096 stack of ``mapping.transform``), B3 on 4, B2 and B4 on 2
+   (the reference's groups at lmax 3000), at every ``nb``
    dividing the stack, each timed beside its bound(s), the automatic group
    named; the syntheses bit for bit their ``nb = 1``, the analyses held
    as in phase 9 (the plain version at full width, the float64 kernel per
@@ -296,6 +298,10 @@ PROBE_STEPS_CHECK, PROBE_STEPS_RATE, PROBE_NCHAIN = 256, 4096, 4
 # map-triple for B1 at nb 4, ~9 for B2, no shuffle.  More than the FP32
 # contraction's, yet faster where the tiles leave room for more blocks an
 # SM: the groups are held back by latency, not by instruction rate.
+# B1's float32 and comp groups run the warp-specialised body instead
+# (sht_analysis.cu's source note): per 2048 triples of a window ~330
+# producer and ~270 consumer instructions a column tile of 4 maps, ~2.4
+# a map-triple at nb 4, ~1.3 at nb 8.
 INSTR_PER_TRIPLE = {"analysis_spin0_folded": (10, 6, 21),
                     "analysis_pair_folded": (21, 43),
                     "synthesis_spin0_folded": (6.5, 6.9, 18.4),
@@ -598,6 +604,8 @@ def counts():
 
     launches = {**sht_kernels.LAUNCHES, **gram.LAUNCHES, **fma_peak.LAUNCHES,
                 **nufft.LAUNCHES}
+    # a part of the spin-0 analysis' count, not a kernel (phase 3 holds it)
+    launches.pop(sht_kernels.WS_LAUNCHES, None)
     plain = {**wigner.PLAIN_RUNS, **gram.PLAIN_RUNS, **fma_peak.PLAIN_RUNS,
              **nufft.PLAIN_RUNS}
     return launches, plain
@@ -2460,11 +2468,13 @@ def phase13(dev, smi, p3, b1_ms):
 
 # phase 14: the groups of maps at full width (stacks of the reference's
 # limits at lmax 3000, pallas_sht.py:3081-3090, :2060-2063, :2851-2854: 4
-# spin-0 maps, 2 spin pairs, for the analyses and the syntheses), and
-# float64 and comp at every nb at a small shape: 600 rings (a tile of 512
-# and a ragged one), orders 7..46, a batch of 8
+# spin-0 maps, 2 spin pairs, for the analyses and the syntheses; the
+# spin-0 analysis on 8, mapping.transform's stack at nside 4096, so that
+# its nb 2, 4 and 8 are held at the shapes that stack runs), and float64
+# and comp at every nb at a small shape: 600 rings (a tile of 512 and a
+# ragged one), orders 7..46, a batch of 8
 GROUPED = DICES_KERNELS + SYNTHESIS_KERNELS
-GROUP_STACK = {"analysis_spin0_folded": 4, "analysis_pair_folded": 2,
+GROUP_STACK = {"analysis_spin0_folded": 8, "analysis_pair_folded": 2,
                "synthesis_spin0_folded": 4, "synthesis_pair_folded": 2}
 GROUP_SMALL = dict(nside=300, lmax=200, nm=40, m0=7, batch=8)
 # the stacked syntheses' path: HealpixMapper(nside 1024, lmax 1536,
@@ -3002,8 +3012,9 @@ def main():
     check(launches.get("gram") == 13, f"expected 13 gram launches, got "
           f"{launches.get('gram')}")
     # the maps of a group stack under the budget (``mapping._STACK_BYTES``):
-    # POS and VIS of both bins (spin 0) in one stack, B1 at nb 4, and the
-    # two SHE maps in another, B2 at nb 2; one ring analysis a stack: a
+    # POS and VIS of both bins (spin 0) in one stack, B1 at nb 4 (its
+    # warp-specialised body), and the two SHE maps in another, B2 at nb
+    # 2; one ring analysis a stack: a
     # rows and a spectrum launch per cap bucket pair, an orders launch per
     # pair and one for the belt (``ringfft.LAUNCHES``, apart from
     # ``counts()``, whose exact checks of other phases hold the SHT and
@@ -3017,6 +3028,10 @@ def main():
     want_nb = {("analysis_spin0_folded", 4): 1, ("analysis_pair_folded", 2): 1}
     check(by_nb == want_nb, f"pipeline analyses by (kernel, nb) {by_nb}, "
           f"expected {want_nb}")
+    # the float32 group of 4 spin-0 maps runs B1's warp-specialised body
+    ws = sht_kernels.LAUNCHES[sht_kernels.WS_LAUNCHES]
+    check(ws == 1, f"B1's warp-specialised body ran {ws} times in the "
+          "pipeline, expected 1")
     calls = sum(stacks.values())
     ring_launches = {k: ringfft.LAUNCHES.get(k, 0) for k in RING_KERNELS}
     pairs = (len(ringfft.ring_plan(NSIDE, LMAX + 1)) - 1) // 2
@@ -3042,6 +3057,7 @@ def main():
           f"total through spectra {t_spectra:.2f} s, through mixmats "
           f"{t_spectra + t_mms:.2f} s; peak {peak / 2**30:.2f} GiB; launches "
           f"{launches} (ring analysis {ring_launches}; by nb {by_nb}; "
+          f"B1 warp-specialised {ws}; "
           f"stacks {stacks}); plain runs {plain_runs}; {len(cls)} finite spectra, "
           f"{len(mms)} finite mixing matrices; card {smi} "
           f"(setup {setup:.1f} s, {time.perf_counter() - t:.1f} s)", flush=True)

@@ -72,33 +72,78 @@
 //     NB > 1 is analysis_group_kernel, one block per (order, group),
 //     which runs the recurrence once for the group (5 of a map-triple's 9
 //     operations) and contracts it against the group's spectra on the
-//     tensor cores (tc_contract.cuh: 3xTF32 mma.sync in float32 and comp,
-//     DMMA in float64).  Once the contraction leaves the FP32 pipe, what
-//     bounds the group is the shared recurrence (and the splits and
-//     staging that feed the tensor cores), no longer each map's FMAs and
-//     warp butterfly.  On an H100 the float32 group is held back by the
-//     latencies of that recurrence at 2 rings a thread (with no product
-//     at all it takes about the time the FP32 contraction took) and by
-//     3xTF32's two extra products: against the FP32 contraction it
-//     replaced, nb 8 runs 2-5% faster, nb 4 4-6% slower and nb 2, whose
-//     8 rows fill half of each product, 48% slower (pick_nb skips it);
-//     float64 runs faster.  Design: a ring tile of 256 (2 rings a
-//     thread); the tile's spectra kept whole in A tiles in fragment order
-//     (split into TF32 parts as a k-step reads them; rows: each map's
-//     (re, im) at both parities, 16 a row tile, half of each product
-//     spent on rows a multipole does not read: see analysis_group_kernel
-//     for why that stays); per
-//     sub-chunk of 8 multipoles the warp stages its emitted values
-//     through shared memory (the one transpose, from one ring a lane to
-//     one multipole a lane) and runs 8 k-steps of 8 rings; the warps meet
-//     once per section of 128 multipoles.  Not wgmma: its 64-row tiles
-//     would need 64 multipoles of the block's rings staged at once
-//     (~128 KB of shared memory); regrouping for it is later work.  Its
-//     sums run in another order than NB = 1's, so its outputs agree with
-//     them to the float32 (float64) bar, not bit for bit; each launch
-//     repeats bit for bit.  Its shared memory (29 / 45 / 77 KB at NB 2 /
-//     4 / 8 in float32, 58 / 90 / 154 KB in float64) sets its blocks per
-//     SM.
+//     tensor cores (3xTF32 mma.sync in float32 and comp, DMMA in
+//     float64).  It has two bodies, chosen by the type:
+//   * float64 runs the tc body (tc_group_body, tc_contract.cuh, DMMA):
+//     each warp in turn runs the recurrence of its 64 rings (2 a thread,
+//     a ring tile of 256), stages a sub-chunk of 8 multipoles through
+//     shared memory (the transpose from one ring a lane to one multipole
+//     a lane) and multiplies the tile's spectra, kept whole in A tiles in
+//     fragment order (rows: each map's (re, im) at both parities, half of
+//     each product spent on rows a multipole does not read), by them; the
+//     warps meet once per section of 128 multipoles.  Its shared memory
+//     (58 / 90 / 154 KB at NB 2 / 4 / 8) sets its blocks per SM.  It is
+//     not the warp-specialised body's float64 instantiation (mma.sync has
+//     a DMMA form) because that does not fit the block's 227 KB as laid
+//     out below: a stage of 32 multipoles x 64 rings is 16 KB in float64,
+//     256 KB for 8 producers x 2 stages; at windows of 16 the stages take
+//     128 KB and part[] 66 / 132 KB at NB 4 / 8 (276 KB at NB 8).  Whether
+//     a narrower float64 layout (fewer producers or windows of 16 at NB 2
+//     and 4) would beat the tc body was not measured;
+//   * float32 and comp run the warp-specialised body (ws_group_body,
+//     ws_pipeline.cuh): 8 producer warps run the recurrence of 64 rings
+//     each (a ring tile of 512) and 8 consumer warps contract, each
+//     paired with one producer through a ring of 2 stages in shared
+//     memory guarded by full / empty mbarriers.  A stage is a window of
+//     32 multipoles x the producer's 64 rings (8 KB), stored by the
+//     producer in the consumer's A-fragment order (rows of one parity:
+//     multipoles 4 g + p and 4 g + 2 + p of row g; bit 2 of a lane's slot
+//     flipped in odd k-steps, so that a quarter-warp's 16-byte stores
+//     fall on distinct banks); the consumer keeps its rings' spectra,
+//     split into TF32 hi and lo once per ring tile, as B fragments in
+//     registers (64 a column tile of 4 maps) and per stage runs 8 k-steps
+//     x 2 parities x 3 mma.sync m16n8k8 a column tile: A = 16 multipoles
+//     of one parity, B = that parity's spectra, so no product is spent
+//     on the other parity, and the spectra are split once per tile, not
+//     at every k-step.  The emitted values are split in the consumer (4
+//     bytes a value through shared memory, not 8).  The producers drop
+//     spin 0's + a0 (-0.0: the same values) and read the coefficient
+//     table as (a1, b) pairs, two rows a 16-byte read.  The consumer
+//     warps meet once per section of 128 multipoles (part[], a padded
+//     row of each (producer, map) so that the stores are conflict-free),
+//     where each thread flushes its rows as in NB = 1, their earlier
+//     tiles' sums copied in (cp.async) while the section ran.  NB 8 holds
+//     two column tiles (128 registers of B fragments): setmaxnreg moves
+//     registers from the producers (80) to the consumers (176), whose two
+//     tiles share one accumulator chain (lo hi, hi lo, hi hi in turn);
+//     NB 2 and 4 keep two chains, (lo hi + hi lo) and hi hi.
+//     What bounds it on an H100: shared memory and issue, near each
+//     other.  A window of 2048 triples moves 152 wavefronts of 128 B
+//     (the stage written and read, 64 each; the table 16; part 8), ~24 ms
+//     for two groups of 4 n4096 / l3000 maps at 128 B a clock, and issues
+//     ~330 producer and ~270 consumer instructions, ~23 ms at one a clock
+//     a scheduler; it runs at about half of that (the two roles wait on
+//     each other through 2 stages; a third does not fit).  At NB 8 a
+//     window serves 8 maps for ~160 wavefronts and ~650 instructions.
+//     The output's read-modify-write over ring tiles (strided rows of 8
+//     bytes) costs ~4.5 ms of the two n4096 groups at a tile of 512 (~8
+//     at 256).  Not wgmma: its 64 rows of one parity make a stage 128
+//     multipoles long, 32 KB a producer's 64 rings, 512 KB for 8
+//     producers x 2 stages against the 227 KB a block has; with A read
+//     from shared memory the 3xTF32 products would also read each value
+//     three times after a split store (20 bytes a triple, not 8).  The
+//     tensor pipe is not the limit (the products of two n4096 groups of
+//     4 are ~3.6 ms at wgmma's rate).  Times, 8 float32 maps, ms (one
+//     H100, 700 W, tools/sht_kernel_bench.py, best of 3): n1024 / l1536
+//     nb 2 / 4 / 8: 10.23 / 5.50 / 5.82 (tc body) -> 7.79 / 4.47 / 3.66;
+//     n4096 / l3000: 134.89 / 72.96 / 78.77 -> 99.99 / 55.70 / 47.02;
+//     comp n1024 13.05 / 6.68 / 6.56 -> 10.21 / 5.67 / 4.37, n4096
+//     174.78 / 88.29 / 86.77 -> 132.79 / 70.32 / 54.05: comp's lo stream
+//     fits the producers' registers and is faster at both sizes, so it
+//     takes this body.  Both bodies sum in another order than NB = 1's,
+//     so their outputs agree with it to the float32 (float64) bar, not
+//     bit for bit; each launch repeats bit for bit, and a map's bits do
+//     not depend on NB within a body's NB 2 / 4 (one chain at NB 8).
 //
 // C interface (loaded with ctypes): heracles_analysis_spin0_{f32,f64} and
 // heracles_analysis_spin0_comp_f32 (with the rings' r after x) launch the
@@ -106,7 +151,8 @@
 // cudaErrorInvalidValue) on the given stream and return
 // cudaGetLastError(); heracles_analysis_spin0_blocks_per_sm gives the
 // resident blocks per SM of a variant and nb (the shared memory does not
-// depend on lmax);
+// depend on lmax), heracles_analysis_spin0_ws whether that launch runs
+// the warp-specialised group body;
 // heracles_analysis_spin0_{,comp_}paths_f32 are diagnostic launches (nb
 // 1, one map a block) that also count the warps' sub-chunks on each path
 // (steady, dead, full).
@@ -122,6 +168,7 @@
 #include "tc_contract.cuh"
 #include "warp_reduce.cuh"
 #include "wigner_recurrence.cuh"
+#include "ws_pipeline.cuh"
 
 namespace {
 
@@ -218,17 +265,44 @@ struct Keep {
   }
 };
 
+// A coefficient table's rows as spin0_steps reads them: rows(t, a1, a0,
+// b) gives row t.  TableRows: (a1, a0, b, pad) a row, the NB = 1 kernel's
+// and the tc body's table.
+template <typename T>
+struct TableRows {
+  static constexpr bool kA0Zero = false;
+  const T* cf;
+  __device__ __forceinline__ void operator()(int t, T& a1, T& a0, T& b) {
+    load_row(cf + 4 * t, a1, a0, b);
+  }
+};
+
+// The warp-specialised producers' table: (a1, b) pairs, two rows a 16-byte
+// read; spin 0's a0 is -0.0 and the step drops it (wigner::step_a0_zero:
+// the same values, bit for bit).
+struct PairRows {
+  static constexpr bool kA0Zero = true;
+  const float* cf;
+  float4 v;
+  __device__ __forceinline__ void operator()(int t, float& a1, float& a0,
+                                             float& b) {
+    if (!(t & 1)) v = *reinterpret_cast<const float4*>(cf + 2 * t);
+    a1 = (t & 1) ? v.z : v.x;
+    b = (t & 1) ? v.w : v.y;
+    a0 = -0.f;
+  }
+};
+
 // kSub steps of the recurrence of the thread's rings from the coefficient
-// row cf on; on a path that emits, emit(t, r, value) takes step t's value
+// rows on; on a path that emits, emit(t, r, value) takes step t's value
 // of ring r before the step.
-template <typename T, Path P, bool kComp, int R, typename Emit>
-__device__ __forceinline__ void spin0_steps(const T* __restrict__ cf,
-                                            Ring<T> (&rs)[R],
+template <typename T, Path P, bool kComp, int R, typename Rows, typename Emit>
+__device__ __forceinline__ void spin0_steps(Rows rows, Ring<T> (&rs)[R],
                                             const Emit& emit) {
 #pragma unroll
   for (int t = 0; t < kSub; ++t) {
     T a1, a0, bb;
-    load_row(cf + 4 * t, a1, a0, bb);
+    rows(t, a1, a0, bb);
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       Ring<T>& q = rs[r];
@@ -237,9 +311,19 @@ __device__ __forceinline__ void spin0_steps(const T* __restrict__ cf,
         emit(t, r, P == Path::kSteady ? d : d * emit_scaled<T>(q.k));
       }
       const T a1x = Arith<T>::mul(a1, q.x);
-      const T dn = step<T>(a1x, a0, bb, q.dc, q.dp);
+      T dn;
+      if constexpr (Rows::kA0Zero) {
+        dn = wigner::step_a0_zero<T>(a1x, bb, q.dc, q.dp);
+      } else {
+        dn = step<T>(a1x, a0, bb, q.dc, q.dp);
+      }
       if (kComp) {
-        const T dnl = step_lo<T>(a1x, a0, bb, q.r, q.dc, q.dcl, q.dpl);
+        T dnl;
+        if constexpr (Rows::kA0Zero) {
+          dnl = wigner::step_lo_a0_zero<T>(a1x, bb, q.r, q.dc, q.dcl, q.dpl);
+        } else {
+          dnl = step_lo<T>(a1x, a0, bb, q.r, q.dc, q.dcl, q.dpl);
+        }
         if (P == Path::kFull) {
           advance_comp<T>(dn, dnl, q.dp, q.dc, q.dpl, q.dcl, q.k);
         } else {
@@ -285,12 +369,13 @@ template <typename T, bool kComp, int R, typename Emit>
 __device__ __forceinline__ void spin0_sub_on(Path path, const T* __restrict__ cf,
                                              Ring<T> (&rs)[R],
                                              const Emit& emit) {
+  const TableRows<T> rows{cf};
   if (path == Path::kSteady) {
-    spin0_steps<T, Path::kSteady, kComp>(cf, rs, emit);
+    spin0_steps<T, Path::kSteady, kComp>(rows, rs, emit);
   } else if (path == Path::kDead) {
-    spin0_steps<T, Path::kDead, kComp>(cf, rs, emit);
+    spin0_steps<T, Path::kDead, kComp>(rows, rs, emit);
   } else {
-    spin0_steps<T, Path::kFull, kComp>(cf, rs, emit);
+    spin0_steps<T, Path::kFull, kComp>(rows, rs, emit);
   }
 }
 
@@ -447,17 +532,42 @@ __global__ void __launch_bounds__(kThreads)
   tally.flush(counts, lane);
 }
 
-// Ring slots a thread of the grouped kernel: a ring tile of 256, so that
-// the A tiles of 8 maps leave room for two blocks an SM.  (With 4 slots,
-// a tile of 512, the float32 nb 4 ran 7% faster at nside 1024 on an
-// H100, but several instantiations spilled and float64 fell to one block
-// an SM.)
+// A group body's ring ``ring`` of the order m (column mc) at the start of
+// a ring tile: cos(theta) (and comp's r), the seed of d at l = m, or an
+// empty ring past nhalf.
+template <typename T, bool kComp>
+__device__ __forceinline__ void seed_ring(Ring<T>& p, int ring, int nhalf,
+                                          const T* __restrict__ x,
+                                          const T* __restrict__ xr,
+                                          const double* __restrict__ logch,
+                                          const double* __restrict__ logsh,
+                                          const double* __restrict__ seed,
+                                          int mc, int nm, int m) {
+  p.dp = T(0);
+  if (kComp) p.dpl = p.dcl = p.r = T(0);
+  if (ring < nhalf) {
+    const double lch = logch[ring], lsh = logsh[ring];
+    p.x = x[ring];
+    if (kComp) p.r = xr[ring];
+    // seed exponents of cos(t/2) and sin(t/2): both m
+    seed_of<T>(seed[mc], seed[nm + mc], double(m), double(m), lch, lsh, p.dc,
+               p.k);
+  } else {
+    p.x = T(0);
+    p.dc = T(0);
+    p.k = kNoSeed;
+  }
+}
+
+// Ring slots a lane of both group bodies: 2, the two k of a fragment
+// that a lane's slot pair fills (a tile of 256 rings in the tc body's 4
+// warps, of 512 in the warp-specialised body's 8 producers).
 constexpr int kGR = 2;
 constexpr int kGTile = kThreads * kGR;
 constexpr int kGSteps = 4 * kGR;  // k-steps of 8 rings: a warp's 32 kGR rings
 
-// The grouped kernel's dynamic shared memory, in elements of T, per warp:
-// its A tiles (the ring tile's spectra of the NB maps in fragment order,
+// The tc body's dynamic shared memory, in elements of T, per warp: its A
+// tiles (the ring tile's spectra of the NB maps in fragment order,
 // tc_contract.cuh: rows 2 j + c and 2 j + c + 8 of row tile j / 4 hold
 // map j's component c at j0's parity and at the other), its staging
 // buffer, and its sums of a section, part[NB][kRows][NC].
@@ -472,49 +582,40 @@ struct GroupSmem {
   static constexpr size_t kBytes =
       sizeof(T) * size_t(kWarps) * (kA + kStaged + kPart);
   // blocks an SM for the launch bounds: what the shared memory allows
-  // (228 KB an SM, 1 KB reserved a block, the coefficient table beside),
-  // at most 6, which leaves a thread 80 registers (65536 / (6 x 128),
-  // rounded down to 8), what nb 2 needs without spilling; ptxas
-  // otherwise trades registers for an occupancy that never comes
-  static constexpr int kFit = int(
+  // (228 KB an SM, 1 KB reserved a block, the coefficient table beside):
+  // 3 / 2 / 1 in float64 at NB 2 / 4 / 8
+  static constexpr int kResident = int(
       (228 * 1024) / (kBytes + sizeof(T) * 2 * kRows * 4 + 1024));
-  static constexpr int kResident = kFit < 6 ? kFit : 6;
 };
 
-// The grouped kernel (NB > 1), the twin of the reference's nb program:
-// one block per (order, group of NB maps) runs the recurrence of its rings
-// once (Keep) and contracts it against all NB maps' spectra on the tensor
-// cores (tc_contract.cuh): per sub-chunk of kSub multipoles a warp stages
-// its emitted values and multiplies its A tiles by them, D[rows, l] for
-// the 16 rows of each row tile (both parities of each map's (re, im)),
-// keeping for each l the rows of its parity.  (Multiplying each parity's
-// multipoles by that parity's rows alone, a quad of 4 sub-chunks at a
-// time, halves the products but needs a staging buffer four times as
-// large, and ran slower on the card: the kernel is held back by its
-// latencies, so it gains more from a third block an SM than from fewer
-// mmas.)  The path of a sub-chunk is a property of the rings, so one
+// The grouped kernel's tc body (NB > 1; float64), the twin of the
+// reference's nb program: one block per (order, group of NB maps) runs
+// the recurrence of its rings once (Keep) and contracts it against all NB
+// maps' spectra on the tensor cores (tc_contract.cuh): per sub-chunk of
+// kSub multipoles a warp stages its emitted values and multiplies its A
+// tiles by them, D[rows, l] for the 16 rows of each row tile (both
+// parities of each map's (re, im)), keeping for each l the rows of its
+// parity.  The path of a sub-chunk is a property of the rings, so one
 // decision serves the group, and a dead sub-chunk, or one that emitted
 // only zeros, costs nothing per map: its sums are zeros.  The warps' sums
 // meet in part[] once per section, where the coefficient table's double
 // buffer needs a barrier anyway, and are summed in a fixed order and
 // flushed as in the NB = 1 kernel; part[] has one buffer, so a second
 // barrier closes the flush.  The sums run in another order than the
-// NB = 1 kernel's (and 3xTF32 in float32), so the outputs are not its
-// bits; every launch repeats bit for bit.
-template <typename T, bool kComp, int NB>
-__global__ void __launch_bounds__(kThreads, GroupSmem<T, NB>::kResident)
-    analysis_group_kernel(const T* __restrict__ f0, const T* __restrict__ f1,
-                          const T* __restrict__ x, const T* __restrict__ xr,
-                          const double* __restrict__ logch,
-                          const double* __restrict__ logsh,
-                          const double* __restrict__ seed, T* __restrict__ out,
-                          int nhalf, int nm, int lmax, int m0) {
+// NB = 1 kernel's, so the outputs are not its bits; every launch repeats
+// bit for bit.
+template <typename T, int NB>
+__device__ __forceinline__ void tc_group_body(
+    const T* __restrict__ f0, const T* __restrict__ f1,
+    const T* __restrict__ x, const T* __restrict__ xr,
+    const double* __restrict__ logch, const double* __restrict__ logsh,
+    const double* __restrict__ seed, T* __restrict__ out, int nhalf, int nm,
+    int lmax, int m0, unsigned char* smem) {
   using S = GroupSmem<T, NB>;
   static_assert(NB > 1 && kRows % kSub == 0 && kSub == 8 && kGR % 2 == 0,
                 "a group of maps; sub-chunks tile the section; a sub-chunk "
                 "is one mma's 8 columns; ring slots in pairs");
-  static_assert(!kComp || sizeof(T) == 4, "comp is a float32 mode");
-  extern __shared__ __align__(16) unsigned char smem[];
+  static_assert(sizeof(T) == 8, "float32 and comp run ws_group_body");
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -558,22 +659,9 @@ __global__ void __launch_bounds__(kThreads, GroupSmem<T, NB>::kResident)
     Ring<T> rings[kGR];
 #pragma unroll
     for (int r = 0; r < kGR; ++r) {
-      Ring<T>& p = rings[r];
       const int ring = tile * kGTile + (warp * kGR + r) * 32 + lane;
-      p.dp = T(0);
-      if (kComp) p.dpl = p.dcl = p.r = T(0);
-      if (ring < nhalf) {
-        const double lch = logch[ring], lsh = logsh[ring];
-        p.x = x[ring];
-        if (kComp) p.r = xr[ring];
-        // seed exponents of cos(t/2) and sin(t/2): both m
-        seed_of<T>(seed[mc], seed[nm + mc], double(m), double(m), lch, lsh,
-                   p.dc, p.k);
-      } else {
-        p.x = T(0);
-        p.dc = T(0);
-        p.k = kNoSeed;
-      }
+      seed_ring<T, false>(rings[r], ring, nhalf, x, xr, logch, logsh, seed,
+                          mc, nm, m);
       // this ring is k = lane % 4 + 4 (r % 2) of k-step 8 (r / 2) + lane / 4
       T* const step = at + (8 * (r / 2) + (lane >> 2)) * S::kStep;
       for (int j = 0; j < NB; ++j) {
@@ -603,7 +691,7 @@ __global__ void __launch_bounds__(kThreads, GroupSmem<T, NB>::kResident)
       for (int u = 0; u < nsub; ++u) {
         T lam[kSub][kGR];
         const Path path = sub_path(rings);
-        spin0_sub_on<T, kComp>(path, &tab[tb][u * kSub][0], rings,
+        spin0_sub_on<T, false>(path, &tab[tb][u * kSub][0], rings,
                                Keep<T, kGR>{lam});
         T d[S::kTiles][4] = {};
         if (path != Path::kDead && warp_live(rings)) {
@@ -657,6 +745,409 @@ __global__ void __launch_bounds__(kThreads, GroupSmem<T, NB>::kResident)
   }
 }
 
+// The warp-specialised group body's shape (float32 and comp, see
+// ws_group_body): kPairs producer warps, each running the recurrence of 64
+// rings of the block's ring tile (kGR = 2 a lane, as in the tc body), and
+// as many consumer warps, each contracting what one producer emits against
+// the group's spectra on the tensor cores, for all kNT column tiles of 8
+// (4 maps' re and im).  Between each producer and its consumer a ring of
+// kStages stages, each a window of kWin multipoles of the producer's 64
+// rings in the consumer's A-fragment order.
+template <int NB>
+struct WsShape {
+  static constexpr int kNT = (NB + 3) / 4;  // column tiles of 8
+  static constexpr int kPairs = 8;          // producer (and consumer) warps
+  static constexpr int kTile = kPairs * 32 * kGR;  // rings: 512
+  static constexpr int kThreads = 2 * 32 * kPairs;
+  // the consumer threads' flush: row ct % 128 of a section, kFlushMaps maps
+  static constexpr int kFlushMaps = (NB * kRows) / (32 * kPairs);
+  static constexpr int kStages = 2;
+  static constexpr int kWin = 32;          // multipoles a stage
+  static constexpr int kKSteps = 4 * kGR;  // k-steps of 8 rings: 64 rings
+  static constexpr int kStep = 32 * 4;     // a k-step's fragments
+  static constexpr int kParity = kKSteps * kStep;  // one parity's 16 rows
+  static constexpr int kStage = 2 * kParity;       // floats a stage
+  // part[] rows of one (producer, map): 128 (re, im) and a pair of
+  // padding, so that a consumer warp's stores of 8 rows x 4 maps fall on
+  // distinct banks
+  static constexpr int kPartRows = kRows * NC + 2;
+  static constexpr int kPart = kPairs * NB * kPartRows;
+  static constexpr int kPrev = NB * kRows * NC;  // the rows' earlier sums
+  static constexpr size_t kBytes =
+      sizeof(float) * (size_t(kPairs) * kStages * kStage + kPart + kPrev) +
+      sizeof(unsigned long long) * 2 * kPairs * kStages +
+      sizeof(int) * kPairs * kStages;
+  static constexpr int kResident = 1;
+  // registers a thread after setmaxnreg where the consumers hold two
+  // column tiles of spectra (NB = 8: 128 registers of B fragments); 0:
+  // the launch's even share (128 of the 16 warps' 65536) serves both
+  static constexpr int kProducerRegs = kNT == 2 ? 80 : 0;
+  static constexpr int kConsumerRegs = kNT == 2 ? 256 - kProducerRegs : 0;
+  static_assert(kProducerRegs + kConsumerRegs <= 256 &&
+                    (NB * kRows) % (32 * kPairs) == 0,
+                "the warps' registers fit the file; the flush tiles the "
+                "section's rows and maps");
+};
+
+// The place of a consumer lane's A fragment in a k-step of a stage: lane
+// c's four values at 4 c, with bit 2 of c flipped in odd k-steps, so that
+// the producer lanes of a quarter-warp (two k-steps, the same rows) store
+// their 16 bytes on distinct banks while a consumer's k-step stays one
+// 512-byte read.
+__device__ __forceinline__ int ws_frag(int ks, int c) {
+  return 4 * (c ^ (4 * (ks & 1)));
+}
+
+// kSub steps of a producer's rings (sub-chunk u of its window), their
+// emitted values stored where the consumer's A fragments read them: rows
+// g and g + 8 of parity p's tile are the window's multipoles 4 g + p and
+// 4 g + 2 + p, so sub-chunk u fills g = 2 u and 2 u + 1, and a lane's two
+// rings are k = lane % 4 and lane % 4 + 4 of k-step lane / 4.  ``st`` is
+// the stage; a dead sub-chunk stores zeros.
+template <Path P, bool kComp, int kParity>
+__device__ __forceinline__ void ws_produce(const float* __restrict__ cf,
+                                           Ring<float> (&rs)[kGR], float* st,
+                                           int lane, int u) {
+  float lam[kSub][kGR];
+  spin0_steps<float, P, kComp>(PairRows{cf}, rs, Keep<float, kGR>{lam});
+  const int ks = lane >> 2;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float* const at =
+        st + ks * 128 + ws_frag(ks, 4 * (2 * u + h) + (lane & 3));
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if constexpr (P != Path::kDead) {
+        v = make_float4(lam[4 * h + p][0], lam[4 * h + 2 + p][0],
+                        lam[4 * h + p][1], lam[4 * h + 2 + p][1]);
+      }
+      *reinterpret_cast<float4*>(at + p * kParity) = v;
+    }
+  }
+}
+
+// The grouped kernel's float32 and comp body on Hopper: the tc body's
+// recurrence and contraction split between warps of their own (the
+// source note has why and the numbers).  Producer warp w runs the
+// recurrence of its 64 rings (the same steps, paths and rounding as the tc
+// body) and writes each window of kWin multipoles into a stage of its
+// ring, in fragment order; consumer warp w holds the spectra of those 64
+// rings, split into TF32 hi and lo once per ring tile, as B fragments in
+// registers, and per stage runs, for each of its column tiles, 8 k-steps
+// x 2 parities x 3 mma.sync m16n8k8 (A = the emitted values of 16
+// multipoles of one parity, B = that parity's spectra of 4 maps' re and
+// im: no product on rows a multipole does not read).  A window in which
+// the producer's rings emitted nothing is flagged and costs its consumer
+// no product.  The consumers' sums of a window go to part[] (warp, map,
+// row); the consumer warps meet once per section of 128 multipoles, where
+// each thread sums the producers' slots of its rows in a fixed order and
+// flushes them as the tc body does, with their earlier sums copied in
+// while the section ran; the producers meet once per section for the
+// coefficient table's double buffer.  Every sum runs in a fixed order, so
+// launches repeat bit for bit.
+template <bool kComp, int NB>
+__device__ __forceinline__ void ws_group_body(
+    const float* __restrict__ f0, const float* __restrict__ f1,
+    const float* __restrict__ x, const float* __restrict__ xr,
+    const double* __restrict__ logch, const double* __restrict__ logsh,
+    const double* __restrict__ seed, float* __restrict__ out, int nhalf,
+    int nm, int lmax, int m0, unsigned char* smem) {
+  using W = WsShape<NB>;
+  using Slot = ws::Slot<W::kStages>;
+  static_assert(kRows % W::kWin == 0 && W::kWin % kSub == 0 && kGR == 2,
+                "windows tile the section; sub-chunks tile a window; a "
+                "lane's two rings are a fragment's two k");
+  float* const stages = reinterpret_cast<float*>(smem);
+  float* const part = stages + W::kPairs * W::kStages * W::kStage;
+  float* const prev = part + W::kPart;
+  unsigned long long* const full =
+      reinterpret_cast<unsigned long long*>(prev + W::kPrev);
+  unsigned long long* const empty = full + W::kPairs * W::kStages;
+  int* const live = reinterpret_cast<int*>(empty + W::kPairs * W::kStages);
+  __shared__ __align__(16) float tab[2][kRows][2];  // a1, b (a0 is -0.0)
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int mc = blockIdx.x;
+  const int m = m0 + mc;
+  const int g0 = blockIdx.y * NB;
+  const int s = 0;
+  const int j0 = m;
+  const int ntiles = (nhalf + W::kTile - 1) / W::kTile;
+  const size_t plane = size_t(lmax + 1) * nm * 2;
+  const size_t col = size_t(g0) * plane + size_t(mc) * 2;
+  const size_t rs = size_t(nm) * 2;
+
+  const int lz = (j0 <= lmax && ntiles > 0) ? j0 : lmax + 1;
+  for (int l = tid; l < lz; l += W::kThreads) {
+    for (int j = 0; j < NB; ++j) {
+      store2(out + col + j * plane + l * rs, 0.f, 0.f);
+    }
+  }
+  if (lz > lmax) return;
+
+  const int n = lmax - j0 + 1;
+  const int nsec = (n + kRows - 1) / kRows;
+
+  if (tid == 0) {
+    for (int i = 0; i < W::kPairs * W::kStages; ++i) {
+      ws::bar_init(&full[i], 32);
+      ws::bar_init(&empty[i], 32);
+    }
+    ws::bar_init_fence();
+  }
+  if (tid < kRows) {
+    float a0;
+    coef_row<float>(j0 + tid + 1, j0, m, s, lmax, &tab[0][tid][0], &a0,
+                    &tab[0][tid][1]);
+  }
+  __syncthreads();
+
+  if (warp < W::kPairs) {
+    // a producer: the recurrence of rings (warp kGR + r) 32 + lane of
+    // each tile
+    if constexpr (W::kProducerRegs > 0) ws::release_regs<W::kProducerRegs>();
+    int q = 0;      // running section count: selects the table buffer
+    int taken = 0;  // stages filled
+    float* const own = stages + warp * W::kStages * W::kStage;
+    for (int tile = 0; tile < ntiles; ++tile) {
+      Ring<float> rings[kGR];
+#pragma unroll
+      for (int r = 0; r < kGR; ++r) {
+        const int ring = tile * W::kTile + (warp * kGR + r) * 32 + lane;
+        seed_ring<float, kComp>(rings[r], ring, nhalf, x, xr, logch, logsh,
+                                seed, mc, nm, m);
+      }
+      for (int sec = 0; sec < nsec; ++sec, ++q) {
+        const int tb = q & 1;
+        const int sn = (sec + 1 < nsec) ? sec + 1 : 0;
+        // the next section's row, stored after the windows: its float64
+        // latency is not waited on here
+        float ca1 = 0.f, ca0, cb = 0.f;
+        if (tid < kRows) {
+          coef_row<float>(j0 + sn * kRows + tid + 1, j0, m, s, lmax, &ca1,
+                          &ca0, &cb);
+        }
+        const int nwin =
+            (min(kRows, n - sec * kRows) + W::kWin - 1) / W::kWin;
+        for (int w = 0; w < nwin; ++w, ++taken) {
+          const Slot slot(taken);
+          const int idx = warp * W::kStages + slot.stage;
+          ws::wait(&empty[idx], slot.parity ^ 1u);
+          float* const st = own + slot.stage * W::kStage;
+          bool any = false;
+#pragma unroll 1
+          for (int u = 0; u < W::kWin / kSub; ++u) {
+            const float* cf = &tab[tb][w * W::kWin + u * kSub][0];
+            const Path path = sub_path(rings);
+            if (path == Path::kSteady) {
+              ws_produce<Path::kSteady, kComp, W::kParity>(cf, rings, st,
+                                                           lane, u);
+            } else if (path == Path::kDead) {
+              ws_produce<Path::kDead, kComp, W::kParity>(cf, rings, st, lane,
+                                                         u);
+            } else {
+              ws_produce<Path::kFull, kComp, W::kParity>(cf, rings, st, lane,
+                                                         u);
+            }
+            // warp-uniform: a path and warp_live are the warp's votes
+            any = any || (path != Path::kDead && warp_live(rings));
+          }
+          if (lane == 0) live[idx] = any;
+          ws::arrive(&full[idx]);
+        }
+        if (tid < kRows) {
+          tab[tb ^ 1][tid][0] = ca1;
+          tab[tb ^ 1][tid][1] = cb;
+        }
+        ws::named_sync(1, 32 * W::kPairs);
+      }
+    }
+  } else {
+    // a consumer: producer pw's rings against every column tile h, columns
+    // c = 2 (map - 4 h) + (re, im)
+    if constexpr (W::kConsumerRegs > 0) ws::claim_regs<W::kConsumerRegs>();
+    const int pw = warp - W::kPairs;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const int ct = tid - 32 * W::kPairs;  // the consumer thread: its flush
+    const unsigned nthreads = 32 * W::kPairs;
+    int taken = 0;
+    for (int tile = 0; tile < ntiles; ++tile) {
+      // B(k, c) of k-step ks, parity p and column tile h: the spectrum of
+      // ring k of the k-step (lane k % 4's slot k / 4 of producer pw) at
+      // column c, times 2^-60, split; lane (g, t) holds B(t, g) and
+      // B(t + 4, g)
+      unsigned bh[W::kNT][2][W::kKSteps][2], bl[W::kNT][2][W::kKSteps][2];
+      {
+        const float inv = Arith<float>::inv_scale();
+        const float* const fe = (j0 & 1) ? f1 : f0;  // F of j0's parity
+        const float* const fo = (j0 & 1) ? f0 : f1;
+#pragma unroll
+        for (int h = 0; h < W::kNT; ++h) {
+          const int j = 4 * h + (g >> 1);
+#pragma unroll
+          for (int p = 0; p < 2; ++p) {
+#pragma unroll
+            for (int ks = 0; ks < W::kKSteps; ++ks) {
+#pragma unroll
+              for (int i = 0; i < 2; ++i) {
+                const int ring =
+                    tile * W::kTile + (pw * kGR + i) * 32 + 4 * ks + t;
+                float v = 0.f;
+                if (ring < nhalf && j < NB) {
+                  const size_t off =
+                      ((size_t(g0 + j) * nhalf + ring) * nm + mc) * 2 +
+                      (g & 1);
+                  v = (p ? fo : fe)[off] * inv;
+                }
+                tc::split(v, bh[h][p][ks][i], bl[h][p][ks][i]);
+              }
+            }
+          }
+        }
+      }
+      for (int sec = 0; sec < nsec; ++sec) {
+        const int nwin =
+            (min(kRows, n - sec * kRows) + W::kWin - 1) / W::kWin;
+        // the thread's flush: row u of the section, maps j1 <= j < j2;
+        // their sums over the earlier tiles are copied in while the
+        // section runs
+        const int u = ct % kRows;
+        const int lf = j0 + sec * kRows + u;
+        const int j1 = W::kFlushMaps * (ct / kRows);
+        const int j2 = j1 + W::kFlushMaps;
+        if (tile > 0 && lf <= lmax) {
+          for (int j = j1; j < j2; ++j) {
+            ws::copy8_async(&prev[(j * kRows + u) * NC],
+                            out + col + j * plane + lf * rs);
+          }
+          ws::commit_copies();
+        }
+        for (int w = 0; w < nwin; ++w, ++taken) {
+          const Slot slot(taken);
+          const int idx = pw * W::kStages + slot.stage;
+          ws::wait(&full[idx], slot.parity);
+          // per (column tile, parity) two chains, summed at the window's
+          // end, the small products (lo hi, hi lo) and hi hi; with two
+          // column tiles one chain, lo hi, hi lo and hi hi in turn (the
+          // registers of its second B tile)
+          float d[W::kNT][2][4] = {};
+          if (live[idx]) {
+            const float* const a = stages + idx * W::kStage;
+            float sm[W::kNT][2][4] = {};
+            float bg[2][4] = {};  // the hi hi chain of one column tile
+#pragma unroll
+            for (int ks = 0; ks < W::kKSteps; ++ks) {
+#pragma unroll
+              for (int p = 0; p < 2; ++p) {
+                const float4 av = *reinterpret_cast<const float4*>(
+                    a + p * W::kParity + ks * W::kStep + ws_frag(ks, lane));
+                uint4 ah, alo;
+                tc::split(av.x, ah.x, alo.x);
+                tc::split(av.y, ah.y, alo.y);
+                tc::split(av.z, ah.z, alo.z);
+                tc::split(av.w, ah.w, alo.w);
+#pragma unroll
+                for (int h = 0; h < W::kNT; ++h) {
+                  tc::mma(sm[h][p], alo, bh[h][p][ks]);
+                  tc::mma(sm[h][p], ah, bl[h][p][ks]);
+                  tc::mma(W::kNT == 1 ? bg[p] : sm[h][p], ah, bh[h][p][ks]);
+                }
+              }
+            }
+#pragma unroll
+            for (int h = 0; h < W::kNT; ++h) {
+#pragma unroll
+              for (int p = 0; p < 2; ++p) {
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {
+                  d[h][p][i] =
+                      W::kNT == 1 ? sm[h][p][i] + bg[p][i] : sm[h][p][i];
+                }
+              }
+            }
+          }
+          ws::arrive(&empty[idx]);
+          // lane (g, t) holds map 4 h + t's (re, im) at row g
+          // (d[h][p][0..1]) and row g + 8 (d[h][p][2..3]): the window's
+          // multipoles 4 g + p and 4 g + 2 + p
+#pragma unroll
+          for (int h = 0; h < W::kNT; ++h) {
+            const int jt = 4 * h + t;
+            if (jt < NB) {
+#pragma unroll
+              for (int p = 0; p < 2; ++p) {
+#pragma unroll
+                for (int hf = 0; hf < 2; ++hf) {
+                  const int r = w * W::kWin + 4 * g + 2 * hf + p;
+                  store2(&part[(pw * NB + jt) * W::kPartRows + r * NC],
+                         d[h][p][2 * hf], d[h][p][2 * hf + 1]);
+                }
+              }
+            }
+          }
+        }
+        ws::named_sync(2, nthreads);
+        if (lf <= lmax) {
+          const float norm = norm_of<float>(lf);
+          if (tile > 0) ws::wait_copies();
+          for (int j = j1; j < j2; ++j) {
+            float* const fo_row = out + col + j * plane + lf * rs;
+            float pv[2] = {0.f, 0.f};
+            if (tile > 0) load2(&prev[(j * kRows + u) * NC], pv[0], pv[1]);
+            float re = 0.f, im = 0.f;
+#pragma unroll
+            for (int v = 0; v < W::kPairs; ++v) {
+              float pr, pi;
+              load2(&part[(v * NB + j) * W::kPartRows + u * NC], pr, pi);
+              re += pr;
+              im += pi;
+            }
+            store2(fo_row, pv[0] + re * norm, pv[1] + im * norm);
+          }
+        }
+        ws::named_sync(2, nthreads);
+      }
+    }
+  }
+}
+
+// Which body a grouped instantiation runs, and its launch: float64 runs
+// the tc body, float32 and comp the warp-specialised one (the source note
+// has why).  heracles_analysis_spin0_ws reports kWS to the caller, so that
+// this is the one place of the rule.
+template <typename T, bool kComp, int NB>
+struct GroupLaunch {
+  static constexpr bool kWS = sizeof(T) == 4;
+  static constexpr int kBlock = kWS ? WsShape<NB>::kThreads : kThreads;
+  static constexpr int kResident =
+      kWS ? WsShape<NB>::kResident : GroupSmem<T, NB>::kResident;
+  static constexpr size_t kBytes =
+      kWS ? WsShape<NB>::kBytes : GroupSmem<T, NB>::kBytes;
+};
+
+template <typename T, bool kComp, int NB>
+__global__ void __launch_bounds__(GroupLaunch<T, kComp, NB>::kBlock,
+                                  GroupLaunch<T, kComp, NB>::kResident)
+    analysis_group_kernel(const T* __restrict__ f0, const T* __restrict__ f1,
+                          const T* __restrict__ x, const T* __restrict__ xr,
+                          const double* __restrict__ logch,
+                          const double* __restrict__ logsh,
+                          const double* __restrict__ seed, T* __restrict__ out,
+                          int nhalf, int nm, int lmax, int m0) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  if constexpr (GroupLaunch<T, kComp, NB>::kWS) {
+    ws_group_body<kComp, NB>(f0, f1, x, xr, logch, logsh, seed, out, nhalf,
+                             nm, lmax, m0, smem);
+  } else {
+    tc_group_body<T, NB>(f0, f1, x, xr, logch, logsh, seed, out, nhalf, nm,
+                         lmax, m0, smem);
+  }
+}
+
 template <typename T, bool kComp, bool kCount>
 int launch(const void* f0, const void* f1, const void* x, const void* xr,
            const void* logch, const void* logsh, const void* seed, void* out,
@@ -677,7 +1168,7 @@ int launch(const void* f0, const void* f1, const void* x, const void* xr,
 // Lets the grouped kernel take its shared memory, and returns it.
 template <typename T, bool kComp, int NB>
 cudaError_t group_smem_attr(size_t* smem) {
-  *smem = GroupSmem<T, NB>::kBytes;
+  *smem = GroupLaunch<T, kComp, NB>::kBytes;
   return cudaFuncSetAttribute(analysis_group_kernel<T, kComp, NB>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               int(*smem));
@@ -693,7 +1184,7 @@ int launch_group(const void* f0, const void* f1, const void* x,
   const cudaError_t err = group_smem_attr<T, kComp, NB>(&smem);
   if (err != cudaSuccess) return int(err);
   analysis_group_kernel<T, kComp, NB>
-      <<<dim3(nm, batch / NB), kThreads, smem,
+      <<<dim3(nm, batch / NB), GroupLaunch<T, kComp, NB>::kBlock, smem,
          static_cast<cudaStream_t>(stream)>>>(
           static_cast<const T*>(f0), static_cast<const T*>(f1),
           static_cast<const T*>(x), static_cast<const T*>(xr),
@@ -737,7 +1228,24 @@ int group_blocks(int* n) {
   const cudaError_t err = group_smem_attr<T, kComp, NB>(&smem);
   if (err != cudaSuccess) return int(err);
   return int(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      n, analysis_group_kernel<T, kComp, NB>, kThreads, smem));
+      n, analysis_group_kernel<T, kComp, NB>,
+      GroupLaunch<T, kComp, NB>::kBlock, smem));
+}
+
+// Whether the grouped launch at nb runs the warp-specialised body (0 at
+// nb = 1 or an nb without a group).
+template <typename T, bool kComp>
+int ws_nb(int nb) {
+  switch (nb) {
+    case 2:
+      return GroupLaunch<T, kComp, 2>::kWS;
+    case 4:
+      return GroupLaunch<T, kComp, 4>::kWS;
+    case 8:
+      return GroupLaunch<T, kComp, 8>::kWS;
+    default:
+      return 0;
+  }
 }
 
 template <typename T, bool kComp>
@@ -827,6 +1335,14 @@ int heracles_analysis_spin0_blocks_per_sm(int variant, int nb, void* blocks) {
   if (variant == 1) return blocks_nb<double, false>(nb, n);
   if (variant == 2) return blocks_nb<float, true>(nb, n);
   return blocks_nb<float, false>(nb, n);
+}
+
+// 1 if the spin-0 analysis' launch of a variant (as above) in groups of
+// nb maps runs the warp-specialised group body, else 0.
+int heracles_analysis_spin0_ws(int variant, int nb) {
+  if (variant == 1) return ws_nb<double, false>(nb);
+  if (variant == 2) return ws_nb<float, true>(nb);
+  return ws_nb<float, false>(nb);
 }
 
 const char* heracles_cuda_error_string(int err) {

@@ -35,7 +35,8 @@ SOURCES = tuple(_PKG / "csrc" / name
                              "ringfft.cu"))
 HEADERS = tuple(_PKG / "csrc" / name
                 for name in ("sht_paths.cuh", "tc_contract.cuh",
-                             "warp_reduce.cuh", "wigner_recurrence.cuh"))
+                             "warp_reduce.cuh", "wigner_recurrence.cuh",
+                             "ws_pipeline.cuh"))
 BUILD_DIR = _PKG.parent / "build" / "heracles_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -58,6 +59,7 @@ _SIGNATURES = {
     "heracles_analysis_spin0_comp_f32": (_I, [_P] * 8 + [_I] * 6 + [_P]),
     "heracles_analysis_spin0_comp_paths_f32": (_I, [_P] * 9 + [_I] * 6 + [_P]),
     "heracles_analysis_spin0_blocks_per_sm": (_I, [_I, _I, _P]),
+    "heracles_analysis_spin0_ws": (_I, [_I, _I]),
     "heracles_cuda_error_string": (ctypes.c_char_p, [_I]),
     "heracles_analysis_pair_f32": (_I, [_P] * 10 + [_I] * 7 + [_P]),
     "heracles_analysis_pair_f64": (_I, [_P] * 10 + [_I] * 7 + [_P]),

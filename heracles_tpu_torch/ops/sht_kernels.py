@@ -38,7 +38,8 @@ instantiation (``wigner.GROUP_SIZES``) or does not divide B raises
 ValueError on every device.
 
 No kernel's shared memory grows with lmax; the one bound on it is
-``LMAX_LIMIT``.  ``LAUNCHES`` counts kernel launches per kernel name,
+``LMAX_LIMIT``.  ``LAUNCHES`` counts kernel launches per kernel name
+(and, under ``WS_LAUNCHES``, the spin-0 analysis' warp-specialised groups),
 ``LAUNCHES_BY_PRECISION`` the same launches per (name, "f32", "f64" or
 "f32c", the compensated kernel), ``LAUNCHES_BY_NB`` per (name, nb).
 :func:`path_counts` is a diagnostic launch of the spin-0 analysis, of the
@@ -67,6 +68,7 @@ __all__ = [
     "LAUNCHES_BY_PRECISION",
     "LAUNCHES_BY_NB",
     "LMAX_LIMIT",
+    "WS_LAUNCHES",
     "NB_SIZES",
     "pick_nb",
     "reset_counts",
@@ -75,6 +77,12 @@ __all__ = [
 LAUNCHES = tracing.counter("sht_kernels.LAUNCHES")
 LAUNCHES_BY_PRECISION = tracing.counter("sht_kernels.LAUNCHES_BY_PRECISION")
 LAUNCHES_BY_NB = tracing.counter("sht_kernels.LAUNCHES_BY_NB")
+
+# LAUNCHES' count of the spin-0 analysis' launches that ran the
+# warp-specialised group body of csrc/sht_analysis.cu, as the library
+# reports it (heracles_analysis_spin0_ws): a part of
+# LAUNCHES["analysis_spin0_folded"], not a kernel of its own
+WS_LAUNCHES = "analysis_spin0_ws"
 
 # the kernels' dead path (csrc/sht_paths.cuh) rests on a step of the
 # recurrence growing a value by less than sqrt(2 lmax) + 2 < 2^8.1: 8 steps
@@ -95,7 +103,7 @@ def reset_counts():
 # the compensated float32 kernel); pick_nb's docstring has the times and
 # the rule they rest on
 NB_SIZES = {
-    "analysis_spin0_folded": {"f32": (1, 4), "f64": (1, 4),
+    "analysis_spin0_folded": {"f32": (1, 2, 4, 8), "f64": (1, 4),
                               "f32c": (1, 2, 4, 8)},
     "analysis_pair_folded": {"f32": (1, 2, 4), "f64": (1, 2, 4),
                              "f32c": (1, 2, 4)},
@@ -130,9 +138,9 @@ def pick_nb(B, lmax, name, precision="f32"):
     ========== ====== ====== ====== ======  =====================
     kernel     nb 1   nb 2   nb 4   nb 8    resident blocks / SM
     ========== ====== ====== ====== ======  =====================
-    B1 f32     9.54*  10.44  5.49*  5.96    6, 6, 4, 2
+    B1 f32     9.24*  7.79*  4.47*  3.66*   6, 1, 1, 1
     B1 f64     15.33* 14.88  9.93*  11.93   3, 3, 2, 1
-    B1 comp    17.56* 12.83* 6.72*  6.74*   5, 6, 4, 2
+    B1 comp    17.49* 10.21* 5.67*  4.37*   5, 1, 1, 1
     B2 f32     23.43* 18.80* 12.90*         4, 4, 2
     B2 f64     37.23* 31.33* 25.66*         2, 2, 1
     B2 comp    36.58* 23.86* 15.13*         3, 4, 2
@@ -144,15 +152,21 @@ def pick_nb(B, lmax, name, precision="f32"):
     B4 comp    34.32* 16.33* 13.04*         3, 4, 4
     ========== ====== ====== ====== ======  =====================
 
-    At nside 4096, lmax 3000 on 8 maps: B1 115.30 / 134.43 / 72.65 /
-    79.29 ms (f32), 186.40 / 210.08 / 134.79 / 166.56 (f64), 222.79 /
-    174.62 / 87.95 / 86.47 (comp) at nb 1 / 2 / 4 / 8; B2 323.07 /
+    At nside 4096, lmax 3000 on 8 maps: B1 115.47 / 99.99 / 55.70 /
+    47.02 ms (f32), 186.40 / 210.08 / 134.79 / 166.56 (f64), 224.24 /
+    132.79 / 70.32 / 54.05 (comp) at nb 1 / 2 / 4 / 8; B2 323.07 /
     255.02 / 168.64 (f32), 532.13 / 440.62 / 356.94 (f64), 516.54 /
     320.90 / 197.68 (comp) at nb 1 / 2 / 4.  The analyses' groups
     contract on the tensor cores, a cost of each group whatever its nb,
-    so B1's nb 2 (its 8 rows fill half of each product) loses to nb 1
-    in float32 at both sizes and in float64 at nside 4096, and nb 8 (2
-    blocks an SM) loses to nb 4 in float32 and float64.  A synthesis group keeps
+    so B1's float64 nb 2 (the tc body: its 8 rows fill half of each
+    product) loses to nb 1 at nside 4096, and nb 8 (one block an SM)
+    loses to nb 4.  B1's float32 and comp groups run the warp-specialised
+    body (csrc/sht_analysis.cu), one block of 16 warps an SM, whose
+    producer warps' recurrence serves every map of the group: each
+    larger group wins (the tc body's float32 row was 9.54 / 10.44 / 5.49
+    / 5.96 at nside 1024 and 115.30 / 134.43 / 72.65 / 79.29 at nside
+    4096, its comp row 17.56 / 12.83 / 6.72 / 6.74 and 222.79 / 174.62 /
+    87.95 / 86.47).  A synthesis group keeps
     its sums in registers and owns fewer rings a thread as nb grows, so
     a block's tile of rings shrinks and each tile reads the order's alm
     column again: B3's nb 8 (a tile of 128 rings) loses at nside 1024
@@ -314,6 +328,9 @@ def _launch(name, inputs, x, logch, logsh, lmax, spin, out_rows, nout,
     if paths:
         return counts[0]
     LAUNCHES[name] += 1
+    if name == "analysis_spin0_folded" and kl.lib.heracles_analysis_spin0_ws(
+            2 if comp else int(is_double), nb):
+        LAUNCHES[WS_LAUNCHES] += 1
     LAUNCHES_BY_PRECISION[name, prec] += 1
     LAUNCHES_BY_NB[name, nb] += 1
     return [o.reshape(batch + (out_rows, nm)) for o in outs]

@@ -203,14 +203,16 @@ def test_pick_nb_rule(name, precision):
 
 
 def test_pick_nb_skips_a_group_that_loses_to_nb1():
-    """The spin-0 analysis' float32 nb 2 loses to nb 1 on the card
+    """The spin-0 analysis' float64 nb 2 loses to nb 1 on the card
     (``pick_nb``'s table): a batch of 2 or 6 runs at nb 1, of 4 or 8 at
-    nb 4; comp keeps nb 2 and takes nb 8."""
+    nb 4; float32 and comp (their warp-specialised groups) take every
+    group, nb 2 on 2 or 6 maps and nb 8 on 8."""
     name = "analysis_spin0_folded"
-    assert [sht_kernels.pick_nb(B, LMAX, name) for B in (2, 4, 6, 8)] == [
-        1, 4, 1, 4]
-    assert [sht_kernels.pick_nb(B, LMAX, name, "f32c")
-            for B in (2, 6, 8)] == [2, 2, 8]
+    assert [sht_kernels.pick_nb(B, LMAX, name, "f64")
+            for B in (2, 4, 6, 8)] == [1, 4, 1, 4]
+    for precision in ("f32", "f32c"):
+        assert [sht_kernels.pick_nb(B, LMAX, name, precision)
+                for B in (2, 4, 6, 8)] == [2, 4, 2, 8]
 
 
 @pytest.mark.parametrize("name", NAMES)

@@ -1060,6 +1060,17 @@ def test_comp_blocks_per_sm(cuda):
 # 600 rings: a whole tile of 512 and a ragged one; orders 7..46, columns
 # of up to 194 multipoles (two sections of 128); a batch of 8
 _NB_CASE = dict(nside=300, lmax=200, nm=40, m0=7, batch=8)
+# B1's float32 groups (the warp-specialised body) also at the DICES shape,
+# every order, and at bin 0's n4096 / l3000 shape on two blocks of 64
+# orders: the first, and one that straddles lmax (orders 2970..3033, the
+# last 33 columns zeros)
+_NB_CASES = {
+    "n300": _NB_CASE,
+    "n1024_l1536": dict(nside=1024, lmax=1536, nm=1537, m0=0, batch=8),
+    "n4096_l3000_m0": dict(nside=4096, lmax=3000, nm=64, m0=0, batch=8),
+    "n4096_l3000_m2970": dict(nside=4096, lmax=3000, nm=64, m0=2970,
+                              batch=8),
+}
 _GROUPED = ("analysis_spin0_folded", "analysis_pair_folded",
             "synthesis_spin0_folded", "synthesis_pair_folded")
 # sha256[:16] of the nb = 1 outputs of each kernel before its grouped
@@ -1081,9 +1092,10 @@ _NB1_DIGESTS = {
 }
 
 
-def _nb_inputs(name, mode, device):
-    """Seeded inputs of the grouped-launch tests: (args, keywords)."""
-    c = _NB_CASE
+def _nb_inputs(name, mode, device, case="n300"):
+    """Seeded inputs of the grouped-launch tests at ``_NB_CASES[case]``:
+    (args, keywords)."""
+    c = _NB_CASES[case]
     cdtype = torch.complex128 if mode == "f64" else torch.complex64
     if name.startswith("analysis"):
         nspec = 2 if name == "analysis_spin0_folded" else 4
@@ -1137,15 +1149,25 @@ def test_every_nb_is_bit_for_bit_nb1(cuda, name, mode):
             assert torch.equal(g, b), (name, mode, nb)
 
 
-@pytest.mark.parametrize("mode", ["f32", "f64", "comp"])
-@pytest.mark.parametrize("name", _ANALYSES)
-def test_every_analysis_nb_repeats_and_agrees(cuda, name, mode):
+_NB_ANALYSIS_CASES = [
+    *((name, mode, "n300") for name in _ANALYSES
+      for mode in ("f32", "f64", "comp")),
+    *(("analysis_spin0_folded", "f32", case) for case in _NB_CASES
+      if case != "n300"),
+    ("analysis_spin0_folded", "comp", "n1024_l1536"),
+]
+
+
+@pytest.mark.parametrize("name,mode,case", _NB_ANALYSIS_CASES)
+def test_every_analysis_nb_repeats_and_agrees(cuda, name, mode, case):
     """Each grouped analysis (the ring contraction on the tensor cores, in
     another order than nb = 1's) repeats its own bits from launch to
     launch, counts one launch at its nb a call, and lies within the
     float32 bar (float32, comp) or 1e-11 of the largest value (float64) of
-    the nb = 1 kernel and of the plain version."""
-    args, kw = _nb_inputs(name, mode, cuda)
+    the nb = 1 kernel and of the plain version.  B1's float32 and comp
+    groups count each launch as one of the warp-specialised body, and
+    orders above lmax give zero columns."""
+    args, kw = _nb_inputs(name, mode, cuda, case)
     kernel = getattr(sht_kernels, name)
     cdtype = torch.complex128 if mode == "f64" else torch.complex64
     plain = getattr(wigner, name + "_plain")
@@ -1156,14 +1178,22 @@ def test_every_analysis_nb_repeats_and_agrees(cuda, name, mode):
     want = want if isinstance(want, tuple) else (want,)
     base = kernel(*args, nb=1, **kw)
     base = base if isinstance(base, tuple) else (base,)
+    ws = name == "analysis_spin0_folded" and mode != "f64"
+    c = _NB_CASES[case]
+    zero = max(0, c["m0"] + c["nm"] - c["lmax"] - 1)  # orders above lmax
     for nb in wigner.GROUP_SIZES[name][1:]:
+        before = sht_kernels.LAUNCHES[sht_kernels.WS_LAUNCHES]
         first = _launch_once(kernel, name, nb, args, kw)
         again = _launch_once(kernel, name, nb, args, kw)
+        assert (sht_kernels.LAUNCHES[sht_kernels.WS_LAUNCHES]
+                == before + (2 if ws else 0))
         for a, b in zip(first, again, strict=True):
             assert torch.equal(a, b), (name, mode, nb)
         got = kernel(*args, nb=nb, **kw)
         got = got if isinstance(got, tuple) else (got,)
         for g, b, w in zip(got, base, want, strict=True):
+            if zero:
+                assert not g[..., -zero:].any()
             _assert_close(g, b, cdtype)
             _assert_close(g, w, cdtype)
 

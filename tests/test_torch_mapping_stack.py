@@ -102,8 +102,8 @@ def test_stacks_under_the_budget(spin, picks, monkeypatch):
     sizes, name = STACKS[spin]
     assert tracing.counts()["transform_stacks"] == {
         n: sizes.count(n) for n in sizes}
-    # B1 float32 skips nb 2 (``NB_SIZES``): its stack of 2 runs at nb 1
-    nbs = [4, 1] if spin == 0 else [4, 4, 2]
+    # B1 float32 groups every stack (``NB_SIZES``): 8 at nb 8, 2 at nb 2
+    nbs = [8, 2] if spin == 0 else [4, 4, 2]
     assert picks == [(n, name, "f32", nb) for n, nb in zip(sizes, nbs)]
 
     # the maps alone: the same bits
@@ -146,9 +146,10 @@ def cuda():
 
 @pytest.mark.cuda
 def test_stack_of_8_runs_b1_at_nb4_on_the_card(cuda, monkeypatch):
-    """8 float32 maps at nside 32 in one stack: one B1 launch at nb 4 (the
-    group's ring contraction on the tensor cores), its alms within the
-    float32 bar of the maps transformed alone (B1 at nb 1)."""
+    """8 float32 maps at nside 32 in one stack: one B1 launch at nb 8 (the
+    group's warp-specialised body, its ring contraction on the tensor
+    cores; nb 4 until B1's float32 groups took every size), its alms
+    within the float32 bar of the maps transformed alone (B1 at nb 1)."""
     nside, lmax = 32, 48
     npix = 12 * nside**2
     monkeypatch.setattr(mapping, "_STACK_BYTES", 8 * 4 * npix)
@@ -164,7 +165,8 @@ def test_stack_of_8_runs_b1_at_nb4_on_the_card(cuda, monkeypatch):
     stacked = th.transform(fields, data)
     torch.cuda.synchronize()
     assert dict(sht_kernels.LAUNCHES_BY_NB) == {
-        ("analysis_spin0_folded", 4): 1}
+        ("analysis_spin0_folded", 8): 1}
+    assert sht_kernels.LAUNCHES[sht_kernels.WS_LAUNCHES] == 1
     assert tracing.TRANSFORM_STACKS == {8: 1}
     atol, rtol = BAR
     for key, a in alone.items():

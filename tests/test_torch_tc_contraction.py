@@ -156,29 +156,29 @@ def _close(got, want, bar=BAR):
                                atol=bar[0] * np.abs(want).max())
 
 
-def _lam(spin, x, logch, logsh):
+def _lam(spin, x, logch, logsh, lmax=LMAX):
     """The plain recurrence's float32 emitted values of the orders
-    0..LMAX at column n = spin, (LMAX + 1, nhalf, nm); zero below j0."""
-    nm = LMAX + 1
+    0..lmax at column n = spin, (lmax + 1, nhalf, nm); zero below j0."""
+    nm = lmax + 1
     ms = np.arange(nm)
     ns = np.full(nm, spin)
     j0 = np.maximum(ms, abs(spin))  # non-decreasing: the lanes are in order
-    lam = torch.zeros((LMAX + 1, x.shape[0], nm), dtype=torch.float32)
-    for ell, rows in wigner._lambda_rows(ms, ns, j0, x, logch, logsh, LMAX,
+    lam = torch.zeros((lmax + 1, x.shape[0], nm), dtype=torch.float32)
+    for ell, rows in wigner._lambda_rows(ms, ns, j0, x, logch, logsh, lmax,
                                          torch.float32, "cpu"):
         lam[ell, :, :rows.shape[1]] = rows
     return lam
 
 
-def _norm():
-    ells = np.arange(LMAX + 1)
+def _norm(lmax=LMAX):
+    ells = np.arange(lmax + 1)
     norm = np.sqrt((2.0 * ells + 1.0) / (4 * math.pi)).astype(np.float32)
     return torch.as_tensor(norm)[:, None]
 
 
-def _spectra(nb, count, seed):
+def _spectra(nb, count, seed, nside=NSIDE, lmax=LMAX):
     rng = np.random.default_rng(seed)
-    shape = (nb, 2 * NSIDE, LMAX + 1)
+    shape = (nb, 2 * nside, lmax + 1)
     return [torch.as_tensor(rng.normal(size=shape) + 1j * rng.normal(size=shape),
                             dtype=torch.complex64) for _ in range(count)]
 
@@ -246,3 +246,90 @@ def test_1xtf32_contraction_fails_the_float32_bar(name):
     with pytest.raises(AssertionError):
         for g, w in zip(got, want, strict=True):
             _close(g, w)
+
+
+# -- the order of the warp-specialised B1 body (float32 and comp groups) ------
+
+# 600 rings: two tiles of 512 (the second ragged), 8 producer slices of 64
+# rings a tile, 8 k-steps of 8 rings a slice
+WS_NSIDE, WS_LMAX = 300, 40
+
+
+def _ws_tiles(a, b, dim, passes, one_chain):
+    """The contraction over ``dim`` of float32 ``a`` and ``b`` in the card's
+    order for the warp-specialised body, one sum per ring tile of 512
+    (moved to the last axis): each mma sums its k-step's 8 products (here
+    in float32) into a chain; per producer slice of 64 rings either two
+    chains over the 8 k-steps, (lo hi, hi lo) and hi hi, added at the end
+    (one column tile of maps), or one chain taking lo hi, hi lo and hi hi
+    in turn (two column tiles); the 8 slices' sums added in order.
+    ``passes=1``: the hi hi chain alone."""
+    ah, al = split_tf32(a)
+    bh, bl = split_tf32(b)
+    terms = [ah * bh] if passes == 1 else [al * bh, ah * bl, ah * bh]
+    terms = [t.movedim(dim, -1) for t in terms]
+    rings = terms[0].shape[-1]
+    pad = -rings % 512
+    steps = [torch.nn.functional.pad(t, (0, pad)).unflatten(-1, (-1, 8, 8, 8))
+             .sum(-1) for t in terms]  # (..., tile, slice, k-step)
+    zero = torch.zeros_like(steps[0][..., 0])
+    if passes == 1:
+        acc = zero
+        for k in range(8):
+            acc = acc + steps[0][..., k]
+    elif one_chain:
+        acc = zero
+        for k in range(8):
+            for t in steps:
+                acc = acc + t[..., k]
+    else:
+        small, big = zero, zero
+        for k in range(8):
+            small = (small + steps[0][..., k]) + steps[1][..., k]
+            big = big + steps[2][..., k]
+        acc = small + big
+    out = torch.zeros_like(acc[..., 0])
+    for v in range(8):
+        out = out + acc[..., v]
+    return out  # (..., tile)
+
+
+def _spin0_ws_model(Fe, Fo, geom, passes, one_chain):
+    """The spin-0 group's contraction in the warp-specialised body's order:
+    each multipole's rows of its parity against the emitted values, a tile
+    of 512 rings at a time, each tile's sum times the norm added to the
+    earlier tiles' as the flush does."""
+    lam = _lam(0, *geom, lmax=WS_LMAX)
+    ells = torch.arange(WS_LMAX + 1)
+    F = torch.where((ells % 2 == 0)[None, :, None, None, None],
+                    torch.view_as_real(Fe)[:, None],
+                    torch.view_as_real(Fo)[:, None])  # (nb, l, ring, m, 2)
+    tiles = _ws_tiles(lam[None, ..., None], F, 2, passes, one_chain)
+    norm = _norm(WS_LMAX)[..., None]
+    out = torch.zeros_like(tiles[..., 0])
+    for i in range(tiles.shape[-1]):
+        out = out + tiles[..., i] * norm
+    return torch.view_as_complex(out.contiguous())
+
+
+def _ws_case(passes, one_chain):
+    geom = sht._geometry(WS_NSIDE, "cpu")
+    ops = _spectra(2, 2, 7, nside=WS_NSIDE, lmax=WS_LMAX)
+    got = _spin0_ws_model(*ops, geom, passes, one_chain)
+    want = wigner.analysis_spin0_folded_plain(
+        *(F.to(torch.complex128) for F in ops), *geom, WS_LMAX)
+    return got, want
+
+
+@pytest.mark.parametrize("one_chain", [False, True],
+                         ids=["two-chains", "one-chain"])
+def test_ws_order_passes_the_float32_bar(one_chain):
+    got, want = _ws_case(3, one_chain)
+    assert got.shape == want.shape
+    _close(got, want)
+
+
+def test_ws_order_1xtf32_fails_the_float32_bar():
+    got, want = _ws_case(1, False)
+    with pytest.raises(AssertionError):
+        _close(got, want)
